@@ -1,0 +1,558 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (gubernator_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one output line each:
+
+1. the card (``nvidia-smi`` name and power limit) and the time to build
+   every CUDA kernel from ``gubernator_tpu_torch/csrc`` (nvcc, in parallel);
+2. each kernel against its plain PyTorch version on the card, bit for bit:
+   the fused tick on a 32768-lane window over a 2^20-slot random table
+   (all five algorithms, every behavior flag, Gregorian rows, padding and
+   edge lanes), gather and scatter on 32768 random slots; with CUDA-event
+   times (median of 25) of each kernel, its plain version and, for
+   gather/scatter, ``index_select`` / ``index_copy_`` as a yardstick;
+3. the engine at full size: ``TickEngine(capacity=10_000_000,
+   max_batch=32768)`` serves windows that are first held against a
+   ``device="cpu"`` engine (a unique window, a Zipf(1.2) duplicate window,
+   a revisit), then a 10M-key prefill, 32 pipelined unique windows
+   (decisions/s, and the host's time per window split into slot lookup,
+   packing and sort), a Zipf(1.2) window of 32768 (rank rounds) and a window
+   of fresh keys against the full table (reclaim: gather + scatter), with
+   every kernel's launch count over the phase.
+
+Then the kernel table as one JSON line, the card line, and last
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
+without a CUDA device the script exits non-zero before printing a result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 20261016
+NOW = 1_700_000_000_000
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and int32 operations/s
+# of the CUDA cores (132 SMs x 64 lanes x 1.98 GHz boost).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations one fused-tick lane does, counted from
+# csrc/transition.cuh: ~200 int64 adds, compares and selects at two int32
+# operations each (an estimate; the float64 work is a handful of
+# operations a lane and is left out).
+FUSED_TICK_INT32_OPS_PER_LANE = 400
+REPS = 25        # timed runs a measurement; the median is kept
+INNER = 8        # launches between the two events of one timed run
+SLEEP_CYCLES = 4_000_000  # ~2 ms: the card waits while the host queues
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fns, reps: int = REPS) -> float:
+    """Device time of one call, from CUDA events: the median over ``reps``
+    runs of INNER back-to-back calls, each run queued behind a ~2 ms
+    device sleep so the events time the card and not the host's launch
+    overhead.  ``fns`` is one callable or a list whose calls rotate (inputs
+    spread over more than the 50 MB L2, as the main path finds them)."""
+    fns = fns if isinstance(fns, list) else [fns]
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    times = []
+    k = 0
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        for _ in range(INNER):
+            fns[k % len(fns)]()
+            k += 1
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / INNER)
+    return float(np.median(times))
+
+
+# ----------------------------------------------------------------------
+# Inputs (numpy, from SEED)
+# ----------------------------------------------------------------------
+def random_state(rng, n: int) -> dict:
+    """Per-slot logical state over all five algorithms."""
+    alg = rng.integers(0, 5, n)
+    limit = rng.choice([1, 7, 10, 1000, 2000, 10**13], n)
+    return {
+        "algorithm": alg,
+        "limit": limit,
+        "remaining": rng.integers(-3, 30, n),
+        "remaining_f": rng.integers(0, 25, n) + rng.integers(0, 8, n) / 8.0,
+        "duration": rng.choice([500, 1_000, 2_000, 30_000, 120_000], n),
+        "created_at": NOW - rng.integers(0, 120_000, n),
+        "updated_at": NOW - rng.integers(-5_000, 120_000, n),
+        "burst": rng.choice([0, 3, 5, 50, 10**6], n),
+        "status": (rng.random(n) < 0.2).astype(np.int64),
+        "expire_at": NOW + rng.choice([-10_000, -1, 0, 1, 60_000], n),
+        "in_use": rng.random(n) < 0.85,
+        "tat": NOW + rng.integers(-60_000, 60_000, n),
+        "prev_count": rng.integers(0, 30, n),
+    }
+
+
+def random_requests(rng, n: int) -> dict:
+    """Request columns mixing all algorithms and behavior flags."""
+    beh = np.zeros(n, np.int64)
+    p = rng.random(n)
+    beh[p < 0.15] = 8                       # RESET_REMAINING
+    beh[(p >= 0.15) & (p < 0.3)] = 32       # DRAIN_OVER_LIMIT
+    beh[(p >= 0.3) & (p < 0.35)] = 8 | 32
+    beh |= rng.choice([0, 1, 2, 16], n)     # NO_BATCHING, GLOBAL, MULTI_REGION
+    greg = (p >= 0.35) & (p < 0.45)
+    beh[greg] |= 4                          # DURATION_IS_GREGORIAN
+    return {
+        "known": rng.random(n) < 0.8,
+        "algorithm": rng.integers(0, 5, n),
+        "behavior": beh,
+        "hits": rng.choice([0, 1, 2, 5, 100, -1, -50, 10**12], n),
+        "limit": rng.choice([3, 10, 1000, 1 << 34], n),
+        "duration": rng.choice([0, 1_000, 30_000, 3_600_000], n),
+        "created_at": NOW - rng.choice([0, 0, 500, 3_000, 61_000, -500], n),
+        "burst": rng.choice([0, 5, 20, 2000], n),
+        "greg_exp": np.where(greg, NOW + rng.choice([500, 3_600_000], n), 0),
+        "greg_dur": np.where(greg, rng.choice([3_600_000, 86_400_000], n), 0),
+    }
+
+
+# Lanes at the arithmetic edges: float64 -> int64 out of range (the leak
+# of a 1e-13 rate), NaN/inf/negative leaky remainders, int64 products
+# that wrap, zero/negative limits and durations across the zoo, and an
+# algorithm value past the enum.  (request fields, stored-state fields)
+EDGE = [
+    (dict(algorithm=1, limit=10**13, duration=1, hits=1),
+     dict(algorithm=1, updated_at=0, remaining_f=3.5)),
+    (dict(algorithm=1, limit=10**13, duration=1, hits=1),
+     dict(algorithm=1, updated_at=2 * NOW, remaining_f=2.0)),
+    (dict(algorithm=1, limit=10, duration=30_000, hits=1),
+     dict(algorithm=1, remaining_f=float("nan"))),
+    (dict(algorithm=1, limit=10, duration=30_000, hits=0),
+     dict(algorithm=1, remaining_f=float("inf"))),
+    (dict(algorithm=1, limit=10, duration=30_000, hits=2),
+     dict(algorithm=1, remaining_f=-float("inf"))),
+    (dict(algorithm=0, limit=10, duration=30_000, hits=0, behavior=8),
+     dict(algorithm=0, remaining_f=-7.25)),
+    (dict(algorithm=1, limit=2**62, duration=2**62, hits=10**12, known=0),
+     dict(algorithm=1)),
+    (dict(algorithm=1, limit=-(2**62), duration=2**62 - 1, hits=3, known=0),
+     dict(algorithm=1)),
+    (dict(algorithm=2, limit=0, duration=0, hits=1), dict(algorithm=2)),
+    (dict(algorithm=2, limit=5, duration=-10, hits=2, created_at=-5),
+     dict(algorithm=2)),
+    (dict(algorithm=3, limit=-4, duration=-1000, hits=-2), dict(algorithm=3)),
+    (dict(algorithm=3, limit=7, duration=1000, hits=10**12, burst=2**40),
+     dict(algorithm=3)),
+    (dict(algorithm=4, limit=3, duration=1000, hits=2**62), dict(algorithm=4)),
+    (dict(algorithm=2, limit=5, duration=1000, hits=1),
+     dict(algorithm=2, prev_count=2**62, created_at=NOW - 1500)),
+    (dict(algorithm=7, limit=5, duration=1000, hits=1), dict(algorithm=2)),
+]
+
+
+def fused_window(engine_mod, rng, cap: int, lanes: int, state: dict):
+    """A slot-sorted unique (19, lanes) REQ32 window: random live lanes,
+    the EDGE lanes (their slots' stored state overwritten in ``state``),
+    and 64 padding lanes."""
+    n = lanes - 64
+    slots = np.sort(rng.choice(cap, n, replace=False))
+    req = random_requests(rng, n)
+    edge_at = rng.choice(n, len(EDGE), replace=False)
+    for k, (r, s) in zip(edge_at, EDGE):
+        for f, v in r.items():
+            req[f][k] = v
+        req["known"][k] = r.get("known", 1)
+        slot = slots[k]
+        for f in state:
+            state[f][slot] = 0
+        state["expire_at"][slot] = NOW + 60_000
+        state["in_use"][slot] = True
+        state["remaining"][slot] = 2
+        state["updated_at"][slot] = NOW - 5_000
+        state["created_at"][slot] = NOW - 5_000
+        for f, v in s.items():
+            state[f][slot] = v
+    R = engine_mod.REQ32_INDEX
+    m = np.zeros((engine_mod.REQ32_ROWS, lanes), np.int32)
+    m[R["slot"]] = cap
+    m[R["slot"], :n] = slots
+    m[R["valid"], :n] = 1
+    for f in ("known", "algorithm", "behavior"):
+        m[R[f], :n] = req[f]
+    for f in engine_mod.REQ32_WIDE:
+        engine_mod.pack_wide_rows(m, f, req[f], slice(0, n))
+    return m, n
+
+
+def key_blob(prefix: bytes, ids) -> tuple[bytes, np.ndarray]:
+    """Fixed-width keys ``prefix + 8 decimal digits``, built without a
+    per-key Python loop."""
+    ids = np.asarray(ids, np.int64)
+    p = len(prefix)
+    a = np.empty((len(ids), p + 8), np.uint8)
+    a[:, :p] = np.frombuffer(prefix, np.uint8)
+    for d in range(8):
+        a[:, p + 7 - d] = 48 + (ids // 10**d) % 10
+    return a.tobytes(), np.arange(len(ids) + 1, dtype=np.int64) * (p + 8)
+
+
+def window_columns(reqcols, rng, prefix: bytes, ids, now: int, prefill=False):
+    """A ReqColumns window over keys ``prefix + id``: the prefill is one
+    token hit on a one-hour bucket; other windows mix every algorithm and
+    flag, with a few invalid Gregorian selectors (per-item errors)."""
+    n = len(ids)
+    blob, offsets = key_blob(prefix, ids)
+    if prefill:
+        one = np.ones(n, np.int64)
+        return reqcols.ReqColumns(
+            blob, offsets, one, one * 100, one * 3_600_000, one * 0, one * 0,
+            one * now, one * 0)
+    r = random_requests(rng, n)
+    greg = (r["behavior"] & 4) != 0
+    dur = np.where(greg, rng.choice([0, 1, 2, 3, 4, 5, 9], n), r["duration"])
+    return reqcols.ReqColumns(
+        blob, offsets, r["hits"], r["limit"], dur, r["algorithm"],
+        r["behavior"], np.where(rng.random(n) < 0.5, -1, r["created_at"]),
+        r["burst"])
+
+
+# ----------------------------------------------------------------------
+# Phases
+# ----------------------------------------------------------------------
+def _entry(name, source, replaces, err, ms, plain_ms, library_ms,
+           nbytes, ops):
+    """One kernel's measurements; the bound is the larger of its bytes
+    over the HBM rate and its int32 operations over the CUDA cores'."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=library_ms, bytes=nbytes, ops=ops,
+    )
+
+
+def _max_abs(torch, a, b) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8):
+    """Each kernel against its plain version on the card, bit for bit, and
+    their times.  Timed inputs rotate over ``rotate`` windows / slot sets
+    of the 128 MB table, so most rows come from HBM as in the engine."""
+    from gubernator_tpu_torch.carry import table_from_columns
+    from gubernator_tpu_torch.ops import engine as E
+    from gubernator_tpu_torch.ops import rowtable
+    from gubernator_tpu_torch.ops.fusedtick import fused_tick, fused_tick_plain
+
+    rng = np.random.default_rng(SEED)
+    cap = table_slots
+    state = random_state(rng, cap)
+    m, live = fused_window(E, rng, cap, lanes, state)
+    table = table_from_columns(state, cap, dev)
+    wins = [torch.from_numpy(m).to(dev)] + [
+        torch.from_numpy(fused_window(E, rng, cap, lanes, state)[0]).to(dev)
+        for _ in range(rotate - 1)]
+    out = {}
+
+    t_k, t_p = table.clone(), table.clone()
+    r_k = fused_tick(t_k, wins[0], NOW)
+    r_p = fused_tick_plain(t_p, wins[0], NOW, torch.empty_like(r_k))
+    torch.cuda.synchronize()
+    err = max(_max_abs(torch, r_k, r_p), _max_abs(torch, t_k, t_p))
+    assert torch.equal(r_k, r_p), "fused_tick response differs from plain"
+    assert torch.equal(t_k, t_p), "fused_tick table differs from plain"
+    del t_k, t_p
+    scratch = table.clone()
+    resp = torch.empty_like(r_k)
+    out["fused_tick"] = _entry(
+        "fused_tick", "gubernator_tpu_torch/csrc/fused_tick.cu",
+        "gubernator_tpu/ops/fusedtick.py:189", err,
+        time_ms(torch, [lambda w=w: fused_tick(scratch, w, NOW, out=resp)
+                        for w in wins]),
+        time_ms(torch, [lambda w=w: fused_tick_plain(scratch, w, NOW, resp)
+                        for w in wins], reps=5),
+        None, live * 256 + lanes * (76 + 24),
+        live * FUSED_TICK_INT32_OPS_PER_LANE)
+
+    def slot_sets(n, guard_every=0):
+        sets = []
+        for _ in range(rotate):
+            s = torch.from_numpy(
+                rng.choice(cap, n, replace=False).astype(np.int64)).to(dev)
+            if guard_every:
+                s[::guard_every] = cap  # guard-row lanes: dropped
+            sets.append(s)
+        return sets
+
+    def check_gather(sets):
+        g_k = rowtable.gather_rows(table, sets[0])
+        g_p = rowtable.gather_rows_plain(table, sets[0])
+        torch.cuda.synchronize()
+        assert torch.equal(g_k, g_p), "gather_rows differs from plain"
+        n = sets[0].numel()
+        return _entry(
+            "gather_rows", "gubernator_tpu_torch/csrc/rows.cu",
+            "gubernator_tpu/ops/rowtable.py:257", _max_abs(torch, g_k, g_p),
+            time_ms(torch, [lambda s=s: rowtable.gather_rows(table, s)
+                            for s in sets]),
+            time_ms(torch, [lambda s=s: rowtable.gather_rows_plain(table, s)
+                            for s in sets]),
+            time_ms(torch, [lambda s=s: torch.index_select(table, 0, s)
+                            for s in sets]),
+            n * (8 + 256), 0)
+
+    def check_scatter(sets, rows):
+        s_k, s_p = table.clone(), table.clone()
+        rowtable.scatter_rows(s_k, sets[0], rows)
+        rowtable.scatter_rows_plain(s_p, sets[0], rows)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, s_p), "scatter_rows differs from plain"
+        err = _max_abs(torch, s_k, s_p)
+        del s_k, s_p
+        n_live = int((sets[0] < cap).sum())
+        return _entry(
+            "scatter_rows", "gubernator_tpu_torch/csrc/rows.cu",
+            "gubernator_tpu/ops/rowtable.py:223", err,
+            time_ms(torch, [lambda s=s: rowtable.scatter_rows(scratch, s, rows)
+                            for s in sets]),
+            time_ms(torch, [lambda s=s: rowtable.scatter_rows_plain(
+                scratch, s, rows) for s in sets]),
+            time_ms(torch, [lambda s=s: scratch.index_copy_(0, s, rows)
+                            for s in sets]),
+            sets[0].numel() * 8 + n_live * 256, 0)
+
+    out["gather_rows"] = check_gather(slot_sets(lanes))
+    rows = torch.from_numpy(
+        rng.integers(-2**62, 2**62, (lanes, 16)).astype(np.int64)).to(dev)
+    out["scatter_rows"] = check_scatter(slot_sets(lanes, guard_every=97), rows)
+
+    # The shapes reclaim gives them: the dead-slot scan gathers ascending
+    # candidate slots SCAN_CHUNK at a time, eviction scatters zero rows in
+    # chunks of EVICT_CHUNK.
+    scan = min(rowtable.SCAN_CHUNK, cap)
+    main = {
+        "gather_rows": check_gather(
+            [torch.arange(scan, dtype=torch.int64, device=dev)]),
+        "scatter_rows": check_scatter(
+            slot_sets(E.EVICT_CHUNK),
+            torch.zeros((E.EVICT_CHUNK, 16), dtype=torch.int64, device=dev)),
+    }
+    for name, e in main.items():
+        out[name]["at_reclaim_shape"] = {
+            "rows": scan if name == "gather_rows" else E.EVICT_CHUNK,
+            **{k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "max_abs_err")}}
+    return out
+
+
+def host_split(eng, wins, now) -> dict:
+    """Host time a window of known keys spends in each step of
+    ``_build_cols``, re-run outside the engine: the slot-map lookup, the
+    REQ32 packing and the sort by slot (mean ms over ``wins``).  Lookups
+    of mapped keys change nothing in the map."""
+    from gubernator_tpu_torch.ops import engine as E
+
+    t = {"slot_resolve": 0.0, "pack": 0.0, "sort": 0.0}
+    for cols in wins:
+        t0 = time.perf_counter()
+        slots, known = eng.slots.resolve_blob(cols.key_blob, cols.key_offsets)
+        t1 = time.perf_counter()
+        m = np.zeros((E.REQ32_ROWS, len(cols)), np.int32)
+        E.pack_cols_req32(m, cols, slots, known, now, slice(0, len(cols)))
+        t2 = time.perf_counter()
+        E.sort_packed_by_slot(m, len(cols), eng.capacity)
+        t3 = time.perf_counter()
+        assert (known == 1).all()
+        t["slot_resolve"] += t1 - t0
+        t["pack"] += t2 - t1
+        t["sort"] += t3 - t2
+    return {k: v / len(wins) * 1e3 for k, v in t.items()}
+
+
+def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
+                 ref_capacity=1 << 20, compare_zipf=8192, fused_ms=None):
+    import gubernator_tpu_torch as gt
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.ops.engine import TickEngine, resolve_ticks
+
+    rng = np.random.default_rng(SEED + 1)
+    eng = TickEngine(capacity=capacity, max_batch=width, device=dev)
+    ref = TickEngine(capacity=ref_capacity, max_batch=width, device="cpu")
+    info = {}
+    now = NOW
+    gt.reset_kernel_launches()
+
+    # Windows held against the CPU engine: same keys, same now, same
+    # answers (slot numbers differ, state per key does not).
+    n_c = width
+    compare = [
+        ("unique", np.arange(n_c)),
+        ("zipf", (rng.zipf(1.2, compare_zipf) - 1) % (4 * n_c)),
+        ("revisit", rng.permutation(n_c)),
+    ]
+    for name, ids in compare:
+        now += 1_000
+        cols = window_columns(reqcols, rng, b"c", ids, now)
+        got, gerr = eng.process_columns(cols, now)
+        want, werr = ref.process_columns(cols, now)
+        assert gerr == werr, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    info["compared_windows"] = len(compare)
+    info["per_item_errors"] = len(gerr)
+
+    # Prefill the table to capacity with one-hour token buckets.
+    t0 = time.perf_counter()
+    base = len(eng.slots)
+    todo = capacity - base
+    chunk = 32 * width
+    for s in range(0, todo, chunk):
+        ids = np.arange(s, min(s + chunk, todo))
+        mat, errs = eng.process_columns(
+            window_columns(reqcols, rng, b"p", ids, now, prefill=True), now)
+        assert not errs and (mat[2] == 99).all()
+    assert len(eng.slots) == capacity
+    info["prefill_s"] = time.perf_counter() - t0
+    info["prefill_decisions_per_s"] = todo / info["prefill_s"]
+
+    # Pipelined unique windows over the prefilled keys: submit four, then
+    # resolve them with one device-to-host copy.  Host time is split into
+    # submitting (slot resolve, pack, sort, upload, launch) and resolving
+    # (waiting for the card, the copy back, unpacking).
+    wins = [window_columns(reqcols, rng, b"p",
+                           rng.choice(todo, width, replace=False), now + 2_000)
+            for _ in range(windows)]
+    torch.cuda.synchronize()
+    submit_s = resolve_s = 0.0
+    t0 = time.perf_counter()
+    pending, done = [], []
+    for cols in wins:
+        t1 = time.perf_counter()
+        pending.append(eng.submit_columns(cols, now + 2_000))
+        t2 = time.perf_counter()
+        submit_s += t2 - t1
+        if len(pending) == 4:
+            resolve_ticks(pending)
+            resolve_s += time.perf_counter() - t2
+            done += pending
+            pending = []
+    t2 = time.perf_counter()
+    resolve_ticks(pending)
+    resolve_s += time.perf_counter() - t2
+    done += pending
+    dt = time.perf_counter() - t0
+    info["unique_windows"] = windows
+    info["decisions_per_s"] = windows * width / dt
+    info["window_ms"] = dt / windows * 1e3
+    info["submit_ms_per_window"] = submit_s / windows * 1e3
+    info["resolve_ms_per_window"] = resolve_s / windows * 1e3
+    if fused_ms is not None:
+        # The fused tick's phase-2 device time at this width over the
+        # host's time per window: the card's busy share, estimated.
+        info["fused_tick_busy_share_est"] = fused_ms / info["window_ms"]
+    for h in done:
+        mat, _ = h.result()
+        assert mat.shape == (5, width) and np.isin(mat[4], (0, 1)).all()
+    info["host_split_ms"] = host_split(eng, wins[:4], now + 2_000)
+
+    # A Zipf(1.2) window: duplicates run as rank rounds.
+    r0 = eng.metric_rank_rounds
+    ids = (rng.zipf(1.2, width) - 1) % todo
+    zipf = window_columns(reqcols, rng, b"p", ids, now + 3_000)
+    t0 = time.perf_counter()
+    mat, _ = eng.process_columns(zipf, now + 3_000)
+    info["zipf_window_s"] = time.perf_counter() - t0
+    assert mat.shape == (5, width)
+    info["zipf_unique_keys"] = int(len(np.unique(ids)))
+    info["zipf_rank_rounds"] = eng.metric_rank_rounds - r0
+
+    # Fresh keys against the full table: reclaim evicts LRU victims.
+    fresh = window_columns(reqcols, rng, b"f", np.arange(width), now + 4_000)
+    t0 = time.perf_counter()
+    got, gerr = eng.process_columns(fresh, now + 4_000)
+    info["reclaim_window_s"] = time.perf_counter() - t0
+    want, werr = ref.process_columns(fresh, now + 4_000)
+    assert gerr == werr
+    np.testing.assert_array_equal(got, want, err_msg="fresh")
+    info["evictions"] = eng.metric_unexpired_evictions
+    assert eng.metric_unexpired_evictions > 0
+    torch.cuda.synchronize()
+    launches = gt.kernel_launches()
+    info["launches"] = launches
+    for name, count in launches.items():
+        assert count > 0, f"{name} was not launched on the main path"
+    return info, launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gubernator_tpu_torch import _build
+
+    dev = torch.device("cuda")
+    card = card_line()
+    t0 = time.perf_counter()
+    libs = _build.build(*_build.CUDA_LIBS)
+    build_s = time.perf_counter() - t0
+    ptxas = {}
+    for path in libs:
+        with open(path + ".log") as fh:
+            ptxas[os.path.basename(path)] = [
+                ln.strip() for ln in fh if "registers" in ln or "spill" in ln]
+    print("phase1 " + json.dumps({"card": card, "build_s": build_s,
+                                  "torch": torch.__version__,
+                                  "cuda": torch.version.cuda,
+                                  "ptxas": ptxas}), flush=True)
+
+    kernels = kernel_phase(torch, dev)
+    print("phase2 " + json.dumps(kernels), flush=True)
+
+    info, launches = engine_phase(torch, dev,
+                                  fused_ms=kernels["fused_tick"]["ms"])
+    print("phase3 " + json.dumps(info), flush=True)
+
+    table = []
+    for name in ("fused_tick", "gather_rows", "scatter_rows"):
+        k = kernels[name]
+        table.append({
+            "name": name, "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"], "launches": launches[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        })
+    print(json.dumps({"kernels": table}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,32 @@
+// Host build of the fused tick's lane loop, for tests only.
+//
+// Compiles transition.cuh as plain C++ and runs the same per-lane steps as
+// fused_tick.cu's kernel (guard-row read for padding lanes, no table write
+// for them, zero response), one lane after another.  The CPU tests hold it
+// against the plain PyTorch version (ops/fusedtick.py), which checks the
+// kernel's arithmetic on a machine without a GPU; the kernel itself is
+// held against the plain version on the card by chip_smoke.py.
+
+#include <stdint.h>
+
+#include "transition.cuh"
+
+extern "C" int gt_fused_tick_host(int64_t* table, int64_t capacity,
+                                  const int32_t* m32, int64_t ld_m,
+                                  int32_t* resp, int64_t ld_r, int64_t lanes,
+                                  int64_t now) {
+  for (int64_t j = 0; j < lanes; ++j) {
+    gt::Req r = gt::load_req(m32, ld_m, j);
+    bool live = r.valid != 0 && r.slot >= 0 && r.slot < capacity;
+    int64_t slot = live ? r.slot : capacity;
+    int64_t s[gt::ROW_W];
+    int64_t o[gt::ROW_W];
+    for (int w = 0; w < gt::ROW_W; ++w) s[w] = table[slot * gt::ROW_W + w];
+    gt::Resp p = gt::transition(now, s, r, o);
+    if (live) {
+      for (int w = 0; w < gt::ROW_W; ++w) table[slot * gt::ROW_W + w] = o[w];
+    }
+    gt::store_resp(resp, ld_r, j, p, live);
+  }
+  return 0;
+}

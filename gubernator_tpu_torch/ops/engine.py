@@ -1,0 +1,637 @@
+"""Tick-batched rate-limit engine on one CUDA device.
+
+Port of the TPU package's ``ops/engine.py`` main path.  The whole bucket
+table is one device-resident (capacity + 1, 16) int64 tensor (see
+ops/buckets.py), and a *tick* applies a window of requests in place:
+
+    host: resolve keys → slots (native slot map), pack the (19, B) int32
+          REQ32 matrix, sort it by slot
+    device: fused tick kernel (gather row → transition → scatter row →
+          compact (6, B) response)
+    host: un-permute, rebuild the public (5, n) int64 response matrix
+
+Windows whose slots repeat run as rank rounds (ops/tick.py), which keeps
+the reference's sequential per-key semantics.  The host owns the
+key→slot map, stamps time, resolves Gregorian calendar math and reclaims
+slots (TTL first, then LRU), synchronously when a window does not fit.
+
+Not in this engine yet: background reclaim, the cold/SSD tiers and the
+Store, quota leases, GLOBAL installs, snapshot export/load.  Constructor
+options for them raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from gubernator_tpu_torch import DeviceLike, resolve_device
+from gubernator_tpu_torch.native import NativeSlotMap
+from gubernator_tpu_torch.ops.buckets import zeros_table
+from gubernator_tpu_torch.ops import rowtable, tick
+from gubernator_tpu_torch.ops.fusedtick import (  # noqa: F401
+    REQ32_INDEX, REQ32_ROWS, REQ32_WIDE, fused_tick)
+from gubernator_tpu_torch.ops.reqcols import (
+    CREATED_UNSET, ReqColumns, compact_blob)
+from gubernator_tpu_torch.types import (
+    Behavior, RateLimitRequest, RateLimitResponse)
+from gubernator_tpu_torch.utils import timeutil
+
+
+def pad_pow2(n: int) -> int:
+    """Next power of two ≥ n."""
+    return 1 << max(0, (int(n) - 1)).bit_length()
+
+
+def split_i64(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """int64 → (lo, hi) int32 pair, the wire format's wide encoding."""
+    return (
+        (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
+        (v >> 32).astype(np.int32),
+    )
+
+
+def pack_wide_rows(m32: np.ndarray, name: str, values, ix) -> None:
+    """Write an int64 column as its (lo, hi) int32 row pair."""
+    lo, hi = split_i64(np.asarray(values, np.int64))
+    r = REQ32_INDEX[name]
+    m32[r, ix] = lo
+    m32[r + 1, ix] = hi
+
+
+def pack_cols_req32(m32: np.ndarray, cols: ReqColumns, slots, known,
+                    now: int, ix) -> None:
+    """Write one resolved batch's request columns into a staging slab;
+    ``ix`` selects the packed lanes (a slice for the contiguous no-error
+    batch, a fancy index when error rows are skipped)."""
+    R = REQ32_INDEX
+    m32[R["slot"], ix] = slots
+    m32[R["known"], ix] = known
+    m32[R["algorithm"], ix] = cols.algorithm[ix]
+    m32[R["behavior"], ix] = cols.behavior[ix]
+    m32[R["valid"], ix] = 1
+    pack_wide_rows(m32, "hits", cols.hits[ix], ix)
+    pack_wide_rows(m32, "limit", cols.limit[ix], ix)
+    pack_wide_rows(m32, "duration", cols.duration[ix], ix)
+    ca = cols.created_at[ix]
+    pack_wide_rows(
+        m32, "created_at", np.where(ca != CREATED_UNSET, ca, now), ix
+    )
+    pack_wide_rows(m32, "burst", cols.burst[ix], ix)
+
+
+def sort_packed_by_slot(m32: np.ndarray, n: int, capacity: int):
+    """Stable in-place sort of a packed batch's live lanes by slot
+    (same-slot requests keep arrival order).  Returns ``(inv, has_dups)``:
+    the request → sorted-lane permutation and whether any real slot
+    repeats."""
+    R = REQ32_INDEX
+    order = np.argsort(m32[R["slot"], :n], kind="stable")
+    m32[:, :n] = m32[:, :n][:, order]
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n)
+    sl = m32[R["slot"], :n]
+    has_dups = bool(((sl[1:] == sl[:-1]) & (sl[1:] < capacity)).any())
+    return inv, has_dups
+
+
+def join_i32_pair(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """(lo, hi) int32 pair → int64 (two's complement preserved)."""
+    return (
+        (np.asarray(hi).astype(np.int64) << 32)
+        | np.asarray(lo).astype(np.uint32).astype(np.int64)
+    )
+
+
+def unpack_resp_compact(raw: np.ndarray, limit_req: np.ndarray) -> np.ndarray:
+    """(6, n) int32 compact response in request order + the request-order
+    limit column → the public (5, n) int64 matrix (status, limit,
+    remaining, reset_time, over_limit).  The response ``limit`` is always
+    the request's, so the device does not send it."""
+    n = raw.shape[1]
+    out = np.empty((5, n), np.int64)
+    out[0] = raw[0]
+    out[1] = limit_req[:n]
+    out[2] = join_i32_pair(raw[2], raw[3])
+    out[3] = join_i32_pair(raw[4], raw[5])
+    out[4] = raw[1]
+    return out
+
+
+def masked_over_limit(resp_mat: np.ndarray, errors) -> int:
+    """Over-limit count from a (5, n) response with error lanes zeroed."""
+    over = resp_mat[4]
+    if errors:
+        over = over.copy()
+        over[list(errors)] = 0
+    return int(over.sum())
+
+
+class StagingRing:
+    """Reusable host staging slabs for the request upload.
+
+    On a CUDA engine the slabs are pinned, so the upload is an
+    asynchronous copy (``non_blocking=True``) that overlaps the previous
+    window's kernel.  A slab recycles only once the tick handle that
+    consumed it has resolved (its copy has completed by then); when every
+    slab is in flight the lease falls back to a fresh pageable allocation
+    rather than overwrite one.  Callers hold the engine lock."""
+
+    __slots__ = ("rows", "sentinel", "depth", "pinned", "_stage", "_next",
+                 "_leased")
+
+    def __init__(self, rows: int, sentinel: int, depth: int, pinned: bool):
+        self.rows = int(rows)
+        self.sentinel = int(sentinel)
+        self.depth = int(depth)
+        self.pinned = pinned
+        self._stage: Dict[int, list] = {}  # width -> [[slab, handle]]
+        self._next: Dict[int, int] = {}
+        self._leased: Optional[list] = None
+
+    def _slab(self, b: int) -> torch.Tensor:
+        return torch.empty((self.rows, b), dtype=torch.int32,
+                           pin_memory=self.pinned)
+
+    def lease(self, b: int) -> torch.Tensor:
+        """A zeroed (rows, b) int32 slab with the slot row set to the
+        padding sentinel."""
+        ring = self._stage.get(b)
+        if ring is None:
+            ring = self._stage[b] = [
+                [self._slab(b), None] for _ in range(self.depth)]
+            self._next[b] = 0
+        slot = None
+        start = self._next[b]
+        for k in range(len(ring)):
+            cand = ring[(start + k) % len(ring)]
+            h = cand[1]
+            if h is None or h._done is not None:
+                slot = cand
+                self._next[b] = (start + k + 1) % len(ring)
+                break
+        if slot is None:
+            m = torch.empty((self.rows, b), dtype=torch.int32)
+            self._leased = None
+        else:
+            slot[1] = None
+            m = slot[0]
+            self._leased = slot
+        m.fill_(0)
+        m[REQ32_INDEX["slot"]] = self.sentinel
+        return m
+
+    def retire(self, handle) -> None:
+        """Bind the most recent lease to the tick handle consuming it;
+        ``None`` frees the slab at once."""
+        if self._leased is not None:
+            self._leased[1] = handle
+            self._leased = None
+
+
+class SlotMap:
+    """Pure-Python key→slot map with the native map's interface and its
+    slot order (lowest free slot first, released slots reused last
+    released first)."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self._map: Dict[str, int] = {}
+        self._keys: List[Optional[str]] = [None] * capacity
+        self._free: List[int] = list(range(capacity - 1, -1, -1))
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    def assign(self, key: str) -> Optional[int]:
+        """The slot for key, allocating if new; None if the table is full."""
+        s = self._map.get(key)
+        if s is not None:
+            return s
+        if not self._free:
+            return None
+        s = self._free.pop()
+        self._map[key] = s
+        self._keys[s] = key
+        return s
+
+    def release(self, slot: int) -> None:
+        key = self._keys[slot]
+        if key is not None:
+            del self._map[key]
+            self._keys[slot] = None
+            self._free.append(slot)
+
+    def mapped_mask(self) -> np.ndarray:
+        return np.fromiter(
+            (k is not None for k in self._keys), np.bool_, count=self.capacity
+        )
+
+    def resolve_batch(self, keys: List[bytes]):
+        """(slots, known) for a batch of keys; slot -1 = table full."""
+        n = len(keys)
+        slots = np.empty(n, np.int64)
+        known = np.empty(n, np.uint8)
+        for j in range(n):
+            k = keys[j].decode()
+            s = self._map.get(k)
+            if s is not None:
+                slots[j] = s
+                known[j] = 1
+            else:
+                s = self.assign(k)
+                slots[j] = -1 if s is None else s
+                known[j] = 0
+        return slots, known
+
+    def resolve_blob(self, blob, offsets: np.ndarray):
+        mv = memoryview(blob)
+        return self.resolve_batch(
+            [bytes(mv[offsets[j] : offsets[j + 1]])
+             for j in range(len(offsets) - 1)]
+        )
+
+    def release_batch(self, slots: np.ndarray) -> None:
+        for s in slots:
+            self.release(int(s))
+
+    def keys_batch(self, slots: np.ndarray) -> List[bytes]:
+        """Keys of a batch of slots (b"" for unassigned)."""
+        return [(self._keys[int(s)] or "").encode() for s in slots]
+
+
+def select_reclaim_victims(
+    mapped: np.ndarray,
+    dead_dev: np.ndarray,
+    last_access: np.ndarray,
+    tick_count: int,
+    want: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """TTL-then-LRU victim selection (expired-on-read eviction plus
+    evict-oldest, lrucache.go:88-149).  Returns ``(expired, lru_victims)``
+    as slot indices.  Expired slots only release on the host; LRU victims
+    must also be evicted on the device.  ``mapped`` excludes host-pending
+    slots; slots touched this tick are excluded here."""
+    mapped = mapped & (last_access != tick_count)
+    dead = mapped & dead_dev
+    freed = np.flatnonzero(dead)
+    none = np.empty(0, np.int64)
+    if len(freed) >= want:
+        return freed, none
+    live = np.flatnonzero(mapped & ~dead)
+    n = min(want - len(freed), len(live))
+    if n <= 0:
+        return freed, none
+    if n >= len(live):
+        return freed, live
+    # argpartition: O(live); the order among victims does not matter.
+    return freed, live[np.argpartition(last_access[live], n - 1)[:n]]
+
+
+EVICT_CHUNK = 1 << 16
+
+
+def evict_chunked(table: torch.Tensor, victims: np.ndarray) -> None:
+    """Evict slots on the device in scatters of at most EVICT_CHUNK rows
+    (bounds the zero-row scratch at 8 MB)."""
+    for start in range(0, len(victims), EVICT_CHUNK):
+        part = torch.from_numpy(np.ascontiguousarray(
+            victims[start:start + EVICT_CHUNK], np.int64)).to(table.device)
+        rowtable.row_evict(table, part)
+
+
+class TickHandle:
+    """One dispatched tick: device work is queued, host readback deferred.
+
+    ``result()`` materializes the (5, n) response matrix in request order.
+    Idempotent; safe to call from another thread than the dispatcher."""
+
+    __slots__ = ("_engine", "_resp", "_n", "_inv", "errors", "_limit_req",
+                 "_done", "_flock")
+
+    def __init__(self, engine, resp, n, inv, errors, limit_req):
+        self._engine = engine
+        self._resp = resp
+        self._n = n
+        self._inv = inv
+        self.errors = errors
+        # Copied: the caller may rewrite its columns before resolving.
+        self._limit_req = np.array(limit_req[:n], np.int64, copy=True)
+        self._done: Optional[np.ndarray] = None
+        self._flock = threading.Lock()
+
+    def _finish(self, raw: np.ndarray) -> None:
+        """Complete from the host copy of the (6, W) compact response."""
+        with self._flock:
+            if self._done is not None:
+                return
+            rm = unpack_resp_compact(raw[:, : self._n][:, self._inv],
+                                     self._limit_req)
+            eng = self._engine
+            with eng._lock:
+                eng.metric_over_limit += masked_over_limit(rm, self.errors)
+            self._resp = None
+            self._done = rm
+
+    def result(self) -> tuple[np.ndarray, Dict[int, str]]:
+        if self._done is None:
+            self._finish(self._resp.cpu().numpy())
+        return self._done, self.errors
+
+
+def resolve_ticks(handles: Sequence[TickHandle]) -> None:
+    """Materialize many ticks' responses: same-shape responses are
+    concatenated on the device and cross to the host in one copy."""
+    todo = [h for h in handles if h._done is None]
+    groups: Dict[tuple, List[TickHandle]] = {}
+    for h in todo:
+        groups.setdefault(tuple(h._resp.shape), []).append(h)
+    for hs in groups.values():
+        if len(hs) == 1:
+            hs[0].result()
+            continue
+        stacked = torch.stack([h._resp for h in hs]).cpu().numpy()
+        for k, h in enumerate(hs):
+            h._finish(stacked[k])
+
+
+class SubmittedBatch:
+    """A dispatched batch of any width (one or more chunked ticks)."""
+
+    __slots__ = ("_handles", "_spans", "_n")
+
+    def __init__(self, handles, spans, n):
+        self._handles = handles
+        self._spans = spans
+        self._n = n
+
+    def handles(self) -> List[TickHandle]:
+        return self._handles
+
+    def matrix(self) -> tuple[np.ndarray, Dict[int, str]]:
+        """(5, n) response matrix in request order + per-item errors."""
+        resolve_ticks(self._handles)
+        out = np.empty((5, self._n), np.int64)
+        errors: Dict[int, str] = {}
+        for h, (s, e) in zip(self._handles, self._spans):
+            rm, errs = h.result()
+            out[:, s:e] = rm
+            for i, msg in errs.items():
+                errors[s + i] = msg
+        return out, errors
+
+    def responses(self) -> List[RateLimitResponse]:
+        mat, errors = self.matrix()
+        status, limit, remaining, reset = (mat[r].tolist() for r in range(4))
+        return [
+            RateLimitResponse(error=errors[i]) if i in errors
+            else RateLimitResponse(status=status[i], limit=limit[i],
+                                   remaining=remaining[i],
+                                   reset_time=reset[i])
+            for i in range(self._n)
+        ]
+
+
+class TickEngine:
+    """Owns the device table and applies request windows tick by tick.
+
+    Thread-safe: one lock covers slot resolution, packing and dispatch."""
+
+    def __init__(
+        self,
+        capacity: int = 1 << 16,
+        max_batch: int = 4096,
+        device: DeviceLike = None,
+        store=None,
+        bg_reclaim: Optional[bool] = None,
+        cold_capacity: int = 0,
+        ssd=None,
+    ):
+        for name, unsupported in (
+            ("store", store is not None),
+            ("cold_capacity", cold_capacity > 0),
+            ("ssd", ssd is not None),
+            ("bg_reclaim", bool(bg_reclaim)),
+        ):
+            if unsupported:
+                raise NotImplementedError(
+                    f"TickEngine({name}=...) is not ported to the torch "
+                    "engine yet")
+        self.capacity = int(capacity)
+        self.max_batch = int(max_batch)
+        self.device = resolve_device(device)
+        self.table = zeros_table(self.capacity, self.device)
+        # Width ladder: one narrow width for typical service batches plus
+        # the full width, so small windows do not pay max_batch lanes.
+        mb = pad_pow2(self.max_batch)
+        self._widths = (
+            (mb,) if mb < 2048 else tuple(sorted({max(1024, mb // 4), mb}))
+        )
+        self._staging = StagingRing(
+            REQ32_ROWS, self.capacity, depth=9,
+            pinned=self.device.type == "cuda")
+        self.slots = NativeSlotMap(self.capacity)
+        self._last_access = np.zeros(self.capacity, np.int64)
+        # Slots assigned on the host but not yet written by a tick: the
+        # device row still looks dead, so reclaim must skip them.
+        self._pending: set = set()
+        self._tick_count = 0
+        self._lock = threading.RLock()
+        self.metric_hits = 0
+        self.metric_misses = 0
+        self.metric_over_limit = 0
+        self.metric_unexpired_evictions = 0
+        self.metric_shed_requests = 0
+        self.metric_rank_rounds = 0
+
+    # ------------------------------------------------------------------
+    # Reclaim
+    # ------------------------------------------------------------------
+    def _reclaim(self, now: int, want: Optional[int] = None) -> None:
+        """Free TTL-dead slots; fall back to LRU eviction
+        (lrucache.go:115-149).  The dead test reads the candidates' rows
+        through the gather kernel; LRU victims are zeroed on the device
+        through the scatter kernel."""
+        mapped = self.slots.mapped_mask()
+        if self._pending:
+            mapped[np.fromiter(self._pending, np.int64)] = False
+        cand = np.flatnonzero(mapped & (self._last_access != self._tick_count))
+        dead = np.zeros(self.capacity, bool)
+        dead[cand] = rowtable.dead_mask(self.table, cand, now)
+        freed, victims = select_reclaim_victims(
+            mapped, dead, self._last_access, self._tick_count,
+            want or max(1, self.capacity // 16),
+        )
+        self.slots.release_batch(freed)
+        if len(victims) == 0:
+            return
+        self.metric_unexpired_evictions += len(victims)
+        self.slots.release_batch(victims)
+        evict_chunked(self.table, victims)
+
+    # ------------------------------------------------------------------
+    # Host-side request preparation
+    # ------------------------------------------------------------------
+    def _resolve_rows(self, cols: ReqColumns, keep: np.ndarray):
+        """(slots, known) for the keep-masked rows, in row order, through
+        one vectorized blob compaction and one slot-map call."""
+        return self.slots.resolve_blob(
+            *compact_blob(cols.key_blob, cols.key_offsets, keep))
+
+    def _build_cols(self, cols: ReqColumns, now: int):
+        """Resolve keys to slots and pack the padded (19, B) REQ32 slab.
+        Returns ``(slab, n, errors, inv, has_dups)``."""
+        n = len(cols)
+        if n > self.max_batch:
+            raise ValueError(f"batch of {n} exceeds engine max {self.max_batch}")
+        b = next(w for w in self._widths if w >= n)
+        slab = self._staging.lease(b)
+        m = slab.numpy()
+        errors: Dict[int, str] = {}
+
+        # Gregorian resolution (host calendar math) only for flagged rows,
+        # once per distinct selector: every lane with one selector gets
+        # the same interval at one ``now``.  Failures become per-item
+        # errors.
+        greg = np.flatnonzero(
+            cols.behavior & int(Behavior.DURATION_IS_GREGORIAN))
+        if len(greg):
+            sel_d = cols.duration[greg]
+            for d in np.unique(sel_d):
+                lanes = greg[sel_d == d]
+                try:
+                    exp = timeutil.gregorian_expiration(now, int(d))
+                    dur = timeutil.gregorian_duration(now, int(d))
+                except timeutil.GregorianError as exc:
+                    errors.update((int(i), str(exc)) for i in lanes)
+                    continue
+                pack_wide_rows(m, "greg_exp", np.full(len(lanes), exp), lanes)
+                pack_wide_rows(m, "greg_dur", np.full(len(lanes), dur), lanes)
+
+        if errors:
+            keep = np.ones(n, bool)
+            keep[list(errors)] = False
+            sel = np.flatnonzero(keep)
+            if len(sel) == 0:
+                return slab, n, errors, np.arange(n, dtype=np.int64), False
+            slots, known = self._resolve_rows(cols, keep)
+        else:
+            sel = None  # the whole batch, contiguous
+            slots, known = self.slots.resolve_blob(
+                cols.key_blob, cols.key_offsets)
+        if (slots < 0).any():
+            # Stamp the resolved rows live before reclaiming, so the
+            # reclaim cannot hand their slots to the retried keys.
+            ok = slots >= 0
+            self._last_access[slots[ok]] = self._tick_count
+            self._pending.update(slots[ok & (known == 0)].tolist())
+            needed = int((~ok).sum())
+            self._reclaim(now, want=max(needed, self.capacity // 16))
+            retry = np.flatnonzero(slots < 0)
+            retry_src = retry if sel is None else sel[retry]
+            want = np.zeros(n, bool)
+            want[retry_src] = True
+            s2, k2 = self._resolve_rows(cols, want)
+            slots[retry] = s2
+            known[retry] = k2
+            if (slots < 0).any():
+                # A truly full table sheds the unplaceable items with
+                # per-item errors; the rest of the batch is served.
+                shed = np.flatnonzero(slots < 0)
+                shed_src = shed if sel is None else sel[shed]
+                for j in shed_src:
+                    errors[int(j)] = "rate-limit table full; eviction failed"
+                self.metric_shed_requests += len(shed)
+                keep = slots >= 0
+                sel = (np.flatnonzero(keep) if sel is None
+                       else np.asarray(sel)[keep]).astype(np.int64)
+                slots = slots[keep]
+                known = known[keep]
+                if len(slots) == 0:
+                    return slab, n, errors, np.arange(n, dtype=np.int64), False
+        self._last_access[slots] = self._tick_count
+        miss = known == 0
+        self._pending.update(slots[miss].tolist())
+        n_miss = int(miss.sum())
+        self.metric_hits += len(miss) - n_miss
+        self.metric_misses += n_miss
+
+        ix = slice(0, n) if sel is None else sel
+        pack_cols_req32(m, cols, slots, known, now, ix)
+        # Error rows keep slot == capacity and sort to the end with the
+        # padding; sorted neighbours reveal duplicate slots.
+        inv, has_dups = sort_packed_by_slot(m, n, self.capacity)
+        return slab, n, errors, inv, has_dups
+
+    # ------------------------------------------------------------------
+    # The tick
+    # ------------------------------------------------------------------
+    def submit_columns(self, cols: ReqColumns,
+                       now: Optional[int] = None) -> TickHandle:
+        """Build and dispatch one tick (≤ max_batch rows); returns a handle
+        whose ``result()`` waits for the device.  The request upload is
+        asynchronous, so packing the next window overlaps this one's
+        kernel."""
+        with self._lock:
+            now = now if now is not None else timeutil.now_ms()
+            self._tick_count += 1
+            slab, n, errors, inv, has_dups = self._build_cols(cols, now)
+            if has_dups:
+                resp, perm, rounds = tick.tick_rank_rounds(
+                    self.table, slab.numpy(), n, now)
+                self.metric_rank_rounds += rounds
+                # Response lane k answers sorted lane perm[k].
+                pos = np.empty(n, np.int64)
+                pos[perm] = np.arange(n)
+                inv = pos[inv]
+                uploaded = False
+            else:
+                dev_m = (slab.to(self.device, non_blocking=True)
+                         if self.device.type == "cuda" else slab)
+                resp = fused_tick(self.table, dev_m, now)
+                uploaded = True
+            self._pending.clear()
+            handle = TickHandle(self, resp, n, inv, errors, cols.limit)
+            self._staging.retire(handle if uploaded else None)
+            return handle
+
+    def submit_cols(self, cols: ReqColumns,
+                    now: Optional[int] = None) -> SubmittedBatch:
+        """Dispatch a columnar batch of any width without waiting for the
+        device (chunked into max_batch ticks)."""
+        n = len(cols)
+        now = now if now is not None else timeutil.now_ms()
+        spans = [
+            (s, min(s + self.max_batch, n))
+            for s in range(0, n, self.max_batch)
+        ]
+        handles = [
+            self.submit_columns(
+                cols if len(spans) == 1 else cols.slice_chunk(s, e), now)
+            for s, e in spans
+        ]
+        return SubmittedBatch(handles, spans, n)
+
+    def process_columns(self, cols: ReqColumns, now: Optional[int] = None
+                        ) -> tuple[np.ndarray, Dict[int, str]]:
+        """Apply a columnar batch; returns the (5, n) response matrix in
+        request order (status, limit, remaining, reset_time, over_limit)
+        plus per-item errors."""
+        if len(cols) == 0:
+            return np.zeros((5, 0), np.int64), {}
+        return self.submit_cols(cols, now).matrix()
+
+    def submit(self, requests: Sequence[RateLimitRequest],
+               now: Optional[int] = None) -> SubmittedBatch:
+        """Dispatch an object-level batch without waiting for the device."""
+        return self.submit_cols(ReqColumns.from_requests(requests), now)
+
+    def process(self, requests: Sequence[RateLimitRequest],
+                now: Optional[int] = None) -> List[RateLimitResponse]:
+        """Apply a batch of requests; responses in request order."""
+        if not requests:
+            return []
+        return self.submit(requests, now).responses()

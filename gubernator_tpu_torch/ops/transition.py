@@ -1,0 +1,238 @@
+"""The whole per-lane bucket transition in plain int64/float64 torch ops.
+
+Port of ``gubernator_tpu.ops.buckets.bucket_transition``: token and leaky
+bucket as a branch-free ``torch.where`` chain with the reference's exact
+precedence, folded with the algorithm zoo (:mod:`..algos`) on the
+``algorithm`` column.  It keeps the reference's quirks:
+
+* a duration-change renewal reports the pre-renewal ``remaining`` while
+  the stored state is refilled;
+* token-bucket ``OVER_LIMIT`` is persisted only on the already-at-zero
+  branch;
+* negative hits add tokens with no upper clamp (token bucket);
+* a leaky Hits==0 query on an integer-zero remaining truncates away the
+  fraction (exact-remainder precedes the query check);
+* a new leaky item computes its rate from the raw duration even when
+  DURATION_IS_GREGORIAN rewrites the stored duration.
+
+This is the plain version of the CUDA tick kernel's transition
+(``csrc/transition.cuh``), which computes the same values with scalar
+C++ per lane.  float64 → int64 conversions go through :func:`trunc_i64`
+(round toward zero, saturating, NaN → 0: what XLA gives the reference),
+and int64 products wrap two's-complement.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from gubernator_tpu_torch.algos import ZOO_MIN
+from gubernator_tpu_torch.algos import table as zoo_table
+from gubernator_tpu_torch.types import Algorithm, Behavior, Status
+
+I64_MAX = (1 << 63) - 1
+I64_MIN = -(1 << 63)
+_TWO63 = 9223372036854775808.0
+
+UNDER = int(Status.UNDER_LIMIT)
+OVER = int(Status.OVER_LIMIT)
+
+
+def trunc_i64(x: torch.Tensor) -> torch.Tensor:
+    """float64 → int64, truncating toward zero; out-of-range values
+    saturate to the int64 bounds and NaN gives 0."""
+    big = x >= _TWO63
+    small = x < -_TWO63
+    nan = torch.isnan(x)
+    out = torch.where(big | small | nan, 0.0, x).to(torch.int64)
+    out = torch.where(big, I64_MAX, out)
+    return torch.where(small, I64_MIN, out)
+
+
+def bucket_transition(now, s: Dict[str, torch.Tensor],
+                      r: Dict[str, torch.Tensor]):
+    """Apply one unique-slot batch of requests to their gathered states.
+
+    ``s`` holds logical state columns (int64, ``remaining_f`` float64),
+    ``r`` logical request columns (int64).  Returns ``(new_state, resp)``:
+    the state columns to store, and ``status``/``remaining``/``reset_time``
+    (int64) plus ``over_limit`` (bool)."""
+    f64 = torch.float64
+    behavior = r["behavior"]
+    reset_b = (behavior & int(Behavior.RESET_REMAINING)) != 0
+    drain_b = (behavior & int(Behavior.DRAIN_OVER_LIMIT)) != 0
+    greg_b = (behavior & int(Behavior.DURATION_IS_GREGORIAN)) != 0
+
+    # Cache-read existence: present and not expired (now > ExpireAt is a
+    # miss, lrucache.go:111-128).
+    exists = (r["known"] != 0) & (s["in_use"] != 0) & (now <= s["expire_at"])
+    is_token = r["algorithm"] == int(Algorithm.TOKEN_BUCKET)
+    algo_match = s["algorithm"] == r["algorithm"]
+
+    h = r["hits"]
+    limit = r["limit"]
+    r_dur = r["duration"]
+    r_created = r["created_at"]
+    safe_limit_f = torch.where(limit == 0, 1, limit).to(f64)
+
+    # -------- token bucket (algorithms.go:37-257) --------
+    tok_reset = exists & reset_b
+    tok_exist = exists & ~reset_b & algo_match
+
+    t_rem0 = torch.where(
+        s["limit"] != limit,
+        torch.clamp_min(s["remaining"] + (limit - s["limit"]), 0),
+        s["remaining"],
+    )
+    rl_status = s["status"]
+    rl_rem_base = t_rem0
+    dur_changed = s["duration"] != r_dur
+    expire_cand = torch.where(greg_b, r["greg_exp"], s["created_at"] + r_dur)
+    renew = expire_cand <= r_created
+    expire_new = torch.where(renew, r_created + r_dur, expire_cand)
+    t_created = torch.where(dur_changed & renew, r_created, s["created_at"])
+    t_rem1 = torch.where(dur_changed & renew, limit, t_rem0)
+    t_expire = torch.where(dur_changed, expire_new, s["expire_at"])
+    rl_reset = t_expire
+
+    t_query = h == 0
+    t_at_zero = ~t_query & (rl_rem_base == 0) & (h > 0)
+    t_exact = ~t_query & ~t_at_zero & (t_rem1 == h)
+    t_over = ~t_query & ~t_at_zero & ~t_exact & (h > t_rem1)
+    t_dec = ~t_query & ~t_at_zero & ~t_exact & ~t_over
+
+    te_rem = torch.where(
+        t_exact, 0,
+        torch.where(t_over, torch.where(drain_b, 0, t_rem1),
+                    torch.where(t_dec, t_rem1 - h, t_rem1)),
+    )
+    te_status = torch.where(t_at_zero, OVER, s["status"])
+    te_resp_status = torch.where(t_at_zero | t_over, OVER, rl_status)
+    te_resp_rem = torch.where(
+        t_exact, 0,
+        torch.where(t_over, torch.where(drain_b, 0, rl_rem_base),
+                    torch.where(t_dec, t_rem1 - h, rl_rem_base)),
+    )
+
+    tn_expire = torch.where(greg_b, r["greg_exp"], r_created + r_dur)
+    tn_over = h > limit
+    tn_rem = torch.where(tn_over, limit, limit - h)
+    tn_resp_status = tn_over.to(torch.int64)
+
+    # -------- leaky bucket (algorithms.go:260-493) --------
+    burst = torch.where(r["burst"] == 0, limit, r["burst"])
+    burst_f = burst.to(f64)
+    leak_exist = exists & algo_match
+
+    b_rem0 = torch.where(reset_b, burst_f, s["remaining_f"])
+    burst_changed = s["burst"] != burst
+    b_rem1 = torch.where(burst_changed & (burst > trunc_i64(b_rem0)),
+                         burst_f, b_rem0)
+    rate = torch.where(greg_b, r["greg_dur"], r_dur).to(f64) / safe_limit_f
+    duration_eff = torch.where(greg_b, r["greg_exp"] - now, r_dur)
+    elapsed = r_created - s["updated_at"]
+    leak = elapsed.to(f64) / torch.where(rate == 0, 1.0, rate)
+    leaked = trunc_i64(leak) > 0
+    b_rem2 = torch.where(leaked, b_rem1 + leak, b_rem1)
+    b_upd = torch.where(leaked, r_created, s["updated_at"])
+    b_rem3 = torch.where(trunc_i64(b_rem2) > burst, burst_f, b_rem2)
+
+    rem_i = trunc_i64(b_rem3)
+    rate_i = trunc_i64(rate)
+    h_f = h.to(f64)
+    l_at_zero = (rem_i == 0) & (h > 0)
+    l_exact = ~l_at_zero & (rem_i == h)
+    l_over = ~l_at_zero & ~l_exact & (h > rem_i)
+    l_query = ~l_at_zero & ~l_exact & ~l_over & (h == 0)
+    l_dec = ~l_at_zero & ~l_exact & ~l_over & ~l_query
+
+    le_remf = torch.where(
+        l_exact, 0.0,
+        torch.where(l_over, torch.where(drain_b, 0.0, b_rem3),
+                    torch.where(l_dec, b_rem3 - h_f, b_rem3)),
+    )
+    le_resp_status = (l_at_zero | l_over).to(torch.int64)
+    le_resp_rem = torch.where(
+        l_exact, 0,
+        torch.where(l_over, torch.where(drain_b, 0, rem_i),
+                    torch.where(l_dec, trunc_i64(b_rem3 - h_f), rem_i)),
+    )
+    le_reset_rem = torch.where(l_over, rem_i, le_resp_rem)
+    le_resp_reset = r_created + (limit - le_reset_rem) * rate_i
+    le_expire = torch.where(h != 0, r_created + duration_eff, s["expire_at"])
+
+    ln_rate_i = trunc_i64(r_dur.to(f64) / safe_limit_f)
+    ln_duration = torch.where(greg_b, r["greg_exp"] - now, r_dur)
+    ln_over = h > burst
+    ln_remf = torch.where(ln_over, 0.0, (burst - h).to(f64))
+    ln_resp_rem = torch.where(ln_over, 0, burst - h)
+    ln_resp_reset = r_created + (limit - ln_resp_rem) * ln_rate_i
+    ln_resp_status = ln_over.to(torch.int64)
+    ln_expire = r_created + ln_duration
+
+    # -------- algorithm zoo, folded per lane --------
+    is_zoo = r["algorithm"] >= ZOO_MIN
+    zs, zr = zoo_table.zoo_transitions(
+        zoo_table.TorchOps, s, r, exists, reset_b, drain_b)
+
+    def zsel(zoo_v, legacy_v):
+        return torch.where(is_zoo, zoo_v, legacy_v)
+
+    def sel(tr, te, tn, le, ln):
+        """token-reset / token-exist / token-new / leaky-exist / leaky-new."""
+        tok = torch.where(tok_reset, tr, torch.where(tok_exist, te, tn))
+        lk = torch.where(leak_exist, le, ln)
+        return torch.where(is_token, tok, lk)
+
+    zero = torch.zeros_like(h)
+    one = torch.ones_like(h)
+    s_remf = s["remaining_f"]
+    new_state = {
+        "algorithm": zsel(
+            r["algorithm"],
+            torch.where(is_token, int(Algorithm.TOKEN_BUCKET),
+                        int(Algorithm.LEAKY_BUCKET))),
+        "limit": limit,
+        "remaining": zsel(
+            zs.remaining,
+            sel(zero, te_rem, tn_rem, s["remaining"], s["remaining"])),
+        "remaining_f": zsel(
+            torch.zeros_like(s_remf),
+            sel(s_remf * 0, s_remf, s_remf, le_remf, ln_remf)),
+        "duration": zsel(r_dur, sel(zero, r_dur, r_dur, r_dur, ln_duration)),
+        "created_at": zsel(
+            zs.created_at,
+            sel(zero, t_created, r_created, s["created_at"], s["created_at"])),
+        "updated_at": zsel(
+            r_created,
+            sel(zero, s["updated_at"], s["updated_at"], b_upd, r_created)),
+        "burst": zsel(r["burst"], sel(zero, s["burst"], s["burst"], burst, burst)),
+        "status": zsel(
+            zs.status,
+            sel(zero, te_status, zero + UNDER, s["status"], zero + UNDER)),
+        "expire_at": zsel(
+            zs.expire_at,
+            sel(zero, t_expire, tn_expire, le_expire, ln_expire)),
+        "in_use": zsel(one, sel(zero, one, one, one, one)),
+        "tat": zsel(zs.tat, zero),
+        "prev_count": zsel(zs.prev_count, zero),
+    }
+    resp = {
+        "status": zsel(
+            zr.status,
+            sel(zero + UNDER, te_resp_status, tn_resp_status, le_resp_status,
+                ln_resp_status)),
+        "remaining": zsel(
+            zr.remaining,
+            sel(limit, te_resp_rem, tn_rem, le_resp_rem, ln_resp_rem)),
+        "reset_time": zsel(
+            zr.reset_time,
+            sel(zero, rl_reset, tn_expire, le_resp_reset, ln_resp_reset)),
+        "over_limit": zsel(
+            zr.over_limit,
+            sel(torch.zeros_like(exists), t_at_zero | t_over, tn_over,
+                l_at_zero | l_over, ln_over)),
+    }
+    return new_state, resp
