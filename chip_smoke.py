@@ -10,17 +10,25 @@ Phases, one output line each:
 2. each kernel against its plain PyTorch version on the card, bit for bit:
    the fused tick on a 32768-lane window over a 2^20-slot random table
    (all five algorithms, every behavior flag, Gregorian rows, padding and
-   edge lanes), gather and scatter on 32768 random slots; with CUDA-event
-   times (median of 25) of each kernel, its plain version and, for
-   gather/scatter, ``index_select`` / ``index_copy_`` as a yardstick;
+   edge lanes), the merged tick on 8192 unique heads of the same table
+   (Zipf(1.2) group sizes on token and leaky heads, size 1 on the zoo's,
+   the edge lanes, 64 padding heads) and on a 512-head layer, gather and
+   scatter on 32768 random slots; with CUDA-event times (median of 25) of
+   each kernel, its plain version and, for gather/scatter,
+   ``index_select`` / ``index_copy_`` as a yardstick;
 3. the engine at full size: ``TickEngine(capacity=10_000_000,
    max_batch=32768)`` serves windows that are first held against a
-   ``device="cpu"`` engine (a unique window, a Zipf(1.2) duplicate window,
-   a revisit), then a 10M-key prefill, 32 pipelined unique windows
+   ``device="cpu"`` engine on the same route (a unique window, a random
+   Zipf(1.2) window, a revisit, a herd window, a herd window with RESET
+   rows), then a 10M-key prefill, 32 pipelined unique windows
    (decisions/s, and the host's time per window split into slot lookup,
-   packing and sort), a Zipf(1.2) window of 32768 (rank rounds) and a window
-   of fresh keys against the full table (reclaim: gather + scatter), with
-   every kernel's launch count over the phase.
+   packing and sort), a 32768-wide Zipf(1.2) herd (the grouped plan: one
+   merged launch) and a herd with RESET rows on its 256 hottest keys (the
+   layered plan), both checked against a scalar token-bucket model, a
+   random Zipf(1.2) window of 32768 (the rank-round fallback) and a window
+   of fresh keys against the full table (reclaim: gather + scatter).  Each
+   of these paths runs with every kernel's launch count set to 0 just
+   before it and read just after.
 
 Then the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -29,6 +37,7 @@ without a CUDA device the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -48,6 +57,13 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # operations each (an estimate; the float64 work is a handful of
 # operations a lane and is left out).
 FUSED_TICK_INT32_OPS_PER_LANE = 400
+# The merged tick does the same plus the duplicate fold (~30 more int64
+# operations a lane, csrc/transition.cuh merged_fold): an estimate.
+MERGED_TICK_INT32_OPS_PER_LANE = 460
+# Bytes a merged-tick head moves besides its row (128 B read + 128 B
+# written when live): 76 B of request, 4 B of count, 96 B of journal.
+MERGED_BYTES_PER_HEAD = 76 + 4 + 96
+LAYER_WIDTH = 512  # a narrow layer of the layered plan
 REPS = 25        # timed runs a measurement; the median is kept
 INNER = 8        # launches between the two events of one timed run
 SLEEP_CYCLES = 4_000_000  # ~2 ms: the card waits while the host queues
@@ -203,6 +219,19 @@ def fused_window(engine_mod, rng, cap: int, lanes: int, state: dict):
     return m, n
 
 
+def merged_window(engine_mod, rng, cap: int, lanes: int, state: dict):
+    """Slot-sorted unique heads for the merged tick: a ``fused_window``
+    (random heads over all five algorithms, the EDGE lanes, 64 padding
+    heads) with group sizes, Zipf(1.2) on token and leaky heads and 1 on
+    the zoo's.  Returns ``(m, count, live)``."""
+    m, n = fused_window(engine_mod, rng, cap, lanes, state)
+    alg = m[engine_mod.REQ32_INDEX["algorithm"], :n]
+    count = np.ones(lanes, np.int32)
+    count[:n] = np.where((alg >= 0) & (alg <= 1),
+                         np.minimum(rng.zipf(1.2, n), 1 << 20), 1)
+    return m, count, n
+
+
 def key_blob(prefix: bytes, ids) -> tuple[bytes, np.ndarray]:
     """Fixed-width keys ``prefix + 8 decimal digits``, built without a
     per-key Python loop."""
@@ -257,7 +286,55 @@ def _max_abs(torch, a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8):
+def merged_entry(torch, table, wins, live):
+    """The merged tick against its plain version, bit for bit, on the first
+    window of heads and on its first LAYER_WIDTH heads, and its times at
+    both widths (the grouped plan's head block and one narrow layer of the
+    layered plan)."""
+    from gubernator_tpu_torch.ops.fusedtick import (
+        MERGED24_W, fused_merged_tick, fused_merged_tick_plain)
+
+    u = wins[0][0].shape[1]
+    lw = LAYER_WIDTH
+    narrow = [(mh[:, :lw], c[:lw]) for mh, c in wins]
+    t_k, t_p = table.clone(), table.clone()
+    err = 0
+    for mh, c in (wins[0], narrow[0]):
+        j_k = fused_merged_tick(t_k, mh, c, NOW)
+        j_p = fused_merged_tick_plain(t_p, mh, c, NOW, torch.empty_like(j_k))
+        torch.cuda.synchronize()
+        err = max(err, _max_abs(torch, j_k, j_p), _max_abs(torch, t_k, t_p))
+        assert torch.equal(j_k, j_p), "fused_merged_tick journal differs from plain"
+        assert torch.equal(t_k, t_p), "fused_merged_tick table differs from plain"
+    del t_k, t_p
+    scratch = table.clone()
+    jr = torch.empty((u, MERGED24_W), dtype=torch.int32, device=table.device)
+
+    def timed(ws, n_live):
+        n = ws[0][0].shape[1]
+        return (time_ms(torch, [lambda w=w: fused_merged_tick(
+                    scratch, *w, NOW, out=jr[:w[0].shape[1]]) for w in ws]),
+                n_live * 256 + n * MERGED_BYTES_PER_HEAD,
+                n_live * MERGED_TICK_INT32_OPS_PER_LANE)
+
+    ms, nbytes, ops = timed(wins, live)
+    e = _entry(
+        "fused_merged_tick", "gubernator_tpu_torch/csrc/fused_merged_tick.cu",
+        "gubernator_tpu/ops/fusedtick.py:387", err, ms,
+        time_ms(torch, [lambda w=w: fused_merged_tick_plain(
+            scratch, *w, NOW, jr) for w in wins], reps=5),
+        None, nbytes, ops)
+    ms, nbytes, ops = timed(narrow, lw)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
+    e["heads"] = u
+    e["at_layer_width"] = {"heads": lw, "ms": ms, "bound_ms": max(b_ms, o_ms),
+                           "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+    return e
+
+
+def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8,
+                 merged_heads=8192):
     """Each kernel against its plain version on the card, bit for bit, and
     their times.  Timed inputs rotate over ``rotate`` windows / slot sets
     of the 128 MB table, so most rows come from HBM as in the engine."""
@@ -270,10 +347,13 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8):
     cap = table_slots
     state = random_state(rng, cap)
     m, live = fused_window(E, rng, cap, lanes, state)
+    heads = [merged_window(E, rng, cap, merged_heads, state)]
     table = table_from_columns(state, cap, dev)
     wins = [torch.from_numpy(m).to(dev)] + [
         torch.from_numpy(fused_window(E, rng, cap, lanes, state)[0]).to(dev)
         for _ in range(rotate - 1)]
+    heads += [merged_window(E, rng, cap, merged_heads, state)
+              for _ in range(rotate - 1)]
     out = {}
 
     t_k, t_p = table.clone(), table.clone()
@@ -295,6 +375,10 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8):
                         for w in wins], reps=5),
         None, live * 256 + lanes * (76 + 24),
         live * FUSED_TICK_INT32_OPS_PER_LANE)
+
+    out["fused_merged_tick"] = merged_entry(
+        torch, table, [(torch.from_numpy(mh).to(dev), torch.from_numpy(c).to(dev))
+                       for mh, c, _ in heads], heads[0][2])
 
     def slot_sets(n, guard_every=0):
         sets = []
@@ -391,8 +475,87 @@ def host_split(eng, wins, now) -> dict:
     return {k: v / len(wins) * 1e3 for k, v in t.items()}
 
 
+def herd_columns(reqcols, prefix: bytes, ids, reset=None,
+                 token_prefill=False):
+    """A herd window over keys ``prefix + id``: every request for one key
+    is the same request, server-stamped (``created_at`` unset), as the
+    clients of one limit send it.  With ``token_prefill`` every key sends
+    the prefill's request (one token hit on a one-hour bucket of 100);
+    otherwise the key's id picks its parameters (token or leaky, hits,
+    limit, duration, DRAIN_OVER_LIMIT, burst).  Rows flagged in ``reset``
+    carry RESET_REMAINING instead, which breaks their key's run of
+    identical requests into units (the layered plan's shape)."""
+    ids = np.asarray(ids, np.int64)
+    n = len(ids)
+    blob, offsets = key_blob(prefix, ids)
+    one = np.ones(n, np.int64)
+    if token_prefill:
+        hits, limit, duration = one, one * 100, one * 3_600_000
+        algorithm, behavior, burst = one * 0, one * 0, one * 0
+    else:
+        hits = 1 + ids % 3
+        limit = np.array([10, 100, 1000, 7])[ids % 4]
+        duration = np.array([60_000, 30_000, 3_600_000])[ids % 3]
+        algorithm = ids % 2
+        behavior = np.where(ids % 5 == 0, 32, 0)   # DRAIN_OVER_LIMIT
+        burst = np.array([0, 5])[(ids // 2) % 2]
+    if reset is not None:
+        behavior = np.where(reset, 8, behavior)   # RESET_REMAINING
+    return reqcols.ReqColumns(blob, offsets, hits, limit, duration, algorithm,
+                              behavior, -one, burst)
+
+
+def reset_flags(rng, ids, hot: int, most: int = 3) -> np.ndarray:
+    """RESET_REMAINING on 1 to ``most`` random requests of each of the
+    ``hot`` most requested keys of a window."""
+    ids = np.asarray(ids)
+    order = np.argsort(ids, kind="stable")
+    keys, first, counts = np.unique(ids[order], return_index=True,
+                                    return_counts=True)
+    flag = np.zeros(len(ids), bool)
+    for k in np.argsort(-counts, kind="stable")[:hot]:
+        pos = order[first[k]:first[k] + counts[k]]
+        flag[rng.choice(pos, min(int(rng.integers(1, most + 1)), len(pos)),
+                        replace=False)] = True
+    return flag
+
+
+def token_reference(ids, reset, now: int, expire0: int, limit=100,
+                    duration=3_600_000) -> np.ndarray:
+    """Expected (status, remaining, reset_time) of one-hit token requests
+    on keys that hold the prefill's bucket (remaining limit - 1, expiring
+    at ``expire0``), applied one after another in arrival order: the
+    reference's token bucket (decrement, exact remainder, at-zero OVER
+    persisted; RESET_REMAINING removes a live bucket and answers the full
+    limit; a request on a removed bucket creates a new one)."""
+    out = np.empty((3, len(ids)), np.int64)
+    held = {}
+    reset = np.zeros(len(ids), bool) if reset is None else reset
+    for j, (k, r) in enumerate(zip(np.asarray(ids).tolist(), reset.tolist())):
+        b = held.setdefault(k, [True, limit - 1, 0, expire0])
+        alive, rem, status, expire = b
+        if alive and r:
+            out[:, j] = (0, limit, 0)
+            b[:] = [False, 0, 0, 0]
+        elif not alive:
+            out[:, j] = (0, limit - 1, now + duration)
+            b[:] = [True, limit - 1, 0, now + duration]
+        elif rem == 0:
+            out[:, j] = (1, 0, expire)
+            b[2] = 1
+        else:
+            out[:, j] = (status, rem - 1, expire)
+            b[1] = rem - 1
+    return out
+
+
 def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
                  ref_capacity=1 << 20, compare_zipf=8192, fused_ms=None):
+    """The engine at full size.  Each path (the windows held against the
+    CPU engine, the prefill, the unique windows, the herd, layered,
+    fallback and reclaim windows) runs with every kernel's launch count
+    set to 0 just before it and read just after.  Returns ``(info,
+    launches by path)``."""
     import gubernator_tpu_torch as gt
     from gubernator_tpu_torch.ops import reqcols
     from gubernator_tpu_torch.ops.engine import TickEngine, resolve_ticks
@@ -401,25 +564,56 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     eng = TickEngine(capacity=capacity, max_batch=width, device=dev)
     ref = TickEngine(capacity=ref_capacity, max_batch=width, device="cpu")
     info = {}
+    launches = {}
     now = NOW
-    gt.reset_kernel_launches()
+
+    @contextlib.contextmanager
+    def counted(name):
+        torch.cuda.synchronize()
+        gt.reset_kernel_launches()
+        yield
+        torch.cuda.synchronize()
+        launches[name] = gt.kernel_launches()
+
+    def routes(e):
+        return (e.metric_grouped_ticks, e.metric_layered_ticks,
+                e.metric_rank_rounds)
 
     # Windows held against the CPU engine: same keys, same now, same
-    # answers (slot numbers differ, state per key does not).
+    # answers (slot numbers differ, state per key does not), and the same
+    # route on both: the random Zipf window falls back to rank rounds, the
+    # herd takes the grouped plan, the herd with RESET rows the layered.
     n_c = width
+    herd_ids = (rng.zipf(1.2, compare_zipf) - 1) % (4 * n_c)
+    lay_ids = (rng.zipf(1.2, compare_zipf) - 1) % (4 * n_c)
     compare = [
-        ("unique", np.arange(n_c)),
-        ("zipf", (rng.zipf(1.2, compare_zipf) - 1) % (4 * n_c)),
-        ("revisit", rng.permutation(n_c)),
+        ("unique", window_columns(reqcols, rng, b"c", np.arange(n_c), now),
+         (0, 0, 0)),
+        ("zipf", window_columns(
+            reqcols, rng, b"c", (rng.zipf(1.2, compare_zipf) - 1) % (4 * n_c),
+            now), None),
+        ("revisit", window_columns(reqcols, rng, b"c", rng.permutation(n_c),
+                                   now), (0, 0, 0)),
+        ("herd", herd_columns(reqcols, b"h", herd_ids), (1, 0, 0)),
+        ("layered", herd_columns(reqcols, b"l", lay_ids,
+                                 reset=reset_flags(rng, lay_ids, hot=64)),
+         (0, 1, 0)),
     ]
-    for name, ids in compare:
-        now += 1_000
-        cols = window_columns(reqcols, rng, b"c", ids, now)
-        got, gerr = eng.process_columns(cols, now)
-        want, werr = ref.process_columns(cols, now)
-        assert gerr == werr, name
-        np.testing.assert_array_equal(got, want, err_msg=name)
-    info["compared_windows"] = len(compare)
+    with counted("compare"):
+        for name, cols, route in compare:
+            now += 1_000
+            before = [routes(eng), routes(ref)]
+            got, gerr = eng.process_columns(cols, now)
+            want, werr = ref.process_columns(cols, now)
+            assert gerr == werr, name
+            np.testing.assert_array_equal(got, want, err_msg=name)
+            for e, b in zip((eng, ref), before):
+                d = tuple(x - y for x, y in zip(routes(e), b))
+                if route is None:
+                    assert d[:2] == (0, 0) and d[2] > 0, (name, d)
+                else:
+                    assert d == route, (name, d)
+    info["compared_windows"] = [name for name, _, _ in compare]
     info["per_item_errors"] = len(gerr)
 
     # Prefill the table to capacity with one-hour token buckets.
@@ -427,11 +621,14 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     base = len(eng.slots)
     todo = capacity - base
     chunk = 32 * width
-    for s in range(0, todo, chunk):
-        ids = np.arange(s, min(s + chunk, todo))
-        mat, errs = eng.process_columns(
-            window_columns(reqcols, rng, b"p", ids, now, prefill=True), now)
-        assert not errs and (mat[2] == 99).all()
+    prefill_now = now
+    with counted("prefill"):
+        for s in range(0, todo, chunk):
+            ids = np.arange(s, min(s + chunk, todo))
+            mat, errs = eng.process_columns(
+                window_columns(reqcols, rng, b"p", ids, now, prefill=True),
+                now)
+            assert not errs and (mat[2] == 99).all()
     assert len(eng.slots) == capacity
     info["prefill_s"] = time.perf_counter() - t0
     info["prefill_decisions_per_s"] = todo / info["prefill_s"]
@@ -440,28 +637,29 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     # resolve them with one device-to-host copy.  Host time is split into
     # submitting (slot resolve, pack, sort, upload, launch) and resolving
     # (waiting for the card, the copy back, unpacking).
-    wins = [window_columns(reqcols, rng, b"p",
-                           rng.choice(todo, width, replace=False), now + 2_000)
-            for _ in range(windows)]
-    torch.cuda.synchronize()
+    uids = [rng.choice(todo, width, replace=False) for _ in range(windows)]
+    wins = [window_columns(reqcols, rng, b"p", ids, now + 2_000)
+            for ids in uids]
     submit_s = resolve_s = 0.0
-    t0 = time.perf_counter()
     pending, done = [], []
-    for cols in wins:
-        t1 = time.perf_counter()
-        pending.append(eng.submit_columns(cols, now + 2_000))
+    with counted("unique"):
+        t0 = time.perf_counter()
+        for cols in wins:
+            t1 = time.perf_counter()
+            pending.append(eng.submit_columns(cols, now + 2_000))
+            t2 = time.perf_counter()
+            submit_s += t2 - t1
+            if len(pending) == 4:
+                resolve_ticks(pending)
+                resolve_s += time.perf_counter() - t2
+                done += pending
+                pending = []
         t2 = time.perf_counter()
-        submit_s += t2 - t1
-        if len(pending) == 4:
-            resolve_ticks(pending)
-            resolve_s += time.perf_counter() - t2
-            done += pending
-            pending = []
-    t2 = time.perf_counter()
-    resolve_ticks(pending)
-    resolve_s += time.perf_counter() - t2
-    done += pending
-    dt = time.perf_counter() - t0
+        resolve_ticks(pending)
+        resolve_s += time.perf_counter() - t2
+        done += pending
+        dt = time.perf_counter() - t0
+    assert launches["unique"]["fused_tick"] == windows
     info["unique_windows"] = windows
     info["decisions_per_s"] = windows * width / dt
     info["window_ms"] = dt / windows * 1e3
@@ -476,33 +674,72 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
         assert mat.shape == (5, width) and np.isin(mat[4], (0, 1)).all()
     info["host_split_ms"] = host_split(eng, wins[:4], now + 2_000)
 
-    # A Zipf(1.2) window: duplicates run as rank rounds.
-    r0 = eng.metric_rank_rounds
+    # Herd and layered windows over prefilled keys the unique windows left
+    # alone (two disjoint pools), whose answers the token_reference model
+    # gives exactly.
+    free = np.setdiff1d(np.arange(todo), np.concatenate(uids))
+    pools = {"herd": free[0::2], "layered": free[1::2]}
+
+    def dup_window(name, route, t):
+        ids = pools[name][(rng.zipf(1.2, width) - 1) % len(pools[name])]
+        reset = (reset_flags(rng, ids, hot=256) if name == "layered"
+                 else None)
+        cols = herd_columns(reqcols, b"p", ids, reset=reset,
+                            token_prefill=True)
+        before = routes(eng)
+        with counted(name):
+            t0 = time.perf_counter()
+            mat, errs = eng.process_columns(cols, t)
+            info[f"{name}_window_s"] = time.perf_counter() - t0
+        assert not errs
+        assert tuple(x - y for x, y in zip(routes(eng), before)) == route
+        want = token_reference(ids, reset, t, prefill_now + 3_600_000)
+        np.testing.assert_array_equal(mat[[0, 2, 3]], want, err_msg=name)
+        info[f"{name}_unique_keys"] = int(len(np.unique(ids)))
+        b3 = launches[name]["fused_merged_tick"]
+        assert launches[name]["fused_tick"] == 0 and b3 >= 1
+        return b3
+
+    # One 32768-wide Zipf(1.2) herd: the grouped plan, one merged launch.
+    info["herd_b3_launches"] = dup_window("herd", (1, 0, 0), now + 3_000)
+    # The same shape with RESET rows on the 256 hottest keys: the layered
+    # plan, one merged launch per unit layer.
+    info["layered_layers"] = dup_window("layered", (0, 1, 0), now + 3_500)
+
+    # A Zipf(1.2) window of random requests (per-request parameters, so
+    # neither plan takes it): the rank-round fallback.
+    g0, l0, r0 = routes(eng)
     ids = (rng.zipf(1.2, width) - 1) % todo
-    zipf = window_columns(reqcols, rng, b"p", ids, now + 3_000)
-    t0 = time.perf_counter()
-    mat, _ = eng.process_columns(zipf, now + 3_000)
-    info["zipf_window_s"] = time.perf_counter() - t0
+    zipf = window_columns(reqcols, rng, b"p", ids, now + 4_000)
+    with counted("fallback"):
+        t0 = time.perf_counter()
+        mat, _ = eng.process_columns(zipf, now + 4_000)
+        info["fallback_window_s"] = time.perf_counter() - t0
     assert mat.shape == (5, width)
-    info["zipf_unique_keys"] = int(len(np.unique(ids)))
-    info["zipf_rank_rounds"] = eng.metric_rank_rounds - r0
+    info["fallback_unique_keys"] = int(len(np.unique(ids)))
+    info["fallback_rank_rounds"] = eng.metric_rank_rounds - r0
+    assert routes(eng)[:2] == (g0, l0) and info["fallback_rank_rounds"] > 0
+    assert launches["fallback"]["fused_tick"] == info["fallback_rank_rounds"]
 
     # Fresh keys against the full table: reclaim evicts LRU victims.
-    fresh = window_columns(reqcols, rng, b"f", np.arange(width), now + 4_000)
-    t0 = time.perf_counter()
-    got, gerr = eng.process_columns(fresh, now + 4_000)
-    info["reclaim_window_s"] = time.perf_counter() - t0
-    want, werr = ref.process_columns(fresh, now + 4_000)
+    fresh = window_columns(reqcols, rng, b"f", np.arange(width), now + 5_000)
+    with counted("reclaim"):
+        t0 = time.perf_counter()
+        got, gerr = eng.process_columns(fresh, now + 5_000)
+        info["reclaim_window_s"] = time.perf_counter() - t0
+    want, werr = ref.process_columns(fresh, now + 5_000)
     assert gerr == werr
     np.testing.assert_array_equal(got, want, err_msg="fresh")
     info["evictions"] = eng.metric_unexpired_evictions
     assert eng.metric_unexpired_evictions > 0
-    torch.cuda.synchronize()
-    launches = gt.kernel_launches()
-    info["launches"] = launches
-    for name, count in launches.items():
+    assert launches["reclaim"]["gather_rows"] > 0
+    assert launches["reclaim"]["scatter_rows"] > 0
+    info["launches_by_path"] = launches
+    total = {k: sum(p[k] for p in launches.values())
+             for k in launches["unique"]}
+    for name, count in total.items():
         assert count > 0, f"{name} was not launched on the main path"
-    return info, launches
+    return info, total
 
 
 def main() -> int:
@@ -537,7 +774,8 @@ def main() -> int:
     print("phase3 " + json.dumps(info), flush=True)
 
     table = []
-    for name in ("fused_tick", "gather_rows", "scatter_rows"):
+    for name in ("fused_tick", "fused_merged_tick", "gather_rows",
+                 "scatter_rows"):
         k = kernels[name]
         table.append({
             "name": name, "route": k["route"], "source": k["source"],

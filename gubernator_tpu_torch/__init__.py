@@ -38,6 +38,7 @@ def kernel_launches() -> dict:
 
     return {
         "fused_tick": fusedtick.fused_tick.launches,
+        "fused_merged_tick": fusedtick.fused_merged_tick.launches,
         "gather_rows": rowtable.gather_rows.launches,
         "scatter_rows": rowtable.scatter_rows.launches,
     }
@@ -47,6 +48,7 @@ def reset_kernel_launches() -> None:
     from gubernator_tpu_torch.ops import fusedtick, rowtable
 
     fusedtick.fused_tick.launches = 0
+    fusedtick.fused_merged_tick.launches = 0
     rowtable.gather_rows.launches = 0
     rowtable.scatter_rows.launches = 0
 

@@ -43,6 +43,7 @@ CXX_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
 LIBS = {
     "slotmap": ("cxx", ("slotmap.cc",)),
     "fused_tick": ("nvcc", ("fused_tick.cu",)),
+    "fused_merged_tick": ("nvcc", ("fused_merged_tick.cu",)),
     "rows": ("nvcc", ("rows.cu",)),
     "fused_tick_host": ("cxx", ("fused_tick_host.cc",)),
 }

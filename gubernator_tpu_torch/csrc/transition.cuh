@@ -19,11 +19,14 @@
 // * float64 operations are the same sequence of correctly rounded IEEE
 //   operations, built with --fmad=false (no fused multiply-add).
 //
-// The header compiles as CUDA (the kernel) and as host C++ (the test-only
+// The header compiles as CUDA (the kernels) and as host C++ (the test-only
 // host build in fused_tick_host.cc, which the CPU tests hold against the
-// plain version).
+// plain version).  merged_fold below is the duplicate fold of the merged
+// tick kernel (fused_merged_tick.cu); its plain version is
+// ops/transition.py merged_fold.
 #pragma once
 
+#include <math.h>
 #include <stdint.h>
 
 #if defined(__CUDACC__)
@@ -422,6 +425,107 @@ GT_HD Resp transition(int64_t now, const int64_t* s, const Req& r,
   }
   for (int w = W_PREV_COUNT + 1; w < ROW_W; ++w) o[w] = 0;
   return resp;
+}
+
+// ---- closed-form duplicate fold (kernel B.3) ----
+//
+// Port of gubernator_tpu/ops/transition32.py merged_fold32 (its result in
+// native int64/float64, not its i32-pair and triple-float32 arithmetic):
+// fold count - 1 followers identical to the head into the head's
+// post-transition row.  The i <= q followers decrement, the rest are over
+// the limit; token status flips to OVER on an at-zero step; leaky
+// remaining_f zeroes exactly on an exact-remainder or drain step and keeps
+// its fraction otherwise.  count == 1 is the identity.  Where merged_fold32
+// and the x64 engine._merged_formulas differ, this follows merged_fold32
+// (what the JAX engine runs for grouped and layered windows):
+//   * leaky base is floor(remaining_f), not its truncation;
+//   * q = max(base, 0) // h;
+//   * rate_i is the exact integer floor of max(duration, 0) // safe_limit.
+constexpr int MERGED24_W = 24;
+
+struct MergedHead {
+  int64_t base, q, rate_i, s0, expire;
+};
+
+// Floor division for any b != 0 (rate_i's divisor is the request limit).
+GT_HD int64_t floor_div_any(int64_t a, int64_t b) {
+  int64_t q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+GT_HD int64_t floor_i64(double x) {
+#if defined(__CUDA_ARCH__)
+  return trunc_i64(::floor(x));
+#else
+  return trunc_i64(__builtin_floor(x));
+#endif
+}
+
+// `o` is the head's post-transition row; the fold rewrites its remaining,
+// status and remaining_f words in place.
+GT_HD MergedHead merged_fold(int64_t now, int64_t* o, const Req& r,
+                             int32_t count) {
+  bool is_tok = r.algorithm == TOKEN;
+  int64_t h = r.hits > 0 ? r.hits : 1;
+  double remf = bits_to_f64(o[W_REMAINING_F]);
+  int64_t base = is_tok ? o[W_REMAINING] : floor_i64(remf);
+  int64_t q = imax(base, 0) / h;
+  int64_t li = (int64_t)count - 1;
+  bool alive = now <= o[W_EXPIRE_AT];
+  bool fold = count > 1 && alive && r.valid != 0 && r.algorithm <= LEAKY;
+
+  int64_t residue = wsub(base, wmul(q, h));
+  bool divisible = residue == 0;
+  bool drain = (r.behavior & DRAIN_OVER_LIMIT) != 0;
+  int64_t rem_last =
+      li <= q ? wsub(base, wmul(li, h)) : (drain ? 0 : residue);
+  bool at_zero_last = divisible ? li > q : (drain && li > wadd(q, 1));
+  bool zero_f = (q >= 1 && divisible && li >= q) ||
+                (base > 0 && drain && li > q);
+  double remf_last =
+      zero_f ? 0.0 : remf - (double)wmul(imin(li, q), h);
+
+  MergedHead m;
+  m.base = base;
+  m.q = q;
+  m.rate_i = floor_div_any(imax(r.duration, 0), r.limit == 0 ? 1 : r.limit);
+  m.s0 = o[W_STATUS];
+  m.expire = o[W_EXPIRE_AT];
+  if (fold && is_tok) {
+    o[W_REMAINING] = rem_last;
+    if (at_zero_last) o[W_STATUS] = OVER;
+  }
+  if (fold && !is_tok) o[W_REMAINING_F] = f64_to_bits(remf_last);
+  return m;
+}
+
+GT_HD void put_pair(int32_t* w, int k, int64_t v) {
+  w[k] = (int32_t)(uint32_t)(uint64_t)v;
+  w[k + 1] = (int32_t)(v >> 32);
+}
+
+// One head's MERGED24 journal row (transition32.merged24_rows order): the
+// six compact response words, base, q, rate_i, s0, expire, then the echoed
+// hits, limit, created_at, algorithm and behavior; word 23 is 0.  Padding
+// heads get a zero row.
+GT_HD void merged24_words(int32_t* w, const Resp& p, const MergedHead& m,
+                          const Req& r, bool live) {
+  for (int k = 0; k < MERGED24_W; ++k) w[k] = 0;
+  if (!live) return;
+  w[0] = (int32_t)p.status;
+  w[1] = (int32_t)p.over_limit;
+  put_pair(w, 2, p.remaining);
+  put_pair(w, 4, p.reset_time);
+  put_pair(w, 6, m.base);
+  put_pair(w, 8, m.q);
+  put_pair(w, 10, m.rate_i);
+  w[12] = (int32_t)m.s0;
+  put_pair(w, 13, m.expire);
+  put_pair(w, 15, r.hits);
+  put_pair(w, 17, r.limit);
+  put_pair(w, 19, r.created_at);
+  w[21] = r.algorithm;
+  w[22] = r.behavior;
 }
 
 GT_HD int64_t join_pair(const int32_t* m, int64_t ld, int row, int64_t j) {

@@ -10,8 +10,11 @@ ops/buckets.py), and a *tick* applies a window of requests in place:
           compact (6, B) response)
     host: un-permute, rebuild the public (5, n) int64 response matrix
 
-Windows whose slots repeat run as rank rounds (ops/tick.py), which keeps
-the reference's sequential per-key semantics.  The host owns the
+Windows whose slots repeat take the grouped plan (one merged tick kernel
+launch that folds each key's identical duplicates in closed form), else
+the layered plan (one merged launch per unit layer), else rank rounds
+(ops/tick.py); each keeps the reference's sequential per-key semantics.
+The host owns the
 key→slot map, stamps time, resolves Gregorian calendar math and reclaims
 slots (TTL first, then LRU), synchronously when a window does not fit.
 
@@ -37,7 +40,7 @@ from gubernator_tpu_torch.ops.fusedtick import (  # noqa: F401
 from gubernator_tpu_torch.ops.reqcols import (
     CREATED_UNSET, ReqColumns, compact_blob)
 from gubernator_tpu_torch.types import (
-    Behavior, RateLimitRequest, RateLimitResponse)
+    Algorithm, Behavior, RateLimitRequest, RateLimitResponse)
 from gubernator_tpu_torch.utils import timeutil
 
 
@@ -104,6 +107,227 @@ def join_i32_pair(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
         (np.asarray(hi).astype(np.int64) << 32)
         | np.asarray(lo).astype(np.uint32).astype(np.int64)
     )
+
+
+# ----------------------------------------------------------------------
+# Host plans for duplicate windows (copies of the TPU package's
+# ops/engine.py group_upad, _param_rows_equal_prev, build_group_plan and
+# build_layer_plan: the same arrays, or None, for the same packed window)
+# ----------------------------------------------------------------------
+def group_upad(b: int, u: int = 0) -> int:
+    """The grouped plan's head width for a window width ``b``: at least
+    max(256, b/4), a power of two, so serving traffic sees few shapes."""
+    return pad_pow2(max(u, 256, b // 4))
+
+
+def _param_rows_equal_prev(m: np.ndarray, nl: int) -> np.ndarray:
+    """(nl,) bool: row i carries the same request parameters as row i-1
+    (the 16 REQ32 parameter rows both duplicate plans fold on, so the
+    grouped and layered plans agree on unit boundaries)."""
+    R = REQ32_INDEX
+    rows = (
+        R["algorithm"], R["behavior"],
+        R["hits"], R["hits"] + 1,
+        R["limit"], R["limit"] + 1,
+        R["duration"], R["duration"] + 1,
+        R["created_at"], R["created_at"] + 1,
+        R["burst"], R["burst"] + 1,
+        R["greg_exp"], R["greg_exp"] + 1,
+        R["greg_dur"], R["greg_dur"] + 1,
+    )
+    eq = np.ones(nl, bool)
+    for r in rows:
+        eq[1:] &= m[r, 1:nl] == m[r, : nl - 1]
+    return eq
+
+
+def build_group_plan(m: np.ndarray, n: int, capacity: int, now: int,
+                     min_dup_frac: float = 1 / 8):
+    """Grouped plan of a slot-sorted packed window: each duplicate group
+    collapses to its head when every follower is identical to its head,
+    known, hits > 0, free of RESET_REMAINING and Gregorian behaviors,
+    token or leaky, and under a head that provably comes out alive
+    (duration > 0 and created_at >= now) — the conditions under which the
+    closed-form fold is exact.
+
+    Returns ``(mhead (19, Upad), count (Upad,), uidx (B,), rank (B,), u)``
+    with ``u`` the live head count, or None when a group is ineligible or
+    fewer than ``min_dup_frac`` of the live rows are followers.  Member i
+    answers from head column ``uidx[i]`` at rank ``rank[i]``.  Error lanes
+    (slot == capacity) form a group of their own and lanes past ``n``
+    point at column ``upad - 1``; their responses are unspecified and
+    sliced or masked downstream."""
+    R = REQ32_INDEX
+    b = m.shape[1]
+    s = m[R["slot"], :n]
+    live = s < capacity
+    if n == 0 or not live.any():
+        return None
+    is_start = np.empty(n, bool)
+    is_start[0] = True
+    np.not_equal(s[1:], s[:-1], out=is_start[1:])
+    # Savings count live followers only: error lanes share slot ==
+    # capacity and would otherwise look like one large group.
+    dup_rows = int(np.count_nonzero(~is_start & live))
+    if dup_rows < max(1, int(min_dup_frac * int(np.count_nonzero(live)))):
+        return None
+    starts = np.flatnonzero(is_start)
+    gid = np.cumsum(is_start) - 1
+    rank = np.arange(n, dtype=np.int32) - starts[gid].astype(np.int32)
+
+    eq_prev = _param_rows_equal_prev(m, n)
+    hits_pos = join_i32_pair(m[R["hits"], :n], m[R["hits"] + 1, :n]) > 0
+    known = m[R["known"], :n] != 0
+    no_merge = int(Behavior.RESET_REMAINING | Behavior.DURATION_IS_GREGORIAN)
+    beh_ok = (m[R["behavior"], :n] & no_merge) == 0
+    dur = join_i32_pair(m[R["duration"], :n], m[R["duration"] + 1, :n])
+    created = join_i32_pair(
+        m[R["created_at"], :n], m[R["created_at"] + 1, :n])
+    alive_ok = (dur > 0) & (created >= now)
+    alg_ok = m[R["algorithm"], :n] <= int(Algorithm.LEAKY_BUCKET)
+    follower = ~is_start & live
+    if np.any(follower
+              & ~(eq_prev & known & hits_pos & beh_ok & alive_ok & alg_ok)):
+        return None
+
+    u = len(starts)
+    upad = group_upad(b, u)
+    mhead = np.empty((REQ32_ROWS, upad), np.int32)
+    mhead[:, :u] = m[:, starts]
+    mhead[:, u:] = 0
+    mhead[R["slot"], u:] = capacity  # padding heads aim at the guard row
+    count = np.ones(upad, np.int32)
+    sizes = np.diff(np.append(starts, n)).astype(np.int32)
+    count[:u] = sizes
+    uidx = np.full(b, upad - 1, np.int32)
+    uidx[:n] = gid
+    rank_b = np.zeros(b, np.int32)
+    rank_b[:n] = rank
+    return mhead, count, uidx, rank_b, u
+
+
+def build_layer_plan(m: np.ndarray, n: int, capacity: int, now: int,
+                     layer_width: int = 512, max_layers: int = 32,
+                     min_dup_frac: float = 1 / 8):
+    """Unit-layer plan for duplicate windows the grouped plan declines
+    (groups broken by RESET rows, parameter changes or queries).
+
+    A *unit* is a maximal run of identical fold-eligible duplicates; layer
+    k collects the k-th unit of every slot.  Each layer runs as one narrow
+    merged tick, chained through the table, and one expansion maps every
+    member's response from its unit's journal row.
+
+    Returns ``(mh0 (19, W0), cnt0 (W0,), mhk (K-1, 19, LW), cntk
+    (K-1, LW), uidx (B,), rank (B,), k_pad)`` or None when a count > 1
+    unit's head is not provably alive, a slot has more than
+    ``max_layers`` units, a layer past the first is wider than
+    ``layer_width``, or fewer than ``min_dup_frac`` of the live rows are
+    duplicates.  ``uidx`` addresses the flat journal (layer 0's block,
+    then the K-1 narrow blocks); error lanes point at position 0 and
+    answer unspecified values.  Layers past the last unit's are padding
+    (``k_pad`` rounds the layer count up for the JAX package's compiles)."""
+    R = REQ32_INDEX
+    b = m.shape[1]
+    s = m[R["slot"], :n]
+    live = s < capacity
+    nl = int(np.count_nonzero(live))
+    if nl == 0:
+        return None
+    # Error rows carry slot == capacity and sort to the tail: the live
+    # prefix is contiguous.
+    s = s[:nl]
+    is_start = np.empty(nl, bool)
+    is_start[0] = True
+    np.not_equal(s[1:], s[:-1], out=is_start[1:])
+    dup_rows = int(np.count_nonzero(~is_start))
+    if dup_rows < max(1, int(min_dup_frac * nl)):
+        return None
+
+    eq_prev = _param_rows_equal_prev(m, nl)
+    no_merge = int(Behavior.RESET_REMAINING | Behavior.DURATION_IS_GREGORIAN)
+    hits_pos = join_i32_pair(m[R["hits"], :nl], m[R["hits"] + 1, :nl]) > 0
+    ok = (
+        (is_start | eq_prev)
+        & hits_pos
+        & ((m[R["behavior"], :nl] & no_merge) == 0)
+        & ((m[R["known"], :nl] != 0) | is_start)
+        # zoo lanes have no closed-form fold: size-1 units only
+        & (m[R["algorithm"], :nl] <= int(Algorithm.LEAKY_BUCKET))
+    )
+    unit_start = is_start | ~ok
+    heads = np.flatnonzero(unit_start)
+    u = len(heads)
+    sizes = np.diff(np.append(heads, nl)).astype(np.int32)
+
+    # Unit ordinal within its slot.
+    seg_of_unit = (np.cumsum(is_start) - 1)[heads]
+    first_unit_of_seg = np.full(seg_of_unit[-1] + 1, u, np.int64)
+    unit_idx = np.arange(u)
+    np.minimum.at(first_unit_of_seg, seg_of_unit, unit_idx)
+    ord_ = (unit_idx - first_unit_of_seg[seg_of_unit]).astype(np.int64)
+    k_layers = int(ord_.max()) + 1
+    if k_layers > max_layers:
+        return None
+    if k_layers > 1:
+        wide = np.bincount(ord_[ord_ >= 1])
+        if len(wide) and wide.max() > layer_width:
+            return None
+    # Count > 1 heads must come out alive (see build_group_plan).
+    multi = sizes > 1
+    if multi.any():
+        hr = heads[multi]
+        dur = join_i32_pair(m[R["duration"], :nl][hr],
+                            m[R["duration"] + 1, :nl][hr])
+        created = join_i32_pair(m[R["created_at"], :nl][hr],
+                                m[R["created_at"] + 1, :nl][hr])
+        if not ((dur > 0) & (created >= now)).all():
+            return None
+
+    w0_n = int(np.count_nonzero(ord_ == 0))
+    w0 = group_upad(b, w0_n)
+    if k_layers <= 2:
+        k_pad = 2
+    elif k_layers <= 4:
+        k_pad = 4
+    else:
+        k_pad = -(-k_layers // 4) * 4
+    k_pad = min(k_pad, max_layers)
+
+    def head_block(unit_sel, width):
+        mh = np.zeros((REQ32_ROWS, width), np.int32)
+        mh[R["slot"]] = capacity
+        cnt = np.ones(width, np.int32)
+        k = len(unit_sel)
+        mh[:, :k] = m[:, :nl][:, heads[unit_sel]]
+        cnt[:k] = sizes[unit_sel]
+        return mh, cnt
+
+    # Per-unit flat journal position, layer 0's block first.
+    pos_of_unit = np.empty(u, np.int64)
+    lay0 = np.flatnonzero(ord_ == 0)
+    pos_of_unit[lay0] = np.arange(len(lay0))
+    mh0, cnt0 = head_block(lay0, w0)
+    mhk = np.zeros((k_pad - 1, REQ32_ROWS, layer_width), np.int32)
+    mhk[:, R["slot"], :] = capacity
+    cntk = np.ones((k_pad - 1, layer_width), np.int32)
+    for k in range(1, k_layers):
+        sel = np.flatnonzero(ord_ == k)
+        pos_of_unit[sel] = w0 + (k - 1) * layer_width + np.arange(len(sel))
+        mhk[k - 1], cntk[k - 1] = head_block(sel, layer_width)
+
+    gid_unit = np.cumsum(unit_start) - 1        # row → unit
+    uidx = np.zeros(b, np.int64)
+    uidx[:nl] = pos_of_unit[gid_unit]
+    rank = np.zeros(b, np.int32)
+    rank[:nl] = np.arange(nl, dtype=np.int32) - heads[gid_unit].astype(np.int32)
+    return (mh0, cnt0, mhk, cntk, uidx.astype(np.int32), rank,
+            k_pad)
+
+
+def live_layers(mhk: np.ndarray, capacity: int) -> int:
+    """How many of a layer plan's narrow layers hold a real head (the rest
+    are padding layers at the tail)."""
+    return int(np.count_nonzero(mhk[:, REQ32_INDEX["slot"], 0] < capacity))
 
 
 def unpack_resp_compact(raw: np.ndarray, limit_req: np.ndarray) -> np.ndarray:
@@ -293,6 +517,10 @@ def select_reclaim_victims(
 
 EVICT_CHUNK = 1 << 16
 
+# Tables at least this large take the layered plan (the JAX engine's gate:
+# below it, duplicate windows it declines go to the sequential program).
+LAYERED_MIN_CAPACITY = 1 << 14
+
 
 def evict_chunked(table: torch.Tensor, victims: np.ndarray) -> None:
     """Evict slots on the device in scatters of at most EVICT_CHUNK rows
@@ -445,6 +673,10 @@ class TickEngine:
         self.metric_over_limit = 0
         self.metric_unexpired_evictions = 0
         self.metric_shed_requests = 0
+        # Duplicate windows by route (ops/tick.py): grouped and layered
+        # windows, and the rank rounds launched for the rest.
+        self.metric_grouped_ticks = 0
+        self.metric_layered_ticks = 0
         self.metric_rank_rounds = 0
 
     # ------------------------------------------------------------------
@@ -580,13 +812,7 @@ class TickEngine:
             self._tick_count += 1
             slab, n, errors, inv, has_dups = self._build_cols(cols, now)
             if has_dups:
-                resp, perm, rounds = tick.tick_rank_rounds(
-                    self.table, slab.numpy(), n, now)
-                self.metric_rank_rounds += rounds
-                # Response lane k answers sorted lane perm[k].
-                pos = np.empty(n, np.int64)
-                pos[perm] = np.arange(n)
-                inv = pos[inv]
+                resp, inv = self._tick_duplicates(slab.numpy(), n, inv, now)
                 uploaded = False
             else:
                 dev_m = (slab.to(self.device, non_blocking=True)
@@ -597,6 +823,52 @@ class TickEngine:
             handle = TickHandle(self, resp, n, inv, errors, cols.limit)
             self._staging.retire(handle if uploaded else None)
             return handle
+
+    def _tick_duplicates(self, m: np.ndarray, n: int, inv: np.ndarray,
+                         now: int):
+        """Dispatch a window whose slots repeat, in the JAX engine's order:
+        the grouped plan (one merged launch and the member expansion),
+        else, on serving-size tables, the layered plan (one merged launch
+        per unit layer), else rank rounds.  Returns ``(resp, inv)``: the
+        (6, ·) device response and the request → response-lane map."""
+        plan = build_group_plan(m, n, self.capacity, now)
+        if plan is not None:
+            mhead, count, uidx, rank, _ = plan
+            self.metric_grouped_ticks += 1
+            return tick.merged_pipeline(
+                self.table, *self._upload(mhead, count, uidx, rank), now), inv
+        lplan = (build_layer_plan(m, n, self.capacity, now)
+                 if self.capacity >= LAYERED_MIN_CAPACITY else None)
+        if lplan is not None:
+            mh0, cnt0, mhk, cntk, uidx, rank, _ = lplan
+            k = live_layers(mhk, self.capacity)
+            self.metric_layered_ticks += 1
+            return tick.layered_pipeline(
+                self.table, *self._upload(mh0, cnt0, mhk[:k], cntk[:k], uidx,
+                                          rank), now), inv
+        resp, perm, rounds = tick.tick_rank_rounds(self.table, m, n, now)
+        self.metric_rank_rounds += rounds
+        # Response lane k answers sorted lane perm[k].
+        pos = np.empty(n, np.int64)
+        pos[perm] = np.arange(n)
+        return resp, pos[inv]
+
+    def _upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """A plan's int32 arrays on the engine's device, through one
+        host-to-device copy.  On a CUDA engine the host buffer is pinned
+        and the copy asynchronous; PyTorch's pinned-memory allocator keeps
+        the buffer until the copy has run."""
+        sizes = [a.size for a in arrays]
+        host = torch.empty(sum(sizes), dtype=torch.int32,
+                           pin_memory=self.device.type == "cuda")
+        flat = host.numpy()
+        off = 0
+        for a, k in zip(arrays, sizes):
+            flat[off:off + k] = a.reshape(-1)
+            off += k
+        dev = host.to(self.device, non_blocking=True)
+        return [part.view(a.shape)
+                for part, a in zip(torch.split(dev, sizes), arrays)]
 
     def submit_cols(self, cols: ReqColumns,
                     now: Optional[int] = None) -> SubmittedBatch:

@@ -236,3 +236,57 @@ def bucket_transition(now, s: Dict[str, torch.Tensor],
                 l_at_zero | l_over, ln_over)),
     }
     return new_state, resp
+
+
+def merged_fold(now, new_state: Dict[str, torch.Tensor],
+                r: Dict[str, torch.Tensor], count: torch.Tensor):
+    """Fold ``count - 1`` followers identical to the head into the head's
+    post-transition state (the plain version of ``merged_fold`` in
+    ``csrc/transition.cuh``).
+
+    Port of the result of ``transition32.merged_fold32``: the followers at
+    rank i <= q = max(base, 0) // h decrement, the rest are over the limit;
+    token status flips to OVER on an at-zero step; leaky ``remaining_f``
+    zeroes exactly on an exact-remainder or drain step and otherwise loses
+    ``min(count - 1, q) * h``.  ``count == 1`` is the identity.  Leaky
+    ``base`` is ``floor(remaining_f)`` and ``rate_i`` the exact integer
+    ``max(duration, 0) // safe_limit``, as in merged_fold32 (the x64
+    ``engine._merged_formulas`` truncates both instead).
+
+    Returns ``(folded, head)``: the state to store, and the head extras
+    the member expansion needs (``base``, ``q``, ``rate_i``, ``s0``,
+    ``expire``)."""
+    is_tok = r["algorithm"] == int(Algorithm.TOKEN_BUCKET)
+    h = torch.where(r["hits"] > 0, r["hits"], 1)
+    remf = new_state["remaining_f"]
+    base = torch.where(is_tok, new_state["remaining"],
+                       trunc_i64(torch.floor(remf)))
+    q = torch.div(base.clamp_min(0), h, rounding_mode="floor")
+    li = count.to(torch.int64) - 1
+    alive = now <= new_state["expire_at"]
+    legacy = r["algorithm"] <= int(Algorithm.LEAKY_BUCKET)
+    fold = (li > 0) & alive & (r["valid"] != 0) & legacy
+
+    residue = base - q * h
+    divisible = residue == 0
+    drain = (r["behavior"] & int(Behavior.DRAIN_OVER_LIMIT)) != 0
+    rem_last = torch.where(li <= q, base - li * h,
+                           torch.where(drain, 0, residue))
+    at_zero_last = torch.where(divisible, li > q, drain & (li > q + 1))
+    zero_f = (((q >= 1) & divisible & (li >= q))
+              | ((base > 0) & drain & (li > q)))
+    remf_last = torch.where(
+        zero_f, 0.0, remf - (torch.minimum(li, q) * h).to(torch.float64))
+    safe_limit = torch.where(r["limit"] == 0, 1, r["limit"])
+    rate_i = torch.div(r["duration"].clamp_min(0), safe_limit,
+                       rounding_mode="floor")
+
+    folded = dict(new_state)
+    folded["remaining"] = torch.where(fold & is_tok, rem_last,
+                                      new_state["remaining"])
+    folded["status"] = torch.where(fold & is_tok & at_zero_last, OVER,
+                                   new_state["status"])
+    folded["remaining_f"] = torch.where(fold & ~is_tok, remf_last, remf)
+    head = {"base": base, "q": q, "rate_i": rate_i,
+            "s0": new_state["status"], "expire": new_state["expire_at"]}
+    return folded, head

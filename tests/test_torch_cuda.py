@@ -3,9 +3,10 @@
 These tests need an NVIDIA GPU with the CUDA toolkit (the kernels build
 with ``nvcc`` at first use); without one they skip.  They cover shapes the
 main path does not reach in ``chip_smoke.py``: widths that are not a
-multiple of a block, column slices, rows narrower than 16 words,
-out-of-range and guard-row slots, and the engine on a tiny table that
-fills and reclaims.  They import nothing of JAX, so they run where JAX is
+multiple of a block, column slices, merged-tick launches into row slices
+of one journal, rows narrower than 16 words, out-of-range and guard-row
+slots, the engine on a tiny table that fills and reclaims (with herd
+windows on the grouped plan), and layered windows on a 2^14-slot table.  They import nothing of JAX, so they run where JAX is
 not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -20,7 +21,8 @@ import gubernator_tpu_torch as gt
 from gubernator_tpu_torch.carry import table_from_columns
 from gubernator_tpu_torch.ops import engine as E
 from gubernator_tpu_torch.ops import reqcols, rowtable
-from gubernator_tpu_torch.ops.fusedtick import fused_tick, fused_tick_plain
+from gubernator_tpu_torch.ops.fusedtick import (
+    fused_merged_tick, fused_merged_tick_plain, fused_tick, fused_tick_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +67,43 @@ def test_fused_tick_on_a_column_slice(dev):
     assert torch.equal(t_k, t_p)
 
 
+@pytest.mark.parametrize("cap,heads", [(300, 129), (1000, 300), (4096, 1000)])
+def test_fused_merged_tick_matches_plain(dev, cap, heads):
+    rng = np.random.default_rng(cap + heads)
+    state = cs.random_state(rng, cap)
+    m, count, _ = cs.merged_window(E, rng, cap, heads, state)
+    table = table_from_columns(state, cap, dev)
+    mt, ct = torch.from_numpy(m).to(dev), torch.from_numpy(count).to(dev)
+    t_k, t_p = table.clone(), table.clone()
+    j_k = fused_merged_tick(t_k, mt, ct, cs.NOW)
+    j_p = fused_merged_tick_plain(t_p, mt, ct, cs.NOW, torch.empty_like(j_k))
+    assert torch.equal(j_k, j_p)
+    assert torch.equal(t_k, t_p)
+    assert (t_k[cap] == 0).all()
+
+
+def test_fused_merged_tick_into_journal_slices(dev):
+    """The layered pipeline's launches: column slices of one head matrix,
+    each writing a row slice of one flat journal."""
+    rng = np.random.default_rng(5)
+    cap, heads = 2048, 600
+    state = cs.random_state(rng, cap)
+    m, count, _ = cs.merged_window(E, rng, cap, heads, state)
+    table = table_from_columns(state, cap, dev)
+    mt, ct = torch.from_numpy(m).to(dev), torch.from_numpy(count).to(dev)
+    t_k, t_p = table.clone(), table.clone()
+    journal = torch.full((heads + 8, 24), -1, dtype=torch.int32, device=dev)
+    for a, b in ((0, 256), (256, heads)):
+        fused_merged_tick(t_k, mt[:, a:b], ct[a:b], cs.NOW,
+                          out=journal[a + 8:b + 8])
+        want = fused_merged_tick_plain(
+            t_p, mt[:, a:b].contiguous(), ct[a:b].contiguous(), cs.NOW,
+            torch.empty((b - a, 24), dtype=torch.int32, device=dev))
+        assert torch.equal(journal[a + 8:b + 8], want)
+    assert (journal[:8] == -1).all()
+    assert torch.equal(t_k, t_p)
+
+
 @pytest.mark.parametrize("width", [16, 4])
 def test_gather_and_scatter_match_plain(dev, width):
     g = torch.Generator().manual_seed(width)
@@ -93,14 +132,40 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
     eng = E.TickEngine(capacity=64, max_batch=48, device=dev)
     ref = E.TickEngine(capacity=64, max_batch=48, device="cpu")
     now = cs.NOW
-    for step in range(8):
+    for step in range(9):
         now += 700
-        ids = rng.integers(0, 90, 48) if step % 2 else rng.permutation(48)
-        cols = cs.window_columns(reqcols, rng, b"k", ids, now)
+        if step % 3 == 2:   # a herd: the grouped plan
+            cols = cs.herd_columns(reqcols, b"h", rng.integers(0, 12, 48))
+        else:
+            ids = (rng.integers(0, 90, 48) if step % 3
+                   else rng.permutation(48))
+            cols = cs.window_columns(reqcols, rng, b"k", ids, now)
         got, gerr = eng.process_columns(cols, now)
         want, werr = ref.process_columns(cols, now)
         assert gerr == werr
         np.testing.assert_array_equal(got, want)
     assert eng.metric_rank_rounds > 0 and eng.metric_unexpired_evictions > 0
+    assert eng.metric_grouped_ticks == 3
     assert all(v > 0 for v in gt.kernel_launches().values())
+    assert torch.equal(eng.table.cpu(), ref.table)
+
+
+def test_layered_windows_on_the_card_match_the_cpu_engine(dev):
+    gt.reset_kernel_launches()
+    rng = np.random.default_rng(12)
+    eng = E.TickEngine(capacity=1 << 14, max_batch=512, device=dev)
+    ref = E.TickEngine(capacity=1 << 14, max_batch=512, device="cpu")
+    now = cs.NOW
+    for step in range(3):
+        now += 1_000
+        ids = (rng.zipf(1.2, 512) - 1) % 2000
+        cols = cs.herd_columns(reqcols, b"l", ids,
+                               reset=cs.reset_flags(rng, ids, hot=16))
+        got, gerr = eng.process_columns(cols, now)
+        want, werr = ref.process_columns(cols, now)
+        assert gerr == werr
+        np.testing.assert_array_equal(got, want)
+    assert eng.metric_layered_ticks == ref.metric_layered_ticks == 3
+    assert eng.metric_rank_rounds == 0
+    assert gt.kernel_launches()["fused_merged_tick"] >= 6
     assert torch.equal(eng.table.cpu(), ref.table)

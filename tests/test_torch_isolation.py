@@ -113,8 +113,13 @@ def test_cpu_tensors_take_the_plain_paths_and_launch_no_kernel():
     assert table.device.type == "cpu"
     fused_tick(table, torch.zeros((19, 8), dtype=torch.int32), 0)
     rowtable.gather_rows(table, torch.arange(4))
+    herd = [RateLimitRequest(name="iso", unique_key=f"h{i % 3}", hits=1,
+                             limit=3, duration=60_000) for i in range(12)]
+    eng.process(herd, now=1_700_000_000_004)
+    assert eng.metric_grouped_ticks == 1
     assert gt.kernel_launches() == {
-        "fused_tick": 0, "gather_rows": 0, "scatter_rows": 0}
+        "fused_tick": 0, "fused_merged_tick": 0, "gather_rows": 0,
+        "scatter_rows": 0}
 
 
 def test_wrappers_refuse_tensors_on_other_devices():
