@@ -13,9 +13,11 @@ Phases, one output line each:
    edge lanes), the merged tick on 8192 unique heads of the same table
    (Zipf(1.2) group sizes on token and leaky heads, size 1 on the zoo's,
    the edge lanes, 64 padding heads) and on a 512-head layer, gather and
-   scatter on 32768 random slots; with CUDA-event times (median of 25) of
-   each kernel, its plain version and, for gather/scatter,
-   ``index_select`` / ``index_copy_`` as a yardstick;
+   scatter on 32768 random slots, and the ragged tick on 32768-lane
+   windows of global slots over 8 shards of a 2^20-slot table, with
+   balanced extents and with every lane on one shard; with CUDA-event
+   times (median of 25) of each kernel, its plain version and, for
+   gather/scatter, ``index_select`` / ``index_copy_`` as a yardstick;
 3. the engine at full size: ``TickEngine(capacity=10_000_000,
    max_batch=32768)`` serves windows that are first held against a
    ``device="cpu"`` engine on the same route (a unique window, a random
@@ -28,7 +30,19 @@ Phases, one output line each:
    random Zipf(1.2) window of 32768 (the rank-round fallback) and a window
    of fresh keys against the full table (reclaim: gather + scatter).  Each
    of these paths runs with every kernel's launch count set to 0 just
-   before it and read just after.
+   before it and read just after;
+4. the sharded engine at full size: ``MeshTickEngine(n_shards=8,
+   local_capacity=1_250_000, max_batch=32768)`` serves windows first held
+   against a ``device="cpu"`` mesh engine of 8 smaller shards (unique,
+   random Zipf(1.2), herd, revisit, and a window whose keys all route to
+   shard 0), then a prefill of every shard to capacity (10M keys), 32
+   pipelined unique windows (decisions/s and the host split: CRC-32
+   routing, per-shard resolve, packing, sort), a Zipf(1.2) herd of the
+   prefill's token requests (the merge tick, checked against the scalar
+   token-bucket model), a skewed unique window of 32768 keys on shard 0
+   and a window of fresh keys (per-shard reclaim).  A unique window and
+   the skewed window must each take one ``fused_ragged_tick`` launch and
+   no other; every path reports its launches.
 
 Then the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -232,6 +246,28 @@ def merged_window(engine_mod, rng, cap: int, lanes: int, state: dict):
     return m, count, n
 
 
+RAGGED_SHARDS = 8
+
+
+def ragged_window(engine_mod, rng, n_shards: int, local_capacity: int,
+                  lanes: int, state: dict, skew: bool = False):
+    """A slot-sorted unique (19, lanes) window of GLOBAL slots for the
+    ragged tick over ``n_shards`` shards of ``local_capacity`` slots: a
+    ``fused_window`` (random live lanes, the EDGE lanes, 64 padding lanes
+    past every extent) spread over every shard or, with ``skew``, all on
+    shard 0.  Returns ``(m, offsets, live)``."""
+    cap = n_shards * local_capacity
+    R = engine_mod.REQ32_INDEX
+    m, n = fused_window(engine_mod, rng, local_capacity if skew else cap,
+                        lanes, state)
+    m[R["slot"], n:] = cap
+    counts = np.bincount(m[R["slot"], :n] // local_capacity,
+                         minlength=n_shards)
+    offsets = np.zeros(n_shards + 1, np.int32)
+    offsets[1:] = np.cumsum(counts)
+    return m, offsets, n
+
+
 def key_blob(prefix: bytes, ids) -> tuple[bytes, np.ndarray]:
     """Fixed-width keys ``prefix + 8 decimal digits``, built without a
     per-key Python loop."""
@@ -333,6 +369,58 @@ def merged_entry(torch, table, wins, live):
     return e
 
 
+def ragged_entry(torch, dev, rng, lanes: int, table_slots: int,
+                 rotate: int):
+    """The ragged tick against its plain version, bit for bit, on a window
+    with balanced extents and on one whose every lane is on shard 0, and
+    its times on both (RAGGED_SHARDS shards of table_slots / RAGGED_SHARDS
+    slots; the bound is the fused tick's, whatever the skew)."""
+    from gubernator_tpu_torch.carry import sharded_table_from_columns
+    from gubernator_tpu_torch.ops import engine as E
+    from gubernator_tpu_torch.ops.raggedtick import (
+        fused_ragged_tick, fused_ragged_tick_plain)
+
+    n = RAGGED_SHARDS
+    L = table_slots // n
+    state = random_state(rng, n * L)
+    wins = {skew: [ragged_window(E, rng, n, L, lanes, state, skew)
+                   for _ in range(rotate)] for skew in (False, True)}
+    table = sharded_table_from_columns(state, n, L, dev)
+    dwins = {skew: [(torch.from_numpy(m).to(dev), torch.from_numpy(o).to(dev))
+                    for m, o, _ in ws] for skew, ws in wins.items()}
+    err = 0
+    for skew in (False, True):
+        m, o = dwins[skew][0]
+        t_k, t_p = table.clone(), table.clone()
+        r_k = fused_ragged_tick(t_k, m, o, n, L, NOW)
+        r_p = fused_ragged_tick_plain(t_p, m, o, n, L, NOW,
+                                      torch.empty_like(r_k))
+        torch.cuda.synchronize()
+        err = max(err, _max_abs(torch, r_k, r_p), _max_abs(torch, t_k, t_p))
+        assert torch.equal(r_k, r_p), "fused_ragged_tick response differs"
+        assert torch.equal(t_k, t_p), "fused_ragged_tick table differs"
+        del t_k, t_p
+    work = table.clone()
+    resp = torch.empty((6, lanes), dtype=torch.int32, device=dev)
+
+    def timed(ws):
+        return time_ms(torch, [lambda w=w: fused_ragged_tick(
+            work, *w, n, L, NOW, out=resp) for w in ws])
+
+    live = wins[False][0][2]
+    e = _entry(
+        "fused_ragged_tick", "gubernator_tpu_torch/csrc/fused_ragged_tick.cu",
+        "gubernator_tpu/ops/raggedtick.py:153", err, timed(dwins[False]),
+        time_ms(torch, [lambda w=w: fused_ragged_tick_plain(
+            work, *w, n, L, NOW, resp) for w in dwins[False]], reps=5),
+        None, live * 256 + lanes * (76 + 24) + (n + 1) * 4,
+        live * FUSED_TICK_INT32_OPS_PER_LANE)
+    e["shards"] = n
+    e["skewed"] = {"ms": timed(dwins[True]), "bound_ms": e["bound_ms"],
+                   "extent_lanes": int(wins[True][0][1][1])}
+    return e
+
+
 def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8,
                  merged_heads=8192):
     """Each kernel against its plain version on the card, bit for bit, and
@@ -427,6 +515,8 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8,
                             for s in sets]),
             sets[0].numel() * 8 + n_live * 256, 0)
 
+    out["fused_ragged_tick"] = ragged_entry(torch, dev, rng, lanes,
+                                            table_slots, rotate)
     out["gather_rows"] = check_gather(slot_sets(lanes))
     rows = torch.from_numpy(
         rng.integers(-2**62, 2**62, (lanes, 16)).astype(np.int64)).to(dev)
@@ -449,6 +539,19 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8,
             **{k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                  "max_abs_err")}}
     return out
+
+
+@contextlib.contextmanager
+def counted(torch, launches: dict, name: str):
+    """Every kernel's launch count set to 0 just before the block and read
+    into ``launches[name]`` just after."""
+    import gubernator_tpu_torch as gt
+
+    torch.cuda.synchronize()
+    gt.reset_kernel_launches()
+    yield
+    torch.cuda.synchronize()
+    launches[name] = gt.kernel_launches()
 
 
 def host_split(eng, wins, now) -> dict:
@@ -556,7 +659,6 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     fallback and reclaim windows) runs with every kernel's launch count
     set to 0 just before it and read just after.  Returns ``(info,
     launches by path)``."""
-    import gubernator_tpu_torch as gt
     from gubernator_tpu_torch.ops import reqcols
     from gubernator_tpu_torch.ops.engine import TickEngine, resolve_ticks
 
@@ -567,13 +669,8 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     launches = {}
     now = NOW
 
-    @contextlib.contextmanager
-    def counted(name):
-        torch.cuda.synchronize()
-        gt.reset_kernel_launches()
-        yield
-        torch.cuda.synchronize()
-        launches[name] = gt.kernel_launches()
+    def counted_path(name):
+        return counted(torch, launches, name)
 
     def routes(e):
         return (e.metric_grouped_ticks, e.metric_layered_ticks,
@@ -599,7 +696,7 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
                                  reset=reset_flags(rng, lay_ids, hot=64)),
          (0, 1, 0)),
     ]
-    with counted("compare"):
+    with counted_path("compare"):
         for name, cols, route in compare:
             now += 1_000
             before = [routes(eng), routes(ref)]
@@ -622,7 +719,7 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     todo = capacity - base
     chunk = 32 * width
     prefill_now = now
-    with counted("prefill"):
+    with counted_path("prefill"):
         for s in range(0, todo, chunk):
             ids = np.arange(s, min(s + chunk, todo))
             mat, errs = eng.process_columns(
@@ -642,7 +739,7 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
             for ids in uids]
     submit_s = resolve_s = 0.0
     pending, done = [], []
-    with counted("unique"):
+    with counted_path("unique"):
         t0 = time.perf_counter()
         for cols in wins:
             t1 = time.perf_counter()
@@ -687,7 +784,7 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
         cols = herd_columns(reqcols, b"p", ids, reset=reset,
                             token_prefill=True)
         before = routes(eng)
-        with counted(name):
+        with counted_path(name):
             t0 = time.perf_counter()
             mat, errs = eng.process_columns(cols, t)
             info[f"{name}_window_s"] = time.perf_counter() - t0
@@ -711,7 +808,7 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     g0, l0, r0 = routes(eng)
     ids = (rng.zipf(1.2, width) - 1) % todo
     zipf = window_columns(reqcols, rng, b"p", ids, now + 4_000)
-    with counted("fallback"):
+    with counted_path("fallback"):
         t0 = time.perf_counter()
         mat, _ = eng.process_columns(zipf, now + 4_000)
         info["fallback_window_s"] = time.perf_counter() - t0
@@ -723,7 +820,7 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
 
     # Fresh keys against the full table: reclaim evicts LRU victims.
     fresh = window_columns(reqcols, rng, b"f", np.arange(width), now + 5_000)
-    with counted("reclaim"):
+    with counted_path("reclaim"):
         t0 = time.perf_counter()
         got, gerr = eng.process_columns(fresh, now + 5_000)
         info["reclaim_window_s"] = time.perf_counter() - t0
@@ -737,8 +834,223 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     info["launches_by_path"] = launches
     total = {k: sum(p[k] for p in launches.values())
              for k in launches["unique"]}
-    for name, count in total.items():
-        assert count > 0, f"{name} was not launched on the main path"
+    assert total["fused_ragged_tick"] == 0
+    return info, total
+
+
+def mesh_host_split(eng, wins, now) -> dict:
+    """Host time a window of known keys spends in each step of the mesh
+    engine's submit, re-run outside the engine: CRC-32 routing, the
+    per-shard slot-map resolve (blob regroup and one native call a shard),
+    REQ32 packing with global slots, and the sort by slot (mean ms over
+    ``wins``).  Lookups of mapped keys change nothing in the maps."""
+    from gubernator_tpu_torch.native import crc32_batch
+    from gubernator_tpu_torch.ops import engine as E
+    from gubernator_tpu_torch.ops.reqcols import compact_blob
+
+    t = {"crc32_route": 0.0, "shard_resolve": 0.0, "pack": 0.0, "sort": 0.0}
+    for cols in wins:
+        n = len(cols)
+        t0 = time.perf_counter()
+        sh = (crc32_batch(cols.key_blob, cols.key_offsets)
+              % np.uint32(eng.n_shards)).astype(np.int64)
+        t1 = time.perf_counter()
+        order = np.argsort(sh, kind="stable")
+        starts = np.searchsorted(sh[order], np.arange(eng.n_shards + 1))
+        blob, off = compact_blob(cols.key_blob, cols.key_offsets, order)
+        slots = np.empty(n, np.int64)
+        for s in range(eng.n_shards):
+            a, z = starts[s], starts[s + 1]
+            sl, kn = eng.slots[s].resolve_blob(blob[off[a]:off[z]],
+                                               off[a:z + 1] - off[a])
+            assert (kn == 1).all()
+            slots[order[a:z]] = sl
+        t2 = time.perf_counter()
+        m = np.zeros((E.REQ32_ROWS, n), np.int32)
+        E.pack_cols_req32(m, cols, sh * eng.local_capacity + slots,
+                          np.ones(n, np.uint8), now, slice(0, n))
+        t3 = time.perf_counter()
+        E.sort_packed_by_slot(m, n, eng.capacity)
+        t4 = time.perf_counter()
+        for k, dt in zip(t, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            t[k] += dt
+    return {k: v / len(wins) * 1e3 for k, v in t.items()}
+
+
+def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
+               width=32768, windows=32, ref_local_capacity=1 << 17,
+               compare_zipf=8192):
+    """The sharded engine at full size (module doc, phase 4).  Each path
+    runs with every kernel's launch count set to 0 just before it and read
+    just after.  Returns ``(info, launches summed over the paths)``."""
+    from gubernator_tpu_torch.native import crc32_batch
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.ops.engine import resolve_ticks
+    from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
+
+    rng = np.random.default_rng(SEED + 2)
+    eng = MeshTickEngine(n_shards, local_capacity, max_batch=width,
+                         device=dev)
+    ref = MeshTickEngine(n_shards, ref_local_capacity, max_batch=width,
+                         device="cpu")
+    info = {"n_shards": n_shards, "local_capacity": local_capacity,
+            "table_bytes": eng.table.numel() * 8}
+    launches = {}
+    now = NOW
+
+    def shard_of(prefix, ids):
+        blob, off = key_blob(prefix, ids)
+        return (crc32_batch(blob, off) % np.uint32(n_shards)).astype(np.int64)
+
+    def only_ragged(name, count=1):
+        got = launches[name]
+        assert got["fused_ragged_tick"] == sum(got.values()) == count, (
+            name, got)
+
+    # Windows held against the CPU mesh engine: same keys, same now, same
+    # answers; the shards' slot maps assign the same local slots, so the
+    # rows they hold must be equal too.
+    cand = np.arange(16 * width)
+    skew_ids = cand[shard_of(b"k", cand) == 0][:width]
+    compare = [
+        ("unique", window_columns(reqcols, rng, b"c", np.arange(width), now)),
+        ("zipf", window_columns(reqcols, rng, b"c", (rng.zipf(
+            1.2, compare_zipf) - 1) % (4 * width), now)),
+        ("herd", herd_columns(reqcols, b"h", (rng.zipf(
+            1.2, compare_zipf) - 1) % (4 * width))),
+        ("revisit", window_columns(reqcols, rng, b"c",
+                                   rng.permutation(width), now)),
+        ("skewed", window_columns(reqcols, rng, b"k", skew_ids, now)),
+    ]
+    for name, cols in compare:
+        now += 1_000
+        r0 = (eng.metric_rank_rounds, ref.metric_rank_rounds)
+        with counted(torch, launches, "compare_" + name):
+            got, gerr = eng.process_columns(cols, now)
+        want, werr = ref.process_columns(cols, now)
+        assert gerr == werr, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        assert (eng.metric_rank_rounds - r0[0]
+                == ref.metric_rank_rounds - r0[1]), name
+        if name in ("unique", "revisit", "skewed"):
+            only_ragged("compare_" + name)
+    L_ref = ref_local_capacity
+    for s in range(n_shards):
+        mapped = ref.slots[s].mapped_mask()
+        assert (eng.slots[s].mapped_mask()[:L_ref] == mapped).all()
+        assert len(eng.slots[s]) == len(ref.slots[s])
+        rows = np.flatnonzero(mapped)
+        got = eng.table[torch.from_numpy(
+            s * (local_capacity + 1) + rows).to(dev)].cpu()
+        assert torch.equal(got, ref.table[s * (L_ref + 1) + rows]), s
+    info["compared_windows"] = [name for name, _ in compare]
+    info["compare_rank_rounds"] = eng.metric_rank_rounds
+    del ref
+
+    # Prefill every shard to capacity with one-hour token buckets: keys
+    # picked by their route, so each shard gets exactly what it has left.
+    need = [local_capacity - len(sm) for sm in eng.slots]
+    cand = np.arange(int(sum(need) * 1.05) + 4096)
+    sh = shard_of(b"p", cand)
+    ids = np.sort(np.concatenate(
+        [cand[sh == s][:need[s]] for s in range(n_shards)]))
+    assert len(ids) == sum(need)
+    t0 = time.perf_counter()
+    chunk = 32 * width
+    prefill_now = now
+    with counted(torch, launches, "prefill"):
+        for a in range(0, len(ids), chunk):
+            mat, errs = eng.process_columns(window_columns(
+                reqcols, rng, b"p", ids[a:a + chunk], now, prefill=True), now)
+            assert not errs and (mat[2] == 99).all()
+    assert eng.cache_size() == eng.capacity
+    info["prefill_s"] = time.perf_counter() - t0
+    info["prefill_keys"] = int(len(ids))
+    info["prefill_decisions_per_s"] = len(ids) / info["prefill_s"]
+    assert eng.metric_unexpired_evictions == 0
+
+    # Pipelined unique windows over the prefilled keys (submit four, then
+    # resolve them with one device-to-host copy): one ragged launch each.
+    pick = rng.permutation(len(ids))
+    uids = [ids[pick[k * width:(k + 1) * width]] for k in range(windows)]
+    wins = [window_columns(reqcols, rng, b"p", u, now + 2_000) for u in uids]
+    submit_s = resolve_s = 0.0
+    pending, done = [], []
+    with counted(torch, launches, "unique"):
+        t0 = time.perf_counter()
+        for cols in wins:
+            t1 = time.perf_counter()
+            pending.append(eng.submit_columns(cols, now + 2_000))
+            t2 = time.perf_counter()
+            submit_s += t2 - t1
+            if len(pending) == 4:
+                resolve_ticks(pending)
+                resolve_s += time.perf_counter() - t2
+                done += pending
+                pending = []
+        t2 = time.perf_counter()
+        resolve_ticks(pending)
+        resolve_s += time.perf_counter() - t2
+        done += pending
+        dt = time.perf_counter() - t0
+    only_ragged("unique", windows)
+    info["unique_windows"] = windows
+    info["decisions_per_s"] = windows * width / dt
+    info["window_ms"] = dt / windows * 1e3
+    info["submit_ms_per_window"] = submit_s / windows * 1e3
+    info["resolve_ms_per_window"] = resolve_s / windows * 1e3
+    for h in done:
+        mat, _ = h.result()
+        assert mat.shape == (5, width) and np.isin(mat[4], (0, 1)).all()
+    info["host_split_ms"] = mesh_host_split(eng, wins[:4], now + 2_000)
+    info["h2d_overlap_ratio"] = eng.h2d_overlap_ratio()
+
+    # A Zipf(1.2) herd of the prefill's token requests over keys the unique
+    # windows left alone: the merge tick per tile of each shard's extent.
+    rest = ids[pick[windows * width:]]
+    hids = rest[(rng.zipf(1.2, width) - 1) % len(rest)]
+    r0 = eng.metric_rank_rounds
+    with counted(torch, launches, "herd"):
+        t0 = time.perf_counter()
+        mat, errs = eng.process_columns(herd_columns(
+            reqcols, b"p", hids, token_prefill=True), now + 3_000)
+        info["herd_window_s"] = time.perf_counter() - t0
+    assert not errs
+    want = token_reference(hids, None, now + 3_000, prefill_now + 3_600_000)
+    np.testing.assert_array_equal(mat[[0, 2, 3]], want, err_msg="mesh herd")
+    info["herd_unique_keys"] = int(len(np.unique(hids)))
+    info["herd_rank_rounds"] = eng.metric_rank_rounds - r0
+    got = launches["herd"]
+    assert got["fused_ragged_tick"] == 0 and got["fused_tick"] >= 1
+    assert got["gather_rows"] >= 1 and got["scatter_rows"] >= 1
+
+    # Every key of one window on shard 0: one extent covers the batch.
+    shard0 = ids[shard_of(b"p", ids) == 0]
+    sk = rng.choice(shard0, width, replace=False)
+    with counted(torch, launches, "skewed"):
+        t0 = time.perf_counter()
+        mat, _ = eng.process_columns(window_columns(
+            reqcols, rng, b"p", sk, now + 4_000), now + 4_000)
+        info["skewed_window_s"] = time.perf_counter() - t0
+    assert mat.shape == (5, width)
+    only_ragged("skewed")
+
+    # Fresh keys against full shards: each shard reclaims.
+    with counted(torch, launches, "reclaim"):
+        t0 = time.perf_counter()
+        mat, errs = eng.process_columns(window_columns(
+            reqcols, rng, b"f", np.arange(width), now + 5_000), now + 5_000)
+        info["reclaim_window_s"] = time.perf_counter() - t0
+    assert mat.shape == (5, width)
+    info["reclaim_errors"] = len(errs)
+    info["evictions"] = eng.metric_unexpired_evictions
+    assert eng.metric_unexpired_evictions > 0
+    got = launches["reclaim"]
+    assert got["gather_rows"] > 0 and got["scatter_rows"] > 0
+    assert got["fused_ragged_tick"] == 1
+    info["launches_by_path"] = launches
+    total = {k: sum(p[k] for p in launches.values())
+             for k in launches["unique"]}
     return info, total
 
 
@@ -772,10 +1084,16 @@ def main() -> int:
     info, launches = engine_phase(torch, dev,
                                   fused_ms=kernels["fused_tick"]["ms"])
     print("phase3 " + json.dumps(info), flush=True)
+    del info
+    mesh, mesh_launches = mesh_phase(torch, dev)
+    print("phase4 " + json.dumps(mesh), flush=True)
+    for name in launches:
+        launches[name] += mesh_launches[name]
+        assert launches[name] > 0, f"{name} was not launched on the main path"
 
     table = []
-    for name in ("fused_tick", "fused_merged_tick", "gather_rows",
-                 "scatter_rows"):
+    for name in ("fused_tick", "fused_merged_tick", "fused_ragged_tick",
+                 "gather_rows", "scatter_rows"):
         k = kernels[name]
         table.append({
             "name": name, "route": k["route"], "source": k["source"],

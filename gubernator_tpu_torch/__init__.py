@@ -34,21 +34,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def kernel_launches() -> dict:
     """Launch count of every CUDA kernel wrapper, by kernel name."""
-    from gubernator_tpu_torch.ops import fusedtick, rowtable
+    from gubernator_tpu_torch.ops import fusedtick, raggedtick, rowtable
 
     return {
         "fused_tick": fusedtick.fused_tick.launches,
         "fused_merged_tick": fusedtick.fused_merged_tick.launches,
+        "fused_ragged_tick": raggedtick.fused_ragged_tick.launches,
         "gather_rows": rowtable.gather_rows.launches,
         "scatter_rows": rowtable.scatter_rows.launches,
     }
 
 
 def reset_kernel_launches() -> None:
-    from gubernator_tpu_torch.ops import fusedtick, rowtable
+    from gubernator_tpu_torch.ops import fusedtick, raggedtick, rowtable
 
     fusedtick.fused_tick.launches = 0
     fusedtick.fused_merged_tick.launches = 0
+    raggedtick.fused_ragged_tick.launches = 0
     rowtable.gather_rows.launches = 0
     rowtable.scatter_rows.launches = 0
 

@@ -44,6 +44,7 @@ LIBS = {
     "slotmap": ("cxx", ("slotmap.cc",)),
     "fused_tick": ("nvcc", ("fused_tick.cu",)),
     "fused_merged_tick": ("nvcc", ("fused_merged_tick.cu",)),
+    "fused_ragged_tick": ("nvcc", ("fused_ragged_tick.cu",)),
     "rows": ("nvcc", ("rows.cu",)),
     "fused_tick_host": ("cxx", ("fused_tick_host.cc",)),
 }

@@ -40,6 +40,20 @@ def table_from_columns(cols: Dict[str, np.ndarray], capacity: int,
     return table.to(device)
 
 
+def sharded_table_from_columns(cols: Dict[str, np.ndarray], n_shards: int,
+                               local_capacity: int,
+                               device: DeviceLike = None) -> torch.Tensor:
+    """The mesh engine's (n_shards * (local_capacity + 1), 16) int64 table
+    holding ``cols`` over GLOBAL slots ``[0, n_shards * local_capacity)``:
+    shard s's block holds global slots ``[s * L, (s + 1) * L)``, then its
+    zero guard row."""
+    L = int(local_capacity)
+    return torch.cat([
+        table_from_columns({f: v[s * L:(s + 1) * L] for f, v in cols.items()},
+                           L, "cpu")
+        for s in range(int(n_shards))]).to(resolve_device(device))
+
+
 def columns_from_table(table: torch.Tensor) -> Dict[str, np.ndarray]:
     """Inverse of :func:`table_from_columns` over every slot."""
     return host_columns(table)

@@ -234,4 +234,29 @@ void guber_slotmap_assign_batch(void* p, const char* blob,
   }
 }
 
+// CRC-32 (ISO-HDLC: poly 0xEDB88320, init and xorout 0xFFFFFFFF) of each key
+// of a packed blob, bit-identical to Python's zlib.crc32, which defines the
+// mesh engine's key -> shard route.  One call replaces a per-key Python
+// loop on the columnar submit path.
+static uint32_t crc32_table[256];
+static bool crc32_init_done = [] {
+  for (uint32_t i = 0; i < 256; ++i) {
+    uint32_t c = i;
+    for (int k = 0; k < 8; ++k) c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+    crc32_table[i] = c;
+  }
+  return true;
+}();
+
+void guber_crc32_batch(const char* blob, const int64_t* offsets, int64_t n,
+                       uint32_t* out) {
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t c = 0xFFFFFFFFu;
+    for (int64_t j = offsets[i]; j < offsets[i + 1]; ++j) {
+      c = crc32_table[(c ^ static_cast<uint8_t>(blob[j])) & 0xFFu] ^ (c >> 8);
+    }
+    out[i] = c ^ 0xFFFFFFFFu;
+  }
+}
+
 }  // extern "C"

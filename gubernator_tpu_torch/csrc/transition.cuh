@@ -23,7 +23,9 @@
 // host build in fused_tick_host.cc, which the CPU tests hold against the
 // plain version).  merged_fold below is the duplicate fold of the merged
 // tick kernel (fused_merged_tick.cu); its plain version is
-// ops/transition.py merged_fold.
+// ops/transition.py merged_fold.  ragged_row is the ragged tick's lane
+// placement (fused_ragged_tick.cu); its plain version is
+// ops/raggedtick.py fused_ragged_tick_plain.
 #pragma once
 
 #include <math.h>
@@ -560,6 +562,32 @@ GT_HD void store_resp(int32_t* out, int64_t ld, int64_t j, const Resp& p,
   out[3 * ld + j] = live ? (int32_t)(p.remaining >> 32) : 0;
   out[4 * ld + j] = live ? (int32_t)(uint32_t)(uint64_t)p.reset_time : 0;
   out[5 * ld + j] = live ? (int32_t)(p.reset_time >> 32) : 0;
+}
+
+// Lane placement of the ragged tick (fused_ragged_tick.cu) over a table of
+// n_shards blocks of local_capacity + 1 rows, the last row of each block
+// its shard's guard.  Lane j belongs to shard s when
+// offsets[s] <= j < offsets[s + 1] (found by lane position, not from the
+// slot), and its global slot rebases into the shard's block.  Returns the
+// lane's table row, or -1 for a lane that touches no row: off every
+// extent, valid == 0, or a slot outside its shard's range (a host bug;
+// the TPU kernel clips such a slot into the shard instead).
+GT_HD int64_t ragged_row(const int32_t* offsets, int64_t n_shards,
+                         int64_t local_capacity, int64_t j, int64_t slot,
+                         int64_t valid) {
+  if (valid == 0 || j < offsets[0] || j >= offsets[n_shards]) return -1;
+  int64_t lo = 0, hi = n_shards;  // offsets[lo] <= j < offsets[hi]
+  while (hi - lo > 1) {
+    int64_t mid = (lo + hi) / 2;
+    if (offsets[mid] <= j) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  int64_t local = slot - lo * local_capacity;
+  if (local < 0 || local >= local_capacity) return -1;
+  return lo * (local_capacity + 1) + local;
 }
 
 }  // namespace gt

@@ -4,7 +4,8 @@ An open-addressing hash table (fnv1a, linear probing, tombstones) over a
 fixed slot arena, with a batch API so one C call resolves a whole
 window's keys.  Free slots hand out lowest first and released slots are
 reused last-released first, so two maps fed the same calls assign the
-same slots.
+same slots.  The same library holds :func:`crc32_batch`, the mesh
+engine's key → shard router.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from gubernator_tpu_torch import _build
 
 _I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _U8P = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_U32P = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _configured = False
 
 
@@ -40,6 +42,8 @@ def load_library() -> ctypes.CDLL:
     lib.guber_slotmap_keys_batch.restype = i64
     lib.guber_slotmap_keys_batch.argtypes = [
         vp, _I64P, i64, ctypes.c_char_p, i64, _I64P]
+    lib.guber_crc32_batch.restype = None
+    lib.guber_crc32_batch.argtypes = [ctypes.c_char_p, _I64P, i64, _U32P]
     _configured = True
     return lib
 
@@ -55,6 +59,17 @@ def as_char_p(blob):
     return ctypes.cast(
         (ctypes.c_char * mv.nbytes).from_buffer(mv), ctypes.c_char_p
     )
+
+
+def crc32_batch(blob, offsets: np.ndarray) -> np.ndarray:
+    """zlib-compatible CRC-32 of every key of a packed (blob, offsets)
+    pair, as (n,) uint32, in one native call."""
+    lib = load_library()
+    n = len(offsets) - 1
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    out = np.empty(n, np.uint32)
+    lib.guber_crc32_batch(as_char_p(blob), offsets, n, out)
+    return out
 
 
 class NativeSlotMap:

@@ -560,7 +560,7 @@ class TickHandle:
                                      self._limit_req)
             eng = self._engine
             with eng._lock:
-                eng.metric_over_limit += masked_over_limit(rm, self.errors)
+                eng._account_resolved(rm, self.errors)
             self._resp = None
             self._done = rm
 
@@ -623,7 +623,52 @@ class SubmittedBatch:
         ]
 
 
-class TickEngine:
+class BatchFront:
+    """The batch entry points of an engine whose ``submit_columns``
+    dispatches one window of at most ``max_batch`` rows."""
+
+    max_batch: int
+
+    def submit_cols(self, cols: ReqColumns,
+                    now: Optional[int] = None) -> SubmittedBatch:
+        """Dispatch a columnar batch of any width without waiting for the
+        device (chunked into max_batch ticks)."""
+        n = len(cols)
+        now = now if now is not None else timeutil.now_ms()
+        spans = [
+            (s, min(s + self.max_batch, n))
+            for s in range(0, n, self.max_batch)
+        ]
+        handles = [
+            self.submit_columns(
+                cols if len(spans) == 1 else cols.slice_chunk(s, e), now)
+            for s, e in spans
+        ]
+        return SubmittedBatch(handles, spans, n)
+
+    def process_columns(self, cols: ReqColumns, now: Optional[int] = None
+                        ) -> tuple[np.ndarray, Dict[int, str]]:
+        """Apply a columnar batch; returns the (5, n) response matrix in
+        request order (status, limit, remaining, reset_time, over_limit)
+        plus per-item errors."""
+        if len(cols) == 0:
+            return np.zeros((5, 0), np.int64), {}
+        return self.submit_cols(cols, now).matrix()
+
+    def submit(self, requests: Sequence[RateLimitRequest],
+               now: Optional[int] = None) -> SubmittedBatch:
+        """Dispatch an object-level batch without waiting for the device."""
+        return self.submit_cols(ReqColumns.from_requests(requests), now)
+
+    def process(self, requests: Sequence[RateLimitRequest],
+                now: Optional[int] = None) -> List[RateLimitResponse]:
+        """Apply a batch of requests; responses in request order."""
+        if not requests:
+            return []
+        return self.submit(requests, now).responses()
+
+
+class TickEngine(BatchFront):
     """Owns the device table and applies request windows tick by tick.
 
     Thread-safe: one lock covers slot resolution, packing and dispatch."""
@@ -836,7 +881,8 @@ class TickEngine:
             mhead, count, uidx, rank, _ = plan
             self.metric_grouped_ticks += 1
             return tick.merged_pipeline(
-                self.table, *self._upload(mhead, count, uidx, rank), now), inv
+                self.table,
+                *tick.upload(self.device, mhead, count, uidx, rank), now), inv
         lplan = (build_layer_plan(m, n, self.capacity, now)
                  if self.capacity >= LAYERED_MIN_CAPACITY else None)
         if lplan is not None:
@@ -844,8 +890,8 @@ class TickEngine:
             k = live_layers(mhk, self.capacity)
             self.metric_layered_ticks += 1
             return tick.layered_pipeline(
-                self.table, *self._upload(mh0, cnt0, mhk[:k], cntk[:k], uidx,
-                                          rank), now), inv
+                self.table, *tick.upload(self.device, mh0, cnt0, mhk[:k],
+                                        cntk[:k], uidx, rank), now), inv
         resp, perm, rounds = tick.tick_rank_rounds(self.table, m, n, now)
         self.metric_rank_rounds += rounds
         # Response lane k answers sorted lane perm[k].
@@ -853,57 +899,6 @@ class TickEngine:
         pos[perm] = np.arange(n)
         return resp, pos[inv]
 
-    def _upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:
-        """A plan's int32 arrays on the engine's device, through one
-        host-to-device copy.  On a CUDA engine the host buffer is pinned
-        and the copy asynchronous; PyTorch's pinned-memory allocator keeps
-        the buffer until the copy has run."""
-        sizes = [a.size for a in arrays]
-        host = torch.empty(sum(sizes), dtype=torch.int32,
-                           pin_memory=self.device.type == "cuda")
-        flat = host.numpy()
-        off = 0
-        for a, k in zip(arrays, sizes):
-            flat[off:off + k] = a.reshape(-1)
-            off += k
-        dev = host.to(self.device, non_blocking=True)
-        return [part.view(a.shape)
-                for part, a in zip(torch.split(dev, sizes), arrays)]
-
-    def submit_cols(self, cols: ReqColumns,
-                    now: Optional[int] = None) -> SubmittedBatch:
-        """Dispatch a columnar batch of any width without waiting for the
-        device (chunked into max_batch ticks)."""
-        n = len(cols)
-        now = now if now is not None else timeutil.now_ms()
-        spans = [
-            (s, min(s + self.max_batch, n))
-            for s in range(0, n, self.max_batch)
-        ]
-        handles = [
-            self.submit_columns(
-                cols if len(spans) == 1 else cols.slice_chunk(s, e), now)
-            for s, e in spans
-        ]
-        return SubmittedBatch(handles, spans, n)
-
-    def process_columns(self, cols: ReqColumns, now: Optional[int] = None
-                        ) -> tuple[np.ndarray, Dict[int, str]]:
-        """Apply a columnar batch; returns the (5, n) response matrix in
-        request order (status, limit, remaining, reset_time, over_limit)
-        plus per-item errors."""
-        if len(cols) == 0:
-            return np.zeros((5, 0), np.int64), {}
-        return self.submit_cols(cols, now).matrix()
-
-    def submit(self, requests: Sequence[RateLimitRequest],
-               now: Optional[int] = None) -> SubmittedBatch:
-        """Dispatch an object-level batch without waiting for the device."""
-        return self.submit_cols(ReqColumns.from_requests(requests), now)
-
-    def process(self, requests: Sequence[RateLimitRequest],
-                now: Optional[int] = None) -> List[RateLimitResponse]:
-        """Apply a batch of requests; responses in request order."""
-        if not requests:
-            return []
-        return self.submit(requests, now).responses()
+    def _account_resolved(self, resp_mat: np.ndarray, errors) -> None:
+        """Bookkeeping of a resolved window (the caller holds the lock)."""
+        self.metric_over_limit += masked_over_limit(resp_mat, errors)

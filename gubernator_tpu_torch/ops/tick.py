@@ -21,6 +21,12 @@ plans in ops/engine.py (the JAX engine's order):
   the sequential per-key semantics the reference's duplicate programs are
   held to, at one launch per round (the port's stand-in for
   ``tick32.jitted_sorted_tick32``).
+
+The mesh engine (parallel/mesh_engine.py) ticks each tile of a duplicate
+window with :func:`merge_tick`, the port of the x64 tile tick its JAX
+counterpart runs (``engine.make_tick_fn(capacity, compact_req=True,
+compact_resp=True)``): heads through the fused tick, the closed-form fold
+of ``transition.apply_merged_followers``, rank rounds for the rest.
 """
 
 from __future__ import annotations
@@ -28,9 +34,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gubernator_tpu_torch.ops.buckets import logical_to_rows, rows_to_logical
 from gubernator_tpu_torch.ops.fusedtick import (
-    MERGED24_W, REQ32_INDEX, RESP_ROWS, fused_merged_tick, fused_tick)
+    MERGED24_W, REQ32_INDEX, RESP_ROWS, fused_merged_tick, fused_tick,
+    pack_resp_compact, unpack_req32)
+from gubernator_tpu_torch.ops.rowtable import gather_rows, scatter_rows
+from gubernator_tpu_torch.ops.transition import (
+    apply_merged_followers, merge_eligible)
 from gubernator_tpu_torch.types import Algorithm, Behavior, Status
+
+I64_MAX = (1 << 63) - 1
+
+
+def upload(device: torch.device, *arrays: np.ndarray) -> list:
+    """Int32 host arrays on ``device`` through one host-to-device copy.
+    On a CUDA device the host buffer is pinned and the copy asynchronous;
+    PyTorch's pinned-memory allocator keeps the buffer until the copy has
+    run."""
+    sizes = [a.size for a in arrays]
+    host = torch.empty(sum(sizes), dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    flat = host.numpy()
+    off = 0
+    for a, k in zip(arrays, sizes):
+        flat[off:off + k] = a.reshape(-1)
+        off += k
+    dev = host.to(device, non_blocking=True)
+    return [part.view(a.shape)
+            for part, a in zip(torch.split(dev, sizes), arrays)]
 
 
 def rank_rounds(m_sorted: np.ndarray, n: int, capacity: int):
@@ -154,3 +185,112 @@ def layered_pipeline(table: torch.Tensor, mh0: torch.Tensor,
         a = w0 + k * lw
         fused_merged_tick(table, mhk[k], cntk[k], now, out=journal[a:a + lw])
     return expand_rowmajor(journal, uidx, rank)
+
+
+def _segments(key: np.ndarray):
+    """Host port of ``engine._segments_from_sorted`` over a stable sort of
+    ``key``: each lane's rank within its key, its group's size, its head's
+    lane and its group's id."""
+    t = len(key)
+    order = np.argsort(key, kind="stable")
+    sk = key[order]
+    idx = np.arange(t)
+    is_start = np.ones(t, bool)
+    is_start[1:] = sk[1:] != sk[:-1]
+    seg_start = np.maximum.accumulate(np.where(is_start, idx, 0))
+    seg_sorted = np.cumsum(is_start) - 1
+    inv = np.empty(t, np.int64)
+    inv[order] = idx
+    seg = seg_sorted[inv]
+    return ((idx - seg_start)[inv], np.bincount(seg_sorted)[seg],
+            order[seg_start][inv], seg)
+
+
+def merge_tick(table: torch.Tensor, m: np.ndarray, now: int):
+    """One tile of a duplicate-bearing window, as the TPU package's x64 tile
+    tick applies it (``make_tick_fn(capacity, compact_req=True,
+    compact_resp=True)``: merge_uniform, unsorted input).
+
+    ``m`` is a (19, T) int32 host REQ32 block (lanes with valid == 0 are
+    inert).  Every group's head (first valid lane of its slot) ticks from
+    the pre-window state in one fused-tick launch.  Groups whose members
+    are all eligible (``transition.merge_eligible``) fold their followers
+    in closed form against the head's post-state: the heads' rows come
+    back through ``gather_rows``, ``apply_merged_followers`` runs as plain
+    torch ops on the table's device, and the heads' group-final rows go
+    back through ``scatter_rows``.  Every other follower ticks in rank
+    rounds, one fused-tick launch per rank.  A fold lane whose head might
+    come out expired (its request does not prove ``expire >= now``) also
+    rides its rank round, masked on the device when its fold applied, so
+    nothing waits for the device.  Returns ``(resp, rounds)``: the (6, T)
+    int32 compact response on the table's device and the rank rounds
+    launched."""
+    R = REQ32_INDEX
+    cap = table.shape[0] - 1
+    dev = table.device
+    t = m.shape[1]
+    valid = m[R["valid"]] != 0
+    key = np.where(valid, m[R["slot"]], cap)
+    rank, size, head_idx, seg = _segments(key)
+    live = valid & (key < cap)
+    if not (live & (rank > 0)).any():
+        (m_dev,) = upload(dev, m)
+        return fused_tick(table, m_dev, now), 0
+
+    heads = np.flatnonzero(valid & (rank == 0))
+    r_host = unpack_req32(torch.from_numpy(m))
+    elig = merge_eligible(r_host, torch.from_numpy(rank),
+                          torch.from_numpy(head_idx),
+                          torch.from_numpy(seg)).numpy()
+    fold = elig & (rank > 0)
+    formula = np.flatnonzero(fold | (elig & (rank == 0) & (size > 1)))
+    dur = r_host["duration"].numpy()
+    created = r_host["created_at"].numpy()
+    proven = (dur > 0) & (created >= now) & (created <= I64_MAX - dur)
+    maybe = fold & ~proven
+    rounds_at = np.flatnonzero(valid & (rank > 0) & (~fold | maybe))
+    perm = rounds_at[np.lexsort((rounds_at, rank[rounds_at]))]
+    bounds = np.searchsorted(rank[perm], np.arange(1, rank.max() + 2))
+    pos = np.full(t, -1, np.int64)
+    pos[formula] = np.arange(len(formula))
+
+    m_dev, heads_dev, formula_dev, perm_dev, fidx = upload(
+        dev, m, heads.astype(np.int32), formula.astype(np.int32),
+        perm.astype(np.int32),
+        np.stack([rank[formula], size[formula], pos[head_idx[formula]],
+                  elig[formula]]).astype(np.int32))
+    out = torch.zeros((RESP_ROWS, t), dtype=torch.int32, device=dev)
+    out.index_copy_(1, heads_dev.long(), fused_tick(
+        table, m_dev[:, heads_dev.long()], now))
+
+    merged_all = torch.zeros(t, dtype=torch.bool, device=dev)
+    if len(formula):
+        f = formula_dev.long()
+        head_slot = m_dev[R["slot"]][f[fidx[2].long()]].long()
+        state = rows_to_logical(gather_rows(table, head_slot))
+        r = unpack_req32(m_dev[:, f])
+        zero = torch.zeros(len(formula), dtype=torch.int64, device=dev)
+        resp0 = {"status": zero, "remaining": zero, "reset_time": zero,
+                 "over_limit": zero != 0}
+        rows, resp, merged = apply_merged_followers(
+            state, resp0, r, now, fidx[0], fidx[1].long(), fidx[2].long(),
+            fidx[3] != 0)
+        at_head = fidx[0] == 0
+        scatter_rows(table, head_slot[at_head], logical_to_rows(
+            {k: v[at_head] for k, v in rows.items()}))
+        out[:, f] = torch.where(merged, pack_resp_compact(resp, merged),
+                                out[:, f])
+        merged_all[f] = merged
+
+    if len(perm):
+        p = perm_dev.long()
+        mr = m_dev[:, p]
+        mr[R["valid"]] = torch.where(merged_all[p], 0, mr[R["valid"]])
+        rr = torch.empty((RESP_ROWS, len(perm)), dtype=torch.int32,
+                         device=dev)
+        for k in range(len(bounds) - 1):
+            a, b = int(bounds[k]), int(bounds[k + 1])
+            if a < b:
+                fused_tick(table, mr[:, a:b], now, out=rr[:, a:b])
+        out[:, p] = torch.where(merged_all[p], out[:, p], rr)
+    return out, int(np.count_nonzero(np.diff(bounds)))

@@ -17,9 +17,14 @@ precedence, folded with the algorithm zoo (:mod:`..algos`) on the
 
 This is the plain version of the CUDA tick kernel's transition
 (``csrc/transition.cuh``), which computes the same values with scalar
-C++ per lane.  float64 → int64 conversions go through :func:`trunc_i64`
-(round toward zero, saturating, NaN → 0: what XLA gives the reference),
-and int64 products wrap two's-complement.
+C++ per lane.  Two closed-form duplicate folds follow it: ``merged_fold``
+(the parts fold of the merged tick kernel, which the single-card plans
+take) and ``merged_formulas`` with ``apply_merged_followers`` (the x64
+fold of the mesh engine's duplicate windows, plain torch only).
+
+float64 → int64 conversions go through :func:`trunc_i64` (round toward
+zero, saturating, NaN → 0: what XLA gives the reference), and int64
+products wrap two's-complement.
 """
 
 from __future__ import annotations
@@ -290,3 +295,129 @@ def merged_fold(now, new_state: Dict[str, torch.Tensor],
     head = {"base": base, "q": q, "rate_i": rate_i,
             "s0": new_state["status"], "expire": new_state["expire_at"]}
     return folded, head
+
+
+# ----------------------------------------------------------------------
+# The x64 closed-form fold of the mesh engine's duplicate windows
+# ----------------------------------------------------------------------
+NO_MERGE = int(Behavior.RESET_REMAINING | Behavior.DURATION_IS_GREGORIAN)
+
+
+def merged_formulas(new_state: Dict[str, torch.Tensor],
+                    resp: Dict[str, torch.Tensor], r: Dict[str, torch.Tensor],
+                    now, rank: torch.Tensor, last_rank: torch.Tensor,
+                    fold_mask: torch.Tensor, head_mask: torch.Tensor,
+                    R0: torch.Tensor, F0: torch.Tensor, S0: torch.Tensor,
+                    E: torch.Tensor):
+    """The closed-form duplicate fold of the TPU package's x64 tick
+    (``engine._merged_formulas``), in plain int64/float64 torch ops.
+
+    ``R0/F0/S0/E`` are each lane's group head's post-transition
+    remaining, remaining_f, status and expire_at; ``rank`` is the lane's
+    distance from its head and ``last_rank`` that of its group's last
+    member.  Lanes in ``fold_mask`` whose head is alive (``now <= E``) are
+    *merged*: rank i answers UNDER with ``base - i*h`` while ``i <= q``,
+    else OVER with the drained or residual remaining.  Heads in
+    ``head_mask`` (alive) take the group-final remaining, status or
+    remaining_f.  Returns ``(rows, resp, merged)``: ``new_state`` with the
+    head rows folded, ``resp`` with the merged lanes' answers, and the
+    merged mask.
+
+    This is not the parts fold (:func:`merged_fold`, which the grouped and
+    layered plans of the single-card engine follow): the leaky ``base``
+    truncates ``remaining_f`` instead of flooring it, ``q = base // h``
+    divides the signed base instead of clamping it at 0, and ``rate_i`` is
+    the truncated float64 quotient ``duration / limit``, as in the JAX
+    mesh engine's duplicate path."""
+    f64 = torch.float64
+    is_tok = r["algorithm"] == int(Algorithm.TOKEN_BUCKET)
+    n0 = trunc_i64(F0)
+    alive = now <= E
+    merged = fold_mask & alive
+
+    h = torch.where(r["hits"] > 0, r["hits"], 1)
+    i = rank.to(torch.int64)
+    base = torch.where(is_tok, R0, n0)
+    q = torch.div(base, h, rounding_mode="floor")
+    drain = (r["behavior"] & int(Behavior.DRAIN_OVER_LIMIT)) != 0
+    under = i <= q
+    residue = base - q * h
+    rem_over = torch.where(drain, 0, residue)
+    rem_resp = torch.where(under, base - i * h, rem_over)
+    safe_limit = torch.where(r["limit"] == 0, 1, r["limit"])
+    rate_i = trunc_i64(r["duration"].to(f64) / safe_limit.to(f64))
+    reset_rem = torch.where(
+        under, rem_resp, torch.where(drain & (i > q + 1), 0, residue))
+    leaky_reset = r["created_at"] + (r["limit"] - reset_rem) * rate_i
+    resp = {
+        "status": torch.where(
+            merged, torch.where(under, torch.where(is_tok, S0, UNDER), OVER),
+            resp["status"]),
+        "remaining": torch.where(merged, rem_resp, resp["remaining"]),
+        "reset_time": torch.where(
+            merged, torch.where(is_tok, E, leaky_reset), resp["reset_time"]),
+        "over_limit": torch.where(merged, ~under, resp["over_limit"]),
+    }
+
+    li = last_rank.to(torch.int64)
+    rem_last = torch.where(li <= q, base - li * h, rem_over)
+    divisible = residue == 0
+    at_zero_last = torch.where(divisible, li > q, drain & (li > q + 1))
+    status_last = torch.where(at_zero_last, OVER, S0)
+    zero_f = (((q >= 1) & divisible & (li >= q))
+              | ((base > 0) & drain & (li > q)))
+    remf_last = torch.where(
+        zero_f, 0.0, F0 - (torch.minimum(li, q) * h).to(f64))
+    head_ovr = head_mask & alive
+    rows = dict(new_state)
+    rows["remaining"] = torch.where(head_ovr & is_tok, rem_last,
+                                    new_state["remaining"])
+    rows["status"] = torch.where(head_ovr & is_tok, status_last,
+                                 new_state["status"])
+    rows["remaining_f"] = torch.where(head_ovr & ~is_tok, remf_last,
+                                      new_state["remaining_f"])
+    return rows, resp, merged
+
+
+def merge_eligible(r: Dict[str, torch.Tensor], rank: torch.Tensor,
+                   head_idx: torch.Tensor,
+                   seg_id: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: the lanes whose group folds in closed form (the request
+    half of ``engine._apply_merged_followers``).  A lane is eligible when
+    it is valid, identical to its head (hits, limit, duration, behavior,
+    created_at, burst, algorithm), has hits > 0, no RESET_REMAINING or
+    Gregorian behavior, is known (heads are exempt), and is a token or
+    leaky lane; a group folds only when every valid member is eligible."""
+    def same(f):
+        return r[f] == r[f][head_idx]
+
+    valid = r["valid"] != 0
+    ok = (valid & same("hits") & same("limit") & same("duration")
+          & same("behavior") & same("created_at") & same("burst")
+          & same("algorithm") & (r["hits"] > 0)
+          & ((r["behavior"] & NO_MERGE) == 0)
+          & ((r["known"] != 0) | (rank == 0))
+          & (r["algorithm"] <= int(Algorithm.LEAKY_BUCKET)))
+    bad = torch.zeros(rank.shape[0], dtype=torch.int64, device=rank.device)
+    bad.index_add_(0, seg_id, (valid & ~ok).to(torch.int64))
+    return ok & (bad[seg_id] == 0)
+
+
+def apply_merged_followers(new_state: Dict[str, torch.Tensor],
+                           resp: Dict[str, torch.Tensor],
+                           r: Dict[str, torch.Tensor], now,
+                           rank: torch.Tensor, group_size: torch.Tensor,
+                           head_idx: torch.Tensor, eligible: torch.Tensor):
+    """Port of ``engine._apply_merged_followers``: fold the followers of
+    every group whose lanes are ``eligible`` (:func:`merge_eligible`)
+    against the post-transition state of their head,
+    ``new_state[head_idx]``.  Returns :func:`merged_formulas`'s
+    ``(rows, resp, merged)``."""
+    return merged_formulas(
+        new_state, resp, r, now, rank, group_size - 1,
+        fold_mask=eligible & (rank > 0),
+        head_mask=eligible & (rank == 0) & (group_size > 1),
+        R0=new_state["remaining"][head_idx],
+        F0=new_state["remaining_f"][head_idx],
+        S0=new_state["status"][head_idx],
+        E=new_state["expire_at"][head_idx])

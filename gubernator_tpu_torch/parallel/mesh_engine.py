@@ -1,0 +1,371 @@
+"""The sharded serving table on one card: the mesh engine's tick path.
+
+Port of the TPU package's ``parallel/mesh_engine.py`` ``MeshTickEngine``
+(the engine ``GUBER_TPU_MESH_SHARDS=N > 1`` selects there).  The JAX
+engine shards the table over a device mesh, shard d owning global slots
+``[d * L, (d + 1) * L)`` (``L = local_capacity``).  On one card the shards
+are row ranges of one (n_shards * (L + 1), 16) int64 table: shard s owns
+rows ``[s * (L + 1), (s + 1) * (L + 1))``, the last of them its guard row
+(``raggedtick.shard_block``), so its local slot arithmetic is the
+single-card engine's.
+
+The host routes each key to shard ``crc32(key) % n_shards`` (the native
+``crc32_batch``), resolves it in that shard's own slot map, packs ONE
+slot-sorted (19, B) REQ32 matrix of GLOBAL slots and derives the
+per-shard extents ``[offsets[s], offsets[s + 1])`` from the resolve's
+counts (parallel/partition.py).  A window whose slots are unique is one
+``fused_ragged_tick`` launch (kernel B.4) over every extent; the JAX
+engine's ``shard_map`` + ``psum`` becomes that one launch, because the
+extents are disjoint.  A window whose slots repeat walks each shard's
+extent in tiles (``raggedtick.ragged_walk``) through ``tick.merge_tick``,
+the x64 tile tick of the JAX engine's duplicate program.  Skewed windows
+(every key on one shard) take the same paths: one extent covers the batch.
+
+Reclaim is per shard, as in the JAX engine: a full shard frees its
+TTL-dead slots, else evicts its least recently used ones, through the
+gather and scatter kernels on the shard's block.
+
+Not ported yet: the Store, GLOBAL installs, snapshot export/load,
+resharding and placement of shards on several cards (``store=`` raises
+``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+import threading
+import warnings
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from gubernator_tpu_torch import DeviceLike, resolve_device
+from gubernator_tpu_torch.native import NativeSlotMap, crc32_batch
+from gubernator_tpu_torch.ops import rowtable, tick
+from gubernator_tpu_torch.ops.buckets import ROW_W
+from gubernator_tpu_torch.ops.engine import (
+    BatchFront, StagingRing, TickHandle, evict_chunked, masked_over_limit,
+    pack_cols_req32, pack_wide_rows, select_reclaim_victims,
+    sort_packed_by_slot)
+from gubernator_tpu_torch.ops.fusedtick import REQ32_ROWS
+from gubernator_tpu_torch.ops.raggedtick import (
+    choose_tile, fused_ragged_tick, ragged_walk, shard_block)
+from gubernator_tpu_torch.ops.reqcols import ReqColumns, compact_blob
+from gubernator_tpu_torch.parallel.partition import RaggedExtents
+from gubernator_tpu_torch.types import Behavior
+from gubernator_tpu_torch.utils import timeutil
+
+_LOCAL_WIDTH_WARNED = False
+
+
+def _warn_local_width_deprecated() -> None:
+    """One warning per process for the dead ``local_width`` knob: the
+    ragged extent walk has no per-shard width to bound."""
+    global _LOCAL_WIDTH_WARNED
+    if _LOCAL_WIDTH_WARNED:
+        return
+    _LOCAL_WIDTH_WARNED = True
+    warnings.warn(
+        "MeshTickEngine(local_width=...) is deprecated and ignored: the "
+        "ragged tick dispatch walks each shard's extent directly and has "
+        "no per-shard width limit",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+class MeshRaggedTickHandle(TickHandle):
+    """One dispatched mesh window.  Its flat (6, B) compact response is in
+    slot-sorted lane order, as a single-card window's, so it resolves
+    through ``ops.engine.resolve_ticks``; resolving also retires the
+    window from the engine's in-flight count."""
+
+    __slots__ = ()
+
+
+class MeshTickEngine(BatchFront):
+    """The sharded table on one card, served window by window.
+
+    The single-card ``TickEngine``'s contract over ``n_shards *
+    local_capacity`` slots: global slot g lives on shard
+    ``g // local_capacity``, which is the shard its key routes to.
+    Thread-safe: one lock covers routing, resolution, packing and
+    dispatch."""
+
+    def __init__(
+        self,
+        n_shards: int = 8,
+        local_capacity: int = 1 << 14,
+        max_batch: int = 1024,
+        device: DeviceLike = None,
+        store=None,
+        routing: str = "auto",
+        local_width: int = 0,
+    ):
+        if store is not None:
+            raise NotImplementedError(
+                "MeshTickEngine(store=...) is not ported to the torch "
+                "engine yet")
+        self.n_shards = int(n_shards)
+        self.local_capacity = int(local_capacity)
+        if self.n_shards < 1 or self.local_capacity < 1:
+            raise ValueError("n_shards and local_capacity must be positive")
+        self.capacity = self.n_shards * self.local_capacity
+        if self.capacity >= (1 << 31):
+            # The flat wire format carries GLOBAL slots in an int32 row.
+            raise ValueError(
+                f"sharded table capacity {self.capacity} exceeds int32 "
+                "global slots")
+        self.max_batch = int(max_batch)
+        if routing not in ("auto", "device"):
+            raise ValueError(
+                f"unknown mesh routing {routing!r} (the legacy 'host' "
+                "blocked path was removed; the ragged device dispatch "
+                "serves every window)")
+        if int(local_width):
+            _warn_local_width_deprecated()
+        self.device = resolve_device(device)
+        self.ragged = RaggedExtents(self.n_shards, self.local_capacity)
+        self.table = torch.zeros(
+            (self.n_shards * (self.local_capacity + 1), ROW_W),
+            dtype=torch.int64, device=self.device)
+        self.slots = [NativeSlotMap(self.local_capacity)
+                      for _ in range(self.n_shards)]
+        self._last_access = np.zeros(self.capacity, np.int64)
+        # Global slots assigned on the host but not yet written by a tick:
+        # their rows still look dead, so reclaim must skip them.
+        self._pending: set = set()
+        self._tick_count = 0
+        self._lock = threading.RLock()
+        # One slab width (max_batch); the sentinel is the GLOBAL capacity,
+        # so padding lanes sort past every extent.
+        self._staging = StagingRing(
+            REQ32_ROWS, self.capacity, depth=9,
+            pinned=self.device.type == "cuda")
+        self._inflight = 0
+        self.metric_h2d_windows = 0
+        self.metric_h2d_overlapped = 0
+        self.metric_routed_windows = 0
+        # Pinned at 0: the ragged walk has no per-shard width to overflow.
+        self.metric_routed_overflows = 0
+        self.metric_hits = 0
+        self.metric_misses = 0
+        self.metric_over_limit = 0
+        self.metric_unexpired_evictions = 0
+        # Rank rounds launched by duplicate windows (tick.merge_tick).
+        self.metric_rank_rounds = 0
+
+    def h2d_overlap_ratio(self) -> float:
+        """Fraction of windows whose request upload was queued while an
+        earlier window was still unresolved."""
+        return self.metric_h2d_overlapped / max(1, self.metric_h2d_windows)
+
+    def cache_size(self) -> int:
+        return sum(len(sm) for sm in self.slots)
+
+    # ------------------------------------------------------------------
+    # Reclaim, per shard
+    # ------------------------------------------------------------------
+    def _shard_dead_mask(self, shard: int, now: int,
+                         local: np.ndarray) -> np.ndarray:
+        """Dead mask (unused or TTL-expired) over some of one shard's
+        local slots, read through the gather kernel on the shard's
+        block."""
+        return rowtable.dead_mask(
+            shard_block(self.table, shard, self.local_capacity), local, now)
+
+    def _reclaim(self, shard: int, now: int) -> None:
+        """Free one shard's TTL-dead slots; fall back to LRU eviction of a
+        sixteenth of the shard (the JAX engine's policy,
+        ``select_reclaim_victims``).  Only mapped slots not touched this
+        tick can be victims, so only their rows are read."""
+        sm = self.slots[shard]
+        lo = shard * self.local_capacity
+        mapped = sm.mapped_mask()
+        pend = [g - lo for g in self._pending
+                if lo <= g < lo + self.local_capacity]
+        if pend:
+            mapped[np.asarray(pend, np.int64)] = False
+        last = self._last_access[lo:lo + self.local_capacity]
+        cand = np.flatnonzero(mapped & (last != self._tick_count))
+        dead = np.zeros(self.local_capacity, bool)
+        dead[cand] = self._shard_dead_mask(shard, now, cand)
+        freed, victims = select_reclaim_victims(
+            mapped, dead, last, self._tick_count,
+            max(1, self.local_capacity // 16))
+        sm.release_batch(freed)
+        if len(victims) == 0:
+            return
+        self.metric_unexpired_evictions += len(victims)
+        sm.release_batch(victims)
+        self._evict_local(shard, victims)
+
+    def _evict_local(self, shard: int, victims: np.ndarray) -> None:
+        """Zero one shard's victim rows through the scatter kernel."""
+        evict_chunked(shard_block(self.table, shard, self.local_capacity),
+                      victims)
+
+    # ------------------------------------------------------------------
+    # Host preparation
+    # ------------------------------------------------------------------
+    def _gregorian_cols(self, cols: ReqColumns, now: int,
+                        errors: Dict[int, str]):
+        """Gregorian expiration and duration of the flagged rows, once per
+        distinct selector; failures become per-item errors."""
+        n = len(cols)
+        greg_e = np.zeros(n, np.int64)
+        greg_d = np.zeros(n, np.int64)
+        greg = np.flatnonzero(
+            cols.behavior & int(Behavior.DURATION_IS_GREGORIAN))
+        sel_d = cols.duration[greg]
+        for d in np.unique(sel_d):
+            lanes = greg[sel_d == d]
+            try:
+                greg_e[lanes] = timeutil.gregorian_expiration(now, int(d))
+                greg_d[lanes] = timeutil.gregorian_duration(now, int(d))
+            except timeutil.GregorianError as exc:
+                errors.update((int(i), str(exc)) for i in lanes)
+        return greg_e, greg_d
+
+    def _resolve_columns(self, cols: ReqColumns, now: int,
+                         errors: Dict[int, str]):
+        """Route every key to its shard (one native CRC-32 batch), regroup
+        the key blob by shard, and resolve each shard's keys in its slot
+        map with one native call, reclaiming a full shard once.  Keys
+        whose shard stays full become per-item errors.  Returns
+        ``(sh, slots, known)`` (local slots, -1 where unresolved) with the
+        resolved rows stamped live."""
+        n = len(cols)
+        sh = (crc32_batch(cols.key_blob, cols.key_offsets)
+              % np.uint32(self.n_shards)).astype(np.int64)
+        order = np.argsort(sh, kind="stable")
+        starts = np.searchsorted(sh[order], np.arange(self.n_shards + 1))
+        # One byte gather regroups the key blob by shard.
+        grouped, g_off = compact_blob(cols.key_blob, cols.key_offsets, order)
+        slots = np.full(n, -1, np.int64)
+        known = np.zeros(n, np.uint8)
+        for s in range(self.n_shards):
+            a, z = int(starts[s]), int(starts[s + 1])
+            if a == z:
+                continue
+            rows_s = order[a:z]
+            sm = self.slots[s]
+            sl, kn = sm.resolve_blob(grouped[g_off[a]:g_off[z]],
+                                     g_off[a:z + 1] - g_off[a])
+            if (sl < 0).any():
+                # Stamp the rows already resolved live before reclaiming,
+                # so the reclaim cannot hand their slots to the retries.
+                okm = sl >= 0
+                g = s * self.local_capacity + sl[okm]
+                self._last_access[g] = self._tick_count
+                self._pending.update(g[kn[okm] == 0].tolist())
+                self._reclaim(s, now)
+                retry = np.flatnonzero(sl < 0)
+                sl[retry], kn[retry] = sm.resolve_blob(*compact_blob(
+                    cols.key_blob, cols.key_offsets, rows_s[retry]))
+                for t in np.flatnonzero(sl < 0):
+                    errors[int(rows_s[t])] = (
+                        "rate-limit shard full; eviction failed")
+            slots[rows_s] = sl
+            known[rows_s] = kn
+        resolved = slots >= 0
+        g_res = sh[resolved] * self.local_capacity + slots[resolved]
+        self._last_access[g_res] = self._tick_count
+        self._pending.update(g_res[known[resolved] == 0].tolist())
+        return sh, slots, known
+
+    def _account_misses(self, slots: np.ndarray, known: np.ndarray) -> None:
+        """Hit and miss counts of one resolved batch."""
+        resolved = slots >= 0
+        n_miss = int((resolved & (known == 0)).sum())
+        self.metric_hits += int(resolved.sum()) - n_miss
+        self.metric_misses += n_miss
+
+    def _account_resolved(self, resp_mat: np.ndarray, errors) -> None:
+        """Bookkeeping of a resolved window (the caller holds the lock)."""
+        self._inflight = max(0, self._inflight - 1)
+        self.metric_over_limit += masked_over_limit(resp_mat, errors)
+
+    # ------------------------------------------------------------------
+    # The tick
+    # ------------------------------------------------------------------
+    def submit_columns(self, cols: ReqColumns,
+                       now: Optional[int] = None) -> MeshRaggedTickHandle:
+        """Build and dispatch one mesh window (≤ max_batch rows); returns
+        a handle whose ``result()`` waits for the device.  The upload is
+        asynchronous, so packing the next window overlaps this one's
+        kernel."""
+        n = len(cols)
+        if n > self.max_batch:
+            raise ValueError(
+                f"batch of {n} exceeds engine max {self.max_batch}")
+        with self._lock:
+            now = now if now is not None else timeutil.now_ms()
+            self._tick_count += 1
+            errors: Dict[int, str] = {}
+            greg_e, greg_d = self._gregorian_cols(cols, now, errors)
+            sh, slots, known = self._resolve_columns(cols, now, errors)
+            self._account_misses(slots, known)
+            ok = slots >= 0
+            ok[list(errors)] = False
+            return self._dispatch_ragged(cols, now, sh, slots, known, ok,
+                                         greg_e, greg_d, errors)
+
+    def _dispatch_ragged(self, cols, now, sh, slots, known, ok, greg_e,
+                         greg_d, errors) -> MeshRaggedTickHandle:
+        """Pack ONE slot-sorted (19, B) matrix of global slots into a
+        leased staging slab, derive the extent offsets from the per-shard
+        counts, and tick: one ``fused_ragged_tick`` launch when the slots
+        are unique, else the tile walk of each shard's extent."""
+        n = len(cols)
+        slab = self._staging.lease(self.max_batch)
+        m = slab.numpy()
+        ix = np.flatnonzero(ok)
+        gslot = sh[ix] * self.local_capacity + slots[ix]
+        pack_cols_req32(m, cols, gslot, known[ix], now, ix)
+        pack_wide_rows(m, "greg_exp", greg_e[ix], ix)
+        pack_wide_rows(m, "greg_dur", greg_d[ix], ix)
+        inv, has_dups = sort_packed_by_slot(m, n, self.capacity)
+        offs = self.ragged.offsets(self.ragged.counts(sh, ok))
+        if has_dups:
+            resp = self._tick_duplicates(m, offs, now)
+            uploaded = False
+        else:
+            dev_m, dev_offs = slab, torch.from_numpy(offs)
+            if self.device.type == "cuda":
+                dev_m = slab.to(self.device, non_blocking=True)
+                (dev_offs,) = tick.upload(self.device, offs)
+            resp = fused_ragged_tick(self.table, dev_m, dev_offs,
+                                     self.n_shards, self.local_capacity, now)
+            uploaded = True
+        self._pending.clear()
+        self.metric_routed_windows += 1
+        handle = MeshRaggedTickHandle(self, resp, n, inv, errors, cols.limit)
+        self.metric_h2d_windows += 1
+        if self._inflight > 0:
+            self.metric_h2d_overlapped += 1
+        self._inflight += 1
+        self._staging.retire(handle if uploaded else None)
+        return handle
+
+    def _tick_duplicates(self, m: np.ndarray, offs: np.ndarray,
+                         now: int) -> torch.Tensor:
+        """Walk each shard's extent in ``choose_tile`` steps, each tile
+        through ``tick.merge_tick`` on the shard's block.  Returns the flat
+        (6, B) response, zeros off every extent."""
+        out = torch.zeros((6, m.shape[1]), dtype=torch.int32,
+                          device=self.device)
+        tile = choose_tile(m.shape[1], self.n_shards)
+
+        def tick_tile(block, blk):
+            resp, rounds = tick.merge_tick(block, blk, now)
+            self.metric_rank_rounds += rounds
+            return resp
+
+        for s in range(self.n_shards):
+            a, z = int(offs[s]), int(offs[s + 1])
+            ragged_walk(tick_tile,
+                        shard_block(self.table, s, self.local_capacity),
+                        m, a, z - a, s * self.local_capacity,
+                        self.local_capacity, tile, out)
+        return out

@@ -5,9 +5,11 @@ with ``nvcc`` at first use); without one they skip.  They cover shapes the
 main path does not reach in ``chip_smoke.py``: widths that are not a
 multiple of a block, column slices, merged-tick launches into row slices
 of one journal, rows narrower than 16 words, out-of-range and guard-row
-slots, the engine on a tiny table that fills and reclaims (with herd
-windows on the grouped plan), and layered windows on a 2^14-slot table.  They import nothing of JAX, so they run where JAX is
-not installed:
+slots, ragged windows with empty shards, inert lanes and slots outside
+their shard, the engine on a tiny table that fills and reclaims (with herd
+windows on the grouped plan), layered windows on a 2^14-slot table, and
+the mesh engine on four tiny shards.  They import nothing of JAX, so
+they run where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -18,11 +20,15 @@ import torch
 
 import chip_smoke as cs
 import gubernator_tpu_torch as gt
-from gubernator_tpu_torch.carry import table_from_columns
+from gubernator_tpu_torch.carry import (
+    sharded_table_from_columns, table_from_columns)
 from gubernator_tpu_torch.ops import engine as E
 from gubernator_tpu_torch.ops import reqcols, rowtable
 from gubernator_tpu_torch.ops.fusedtick import (
     fused_merged_tick, fused_merged_tick_plain, fused_tick, fused_tick_plain)
+from gubernator_tpu_torch.ops.raggedtick import (
+    fused_ragged_tick, fused_ragged_tick_plain)
+from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -146,7 +152,9 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
         np.testing.assert_array_equal(got, want)
     assert eng.metric_rank_rounds > 0 and eng.metric_unexpired_evictions > 0
     assert eng.metric_grouped_ticks == 3
-    assert all(v > 0 for v in gt.kernel_launches().values())
+    launches = gt.kernel_launches()
+    assert launches.pop("fused_ragged_tick") == 0
+    assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)
 
 
@@ -168,4 +176,53 @@ def test_layered_windows_on_the_card_match_the_cpu_engine(dev):
     assert eng.metric_layered_ticks == ref.metric_layered_ticks == 3
     assert eng.metric_rank_rounds == 0
     assert gt.kernel_launches()["fused_merged_tick"] >= 6
+    assert torch.equal(eng.table.cpu(), ref.table)
+
+
+@pytest.mark.parametrize("shards,local,lanes,skew", [
+    (8, 512, 2048, False), (8, 4096, 2048, True), (3, 100, 129, False),
+    (1, 700, 300, False)])
+def test_fused_ragged_tick_matches_plain(dev, shards, local, lanes, skew):
+    rng = np.random.default_rng(shards * 1000 + lanes + skew)
+    state = cs.random_state(rng, shards * local)
+    m, offs, _ = cs.ragged_window(E, rng, shards, local, lanes, state, skew)
+    m[E.REQ32_INDEX["valid"], 3] = 0                   # inert lane
+    m[E.REQ32_INDEX["slot"], 7] = shards * local + 1  # outside its shard
+    table = sharded_table_from_columns(state, shards, local, dev)
+    mt, ot = torch.from_numpy(m).to(dev), torch.from_numpy(offs).to(dev)
+    t_k, t_p = table.clone(), table.clone()
+    r_k = fused_ragged_tick(t_k, mt, ot, shards, local, cs.NOW)
+    r_p = fused_ragged_tick_plain(t_p, mt, ot, shards, local, cs.NOW,
+                                  torch.empty_like(r_k))
+    assert torch.equal(r_k, r_p)
+    assert torch.equal(t_k, t_p)
+    assert (r_k[:, [3, 7]] == 0).all() and (r_k[:, int(offs[-1]):] == 0).all()
+    assert (t_k[local::local + 1] == 0).all()  # guard rows are never written
+
+
+def test_mesh_engine_on_the_card_matches_the_cpu_engine(dev):
+    gt.reset_kernel_launches()
+    rng = np.random.default_rng(13)
+    eng = MeshTickEngine(n_shards=4, local_capacity=16, max_batch=48,
+                         device=dev)
+    ref = MeshTickEngine(n_shards=4, local_capacity=16, max_batch=48,
+                         device="cpu")
+    now = cs.NOW
+    for step in range(9):
+        now += 700
+        if step % 3 == 2:   # a herd: the merge tick's closed-form fold
+            cols = cs.herd_columns(reqcols, b"h", rng.integers(0, 12, 48))
+        else:
+            ids = (rng.integers(0, 90, 48) if step % 3
+                   else rng.permutation(48))
+            cols = cs.window_columns(reqcols, rng, b"k", ids, now)
+        got, gerr = eng.process_columns(cols, now)
+        want, werr = ref.process_columns(cols, now)
+        assert gerr == werr
+        np.testing.assert_array_equal(got, want)
+    assert eng.metric_rank_rounds == ref.metric_rank_rounds > 0
+    assert eng.metric_unexpired_evictions > 0
+    launches = gt.kernel_launches()
+    assert launches.pop("fused_merged_tick") == 0
+    assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)

@@ -24,6 +24,8 @@ from gubernator_tpu_torch.carry import table_from_columns
 from gubernator_tpu_torch.ops import rowtable
 from gubernator_tpu_torch.ops.engine import TickEngine
 from gubernator_tpu_torch.ops.fusedtick import fused_tick
+from gubernator_tpu_torch.ops.raggedtick import fused_ragged_tick
+from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
 from gubernator_tpu_torch.types import RateLimitRequest
 
 PKG_DIR = os.path.dirname(gt.__file__)
@@ -47,7 +49,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
     assert {"gubernator_tpu_torch.ops.engine", "gubernator_tpu_torch.carry",
             "gubernator_tpu_torch.native",
-            "gubernator_tpu_torch.algos.gcra"} <= set(mods)
+            "gubernator_tpu_torch.algos.gcra",
+            "gubernator_tpu_torch.ops.raggedtick",
+            "gubernator_tpu_torch.parallel.partition",
+            "gubernator_tpu_torch.parallel.mesh_engine"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -89,6 +94,8 @@ def test_no_device_means_the_card_and_raises_without_one():
         gt.default_device()
     with pytest.raises(RuntimeError):
         TickEngine(capacity=16, max_batch=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MeshTickEngine(n_shards=2, local_capacity=8, max_batch=8)
     with pytest.raises(RuntimeError):
         table_from_columns({"limit": np.zeros(2, np.int64)}, 4)
     assert gt.resolve_device("cpu") == torch.device("cpu")
@@ -117,9 +124,15 @@ def test_cpu_tensors_take_the_plain_paths_and_launch_no_kernel():
                              limit=3, duration=60_000) for i in range(12)]
     eng.process(herd, now=1_700_000_000_004)
     assert eng.metric_grouped_ticks == 1
+    mesh = MeshTickEngine(n_shards=2, local_capacity=8, max_batch=16,
+                          device="cpu")
+    mesh.process(reqs[:16], now=1_700_000_000_005)     # repeats: merge tick
+    mesh.process(more[:16], now=1_700_000_000_006)     # unique: ragged tick
+    assert mesh.metric_rank_rounds > 0
+    assert mesh.metric_unexpired_evictions > 0
     assert gt.kernel_launches() == {
-        "fused_tick": 0, "fused_merged_tick": 0, "gather_rows": 0,
-        "scatter_rows": 0}
+        "fused_tick": 0, "fused_merged_tick": 0, "fused_ragged_tick": 0,
+        "gather_rows": 0, "scatter_rows": 0}
 
 
 def test_wrappers_refuse_tensors_on_other_devices():
@@ -130,3 +143,8 @@ def test_wrappers_refuse_tensors_on_other_devices():
     with pytest.raises(ValueError):
         fused_tick(table, torch.zeros((19, 4), dtype=torch.int32,
                                       device="meta"), 0)
+    with pytest.raises(ValueError):
+        fused_ragged_tick(table, torch.zeros((19, 4), dtype=torch.int32,
+                                             device="meta"),
+                          torch.zeros(2, dtype=torch.int32, device="meta"),
+                          1, 8, 0)
