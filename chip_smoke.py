@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (gubernator_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against CHECKOUT]
 
 Phases, one output line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the time to build
    every CUDA kernel from ``gubernator_tpu_torch/csrc`` (nvcc, in parallel);
 2. each kernel against its plain PyTorch version on the card, bit for bit:
-   the fused tick on a 32768-lane window over a 2^20-slot random table
-   (all five algorithms, every behavior flag, Gregorian rows, padding and
-   edge lanes), the merged tick on 8192 unique heads of the same table
-   (Zipf(1.2) group sizes on token and leaky heads, size 1 on the zoo's,
-   the edge lanes, 64 padding heads) and on a 512-head layer, gather and
-   scatter on 32768 random slots, and the ragged tick on 32768-lane
-   windows of global slots over 8 shards of a 2^20-slot table, with
-   balanced extents and with every lane on one shard; with CUDA-event
-   times (median of 25) of each kernel, its plain version and, for
-   gather/scatter, ``index_select`` / ``index_copy_`` as a yardstick;
+   the fused tick (B.1) on 32768-lane windows over a 2^21-slot random
+   table (all five algorithms, every behavior flag, Gregorian rows,
+   padding and edge lanes), on column slices of them at every width it is
+   timed at and at the edges of its tiles (1, 8, 9, 63, 64, 65, 255-257
+   lanes), on whole windows of 255-257 lanes, on windows of EDGE lanes
+   only and on the five single-algorithm windows; the merged tick on 8192
+   unique heads of the same table (Zipf(1.2) group sizes on token and
+   leaky heads, size 1 on the zoo's, the edge lanes, 64 padding heads) and
+   on a 512-head layer; gather and scatter on 32768 random slots; and the
+   ragged tick (B.4) on 32768-lane windows of global slots over 8 shards
+   of the same size, with balanced extents and with every lane on one
+   shard, and on their slices and edge windows as B.1.  CUDA-event times
+   (median of 25) of each kernel, its plain version and, for
+   gather/scatter, ``index_select`` / ``index_copy_`` as a yardstick; B.1
+   at every power of two from 1 to 32768 lanes and B.4 at 1, 64, 4096 and
+   32768 (``by_width``), and B.1 on each single-algorithm window, rotating
+   over windows that touch more than twice the L2 (``working_set_mb``).
+   ``--against CHECKOUT`` times that checkout's tick kernels in turns with
+   these (``against_ms``);
 3. the engine at full size: ``TickEngine(capacity=10_000_000,
    max_batch=32768)`` serves windows that are first held against a
    ``device="cpu"`` engine on the same route (a unique window, a random
@@ -44,9 +53,12 @@ Phases, one output line each:
    the skewed window must each take one ``fused_ragged_tick`` launch and
    no other; every path reports its launches.
 
-Then the kernel table as one JSON line, the card line, and last
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
-without a CUDA device the script exits non-zero before printing a result.
+Phases 3 and 4 also report each path's tick launches by lane width
+(``launches_by_width``, power-of-two buckets), summed over both on the
+``launch_widths`` line.  Then the kernel table as one JSON line, the card
+line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits non-zero; without a CUDA device the script exits non-zero before
+printing a result.
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ NOW = 1_700_000_000_000
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and int32 operations/s
 # of the CUDA cores (132 SMs x 64 lanes x 1.98 GHz boost).
 HBM_BYTES_PER_S = 3.35e12
+L2_MB = 50
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations one fused-tick lane does, counted from
 # csrc/transition.cuh: ~200 int64 adds, compares and selects at two int32
@@ -78,6 +91,18 @@ MERGED_TICK_INT32_OPS_PER_LANE = 460
 # written when live): 76 B of request, 4 B of count, 96 B of journal.
 MERGED_BYTES_PER_HEAD = 76 + 4 + 96
 LAYER_WIDTH = 512  # a narrow layer of the layered plan
+# Lane widths phase 2 times the unique-slot ticks at: a rank round's usual
+# single lane, one 64-lane tile, a first rank round or a merge tick's
+# heads, the full window.
+TICK_WIDTHS = (1, 64, 4096, 32768)
+# The fused tick is also timed at every power of two up to the window:
+# the buckets its launches are counted in (launches_by_width).
+POW2_WIDTHS = tuple(1 << k for k in range(16))
+# Widths also held bit for bit against the plain versions: the edges of
+# the kernels' one-thread-a-lane path (8 / 9 lanes) and of their 64-lane
+# tiles, and 255-257 lanes.
+EDGE_WIDTHS = (8, 9, 63, 65, 255, 256, 257)
+ALGORITHMS = ("token", "leaky", "sliding_window", "gcra", "concurrency")
 REPS = 25        # timed runs a measurement; the median is kept
 INNER = 8        # launches between the two events of one timed run
 SLEEP_CYCLES = 4_000_000  # ~2 ms: the card waits while the host queues
@@ -95,8 +120,11 @@ def time_ms(torch, fns, reps: int = REPS) -> float:
     """Device time of one call, from CUDA events: the median over ``reps``
     runs of INNER back-to-back calls, each run queued behind a ~2 ms
     device sleep so the events time the card and not the host's launch
-    overhead.  ``fns`` is one callable or a list whose calls rotate (inputs
-    spread over more than the 50 MB L2, as the main path finds them)."""
+    overhead.  ``fns`` is one callable or a list whose calls rotate:
+    phase 2 rotates the ticks over windows whose rows and request and
+    response columns add up to more than twice the 50 MB L2
+    (``working_set_mb`` on its line), so a window's rows come from HBM as
+    in the engine; no L2 flush is used."""
     fns = fns if isinstance(fns, list) else [fns]
     for f in fns:
         f()
@@ -196,7 +224,58 @@ EDGE = [
     (dict(algorithm=2, limit=5, duration=1000, hits=1),
      dict(algorithm=2, prev_count=2**62, created_at=NOW - 1500)),
     (dict(algorithm=7, limit=5, duration=1000, hits=1), dict(algorithm=2)),
+    # floor division's 32-bit fast path at its edges: operands of 2^31 - 1,
+    # 2^32 - 1, 2^32 and negative timestamps through the sliding window
+    # and GCRA divisions
+    (dict(algorithm=2, limit=5, duration=2**32 - 1, hits=1,
+          created_at=2**32 - 1), dict(algorithm=2, created_at=0)),
+    (dict(algorithm=2, limit=5, duration=2**31 - 1, hits=1,
+          created_at=2**32), dict(algorithm=2, created_at=2**31,
+                                  prev_count=2**31)),
+    (dict(algorithm=2, limit=9, duration=2**32, hits=2,
+          created_at=2**32 + 1), dict(algorithm=2, created_at=1)),
+    (dict(algorithm=3, limit=2**32 - 1, duration=2**32 - 1, hits=1,
+          created_at=2**31 - 1), dict(algorithm=3, tat=2**32)),
+    (dict(algorithm=3, limit=3, duration=2**32, hits=1, created_at=-5),
+     dict(algorithm=3, tat=-5)),
+    (dict(algorithm=3, limit=2**32, duration=2**32 - 1, hits=2),
+     dict(algorithm=3)),
 ]
+
+
+def _set_edge(req: dict, state: dict, k: int, slot: int, edge) -> None:
+    """Request lane ``k`` and the stored state of ``slot`` set to the EDGE
+    entry ``edge`` (request fields, stored-state fields); the lane's other
+    request fields stay as they are."""
+    r, s = edge
+    for f, v in r.items():
+        req[f][k] = v
+    req["known"][k] = r.get("known", 1)
+    for f in state:
+        state[f][slot] = 0
+    state["expire_at"][slot] = NOW + 60_000
+    state["in_use"][slot] = True
+    state["remaining"][slot] = 2
+    state["updated_at"][slot] = NOW - 5_000
+    state["created_at"][slot] = NOW - 5_000
+    for f, v in s.items():
+        state[f][slot] = v
+
+
+def _pack(engine_mod, cap: int, lanes: int, slots, req: dict):
+    """(19, lanes) REQ32 matrix of the live lanes ``slots`` / ``req``; the
+    lanes past them are padding aimed at the guard row."""
+    n = len(slots)
+    R = engine_mod.REQ32_INDEX
+    m = np.zeros((engine_mod.REQ32_ROWS, lanes), np.int32)
+    m[R["slot"]] = cap
+    m[R["slot"], :n] = slots
+    m[R["valid"], :n] = 1
+    for f in ("known", "algorithm", "behavior"):
+        m[R[f], :n] = req[f]
+    for f in engine_mod.REQ32_WIDE:
+        engine_mod.pack_wide_rows(m, f, req[f], slice(0, n))
+    return m
 
 
 def fused_window(engine_mod, rng, cap: int, lanes: int, state: dict):
@@ -207,30 +286,19 @@ def fused_window(engine_mod, rng, cap: int, lanes: int, state: dict):
     slots = np.sort(rng.choice(cap, n, replace=False))
     req = random_requests(rng, n)
     edge_at = rng.choice(n, len(EDGE), replace=False)
-    for k, (r, s) in zip(edge_at, EDGE):
-        for f, v in r.items():
-            req[f][k] = v
-        req["known"][k] = r.get("known", 1)
-        slot = slots[k]
-        for f in state:
-            state[f][slot] = 0
-        state["expire_at"][slot] = NOW + 60_000
-        state["in_use"][slot] = True
-        state["remaining"][slot] = 2
-        state["updated_at"][slot] = NOW - 5_000
-        state["created_at"][slot] = NOW - 5_000
-        for f, v in s.items():
-            state[f][slot] = v
-    R = engine_mod.REQ32_INDEX
-    m = np.zeros((engine_mod.REQ32_ROWS, lanes), np.int32)
-    m[R["slot"]] = cap
-    m[R["slot"], :n] = slots
-    m[R["valid"], :n] = 1
-    for f in ("known", "algorithm", "behavior"):
-        m[R[f], :n] = req[f]
-    for f in engine_mod.REQ32_WIDE:
-        engine_mod.pack_wide_rows(m, f, req[f], slice(0, n))
-    return m, n
+    for k, edge in zip(edge_at, EDGE):
+        _set_edge(req, state, k, slots[k], edge)
+    return _pack(engine_mod, cap, lanes, slots, req), n
+
+
+def edge_window(engine_mod, rng, lanes: int, state: dict):
+    """A (19, lanes) window of EDGE lanes only (EDGE over and over) on the
+    slots 0 to lanes - 1, every lane live."""
+    req = random_requests(rng, lanes)
+    for k in range(lanes):
+        _set_edge(req, state, k, k, EDGE[k % len(EDGE)])
+    cap = len(state["algorithm"])
+    return _pack(engine_mod, cap, lanes, np.arange(lanes), req)
 
 
 def merged_window(engine_mod, rng, cap: int, lanes: int, state: dict):
@@ -322,7 +390,102 @@ def _max_abs(torch, a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def merged_entry(torch, table, wins, live):
+def check_tick(torch, fn, plain, table, args, what):
+    """``fn`` and its plain version on two copies of ``table``, the same
+    ``args``: the response and the table must be equal bit for bit.
+    Returns the largest absolute difference (0)."""
+    t_k, t_p = table.clone(), table.clone()
+    r_k = fn(t_k, *args)
+    r_p = plain(t_p, *args, torch.empty_like(r_k))
+    torch.cuda.synchronize()
+    err = max(_max_abs(torch, r_k, r_p), _max_abs(torch, t_k, t_p))
+    assert torch.equal(r_k, r_p), f"{what}: response differs from plain"
+    assert torch.equal(t_k, t_p), f"{what}: table differs from plain"
+    return err
+
+
+def ab_times(torch, ours, theirs=None) -> dict:
+    """``ours`` timed; with ``theirs`` (the same work on another checkout's
+    kernel) the two are timed in turns, theirs, ours, ours, theirs."""
+    if theirs is None:
+        return {"ms": time_ms(torch, ours)}
+    a = time_ms(torch, theirs)
+    b, c = time_ms(torch, ours), time_ms(torch, ours)
+    return {"ms": b, "ms_repeat": c, "against_ms": [a, time_ms(torch, theirs)]}
+
+
+def _bound(nbytes, ops) -> dict:
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def tick_bytes(live: int, lanes: int) -> int:
+    """Bytes a unique-slot tick must move: a live lane's 128-B row read and
+    written, every lane's 76 B of request and 24 B of response."""
+    return live * 256 + lanes * (76 + 24)
+
+
+def tick_widths(lanes: int, widths=TICK_WIDTHS) -> list:
+    """``widths`` below a window of ``lanes`` lanes, and the window."""
+    return [w for w in widths if w < lanes] + [lanes]
+
+
+def working_set_mb(engine_mod, mats) -> float:
+    """Rows (distinct live slots) and request and response columns that
+    rotating over the windows ``mats`` touches, in MB."""
+    R = engine_mod.REQ32_INDEX
+    slots = np.concatenate([m[R["slot"], m[R["valid"]] != 0] for m in mats])
+    return (len(np.unique(slots)) * 128
+            + sum(m.shape[1] for m in mats) * (76 + 24)) / 1e6
+
+
+def with_algorithm(engine_mod, m, alg: int, live: int):
+    """Window ``m`` with every live lane's request algorithm set to ``alg``."""
+    m = m.copy()
+    m[engine_mod.REQ32_INDEX["algorithm"], :live] = alg
+    return m
+
+
+def build_against(path: str) -> dict:
+    """The tick kernels of another checkout at ``path`` (the same C
+    interfaces), built from its ``csrc/`` with this checkout's flags, one
+    compiler each, all started together: ``{kernel: C function}``."""
+    import ctypes
+
+    from gubernator_tpu_torch import _build
+
+    csrc = os.path.join(os.path.abspath(path), "gubernator_tpu_torch", "csrc")
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    sigs = {
+        "fused_tick": [vp, i64, vp, i64, vp, i64, i64, i64, vp],
+        "fused_merged_tick": [vp, i64, vp, i64, vp, vp, i64, i64, vp],
+        "fused_ragged_tick": [vp, i64, i64, vp, vp, i64, vp, i64, i64, i64, vp],
+    }
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    jobs = {}
+    for name in sigs:
+        out = os.path.join(_build.BUILD_DIR, f"against-{name}.so")
+        cmd = ([_build._compiler("nvcc")] + _build.NVCC_FLAGS
+               + ["-I", csrc, "-o", out, os.path.join(csrc, name + ".cu")])
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT), out)
+    fns = {}
+    for name, (proc, out) in jobs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        assert proc.returncode == 0, f"building {out} failed:\n{log}"
+        fn = getattr(ctypes.CDLL(out), "gt_" + name)
+        fn.restype, fn.argtypes = ctypes.c_int, sigs[name]
+        fns[name] = fn
+    return fns
+
+
+def _stream(torch):
+    return torch.cuda.current_stream().cuda_stream
+
+
+def merged_entry(torch, table, wins, live, against=None):
     """The merged tick against its plain version, bit for bit, on the first
     window of heads and on its first LAYER_WIDTH heads, and its times at
     both widths (the grouped plan's head block and one narrow layer of the
@@ -333,48 +496,124 @@ def merged_entry(torch, table, wins, live):
     u = wins[0][0].shape[1]
     lw = LAYER_WIDTH
     narrow = [(mh[:, :lw], c[:lw]) for mh, c in wins]
-    t_k, t_p = table.clone(), table.clone()
     err = 0
     for mh, c in (wins[0], narrow[0]):
-        j_k = fused_merged_tick(t_k, mh, c, NOW)
-        j_p = fused_merged_tick_plain(t_p, mh, c, NOW, torch.empty_like(j_k))
-        torch.cuda.synchronize()
-        err = max(err, _max_abs(torch, j_k, j_p), _max_abs(torch, t_k, t_p))
-        assert torch.equal(j_k, j_p), "fused_merged_tick journal differs from plain"
-        assert torch.equal(t_k, t_p), "fused_merged_tick table differs from plain"
-    del t_k, t_p
+        err = max(err, check_tick(torch, fused_merged_tick,
+                                  fused_merged_tick_plain, table,
+                                  (mh, c, NOW), "fused_merged_tick"))
     scratch = table.clone()
     jr = torch.empty((u, MERGED24_W), dtype=torch.int32, device=table.device)
+    cap = table.shape[0] - 1
 
     def timed(ws, n_live):
+        theirs = None if against is None else [
+            lambda w=w: against["fused_merged_tick"](
+                scratch.data_ptr(), cap, w[0].data_ptr(), w[0].stride(0),
+                w[1].data_ptr(), jr.data_ptr(), w[0].shape[1], NOW,
+                _stream(torch)) for w in ws]
+        t = ab_times(torch, [lambda w=w: fused_merged_tick(
+            scratch, *w, NOW, out=jr[:w[0].shape[1]]) for w in ws], theirs)
         n = ws[0][0].shape[1]
-        return (time_ms(torch, [lambda w=w: fused_merged_tick(
-                    scratch, *w, NOW, out=jr[:w[0].shape[1]]) for w in ws]),
-                n_live * 256 + n * MERGED_BYTES_PER_HEAD,
-                n_live * MERGED_TICK_INT32_OPS_PER_LANE)
+        return t, n_live * 256 + n * MERGED_BYTES_PER_HEAD, \
+            n_live * MERGED_TICK_INT32_OPS_PER_LANE
 
-    ms, nbytes, ops = timed(wins, live)
+    t, nbytes, ops = timed(wins, live)
     e = _entry(
         "fused_merged_tick", "gubernator_tpu_torch/csrc/fused_merged_tick.cu",
-        "gubernator_tpu/ops/fusedtick.py:387", err, ms,
+        "gubernator_tpu/ops/fusedtick.py:387", err, t["ms"],
         time_ms(torch, [lambda w=w: fused_merged_tick_plain(
             scratch, *w, NOW, jr) for w in wins], reps=5),
         None, nbytes, ops)
-    ms, nbytes, ops = timed(narrow, lw)
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / INT32_OPS_PER_S * 1e3
+    e.update({k: v for k, v in t.items() if k != "ms"})
+    t, nbytes, ops = timed(narrow, lw)
     e["heads"] = u
-    e["at_layer_width"] = {"heads": lw, "ms": ms, "bound_ms": max(b_ms, o_ms),
-                           "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+    e["at_layer_width"] = {"heads": lw, **t, **_bound(nbytes, ops)}
     return e
 
 
+def tick_entry(torch, dev, rng, lanes: int, table_slots: int, rotate: int,
+               against=None):
+    """Kernel B.1, the fused tick, on a ``table_slots`` random table:
+    held against its plain version bit for bit on the mixed window, on
+    column slices of it at every TICK_WIDTHS and EDGE_WIDTHS width (ld_m
+    > B, as rank rounds pass), on whole windows of 255, 256 and 257 lanes,
+    on a slice from an inner column, on slices of a window of EDGE lanes
+    only and on the five single-algorithm windows; then timed at each
+    POW2_WIDTHS width of the mixed windows and on the single-algorithm
+    windows at full width, rotating over ``rotate`` windows, each with its
+    own response buffer."""
+    from gubernator_tpu_torch.carry import table_from_columns
+    from gubernator_tpu_torch.ops import engine as E
+    from gubernator_tpu_torch.ops.fusedtick import fused_tick, fused_tick_plain
+
+    cap = table_slots
+    state = random_state(rng, cap)
+    mats = [fused_window(E, rng, cap, lanes, state)[0] for _ in range(rotate)]
+    whole = [fused_window(E, rng, cap, w, state)[0] for w in (255, 256, 257)]
+    edges = edge_window(E, rng, 257, state)
+    table = table_from_columns(state, cap, dev)
+    live = lanes - 64
+    wins = [torch.from_numpy(m).to(dev) for m in mats]
+    singles = {name: [torch.from_numpy(with_algorithm(E, m, a, live)).to(dev)
+                      for m in mats] for a, name in enumerate(ALGORITHMS)}
+
+    cases = [(f"slice {w}", wins[0][:, :w])
+             for w in sorted(set(TICK_WIDTHS + EDGE_WIDTHS)) if w <= lanes]
+    cases += [(f"window {m.shape[1]}", torch.from_numpy(m).to(dev))
+              for m in whole]
+    cases += [("inner slice 100:357", wins[1][:, 100:357])]
+    cases += [(f"EDGE slice {w}", torch.from_numpy(edges).to(dev)[:, :w])
+              for w in (1, 9, 257)]
+    cases += [(f"{name} window", ws[0]) for name, ws in singles.items()]
+    err = 0
+    for what, m in cases:
+        err = max(err, check_tick(torch, fused_tick, fused_tick_plain, table,
+                                  (m, NOW), "fused_tick " + what))
+    work = table.clone()
+    resps = [torch.empty((6, lanes), dtype=torch.int32, device=dev)
+             for _ in wins]
+    fn = None if against is None else against["fused_tick"]
+
+    def timed(ws, w):
+        theirs = None if fn is None else [
+            lambda x=x, r=r: fn(work.data_ptr(), cap, x.data_ptr(),
+                                x.stride(0), r.data_ptr(), r.stride(0), w,
+                                NOW, _stream(torch))
+            for x, r in zip(ws, resps)]
+        return ab_times(torch, [
+            lambda x=x, r=r: fused_tick(work, x[:, :w], NOW, out=r[:, :w])
+            for x, r in zip(ws, resps)], theirs)
+
+    by_width = {}
+    for w in tick_widths(lanes, POW2_WIDTHS):
+        n = min(w, live)
+        by_width[w] = {**timed(wins, w), **_bound(
+            tick_bytes(n, w), n * FUSED_TICK_INT32_OPS_PER_LANE)}
+    full = by_width[lanes]
+    e = _entry(
+        "fused_tick", "gubernator_tpu_torch/csrc/fused_tick.cu",
+        "gubernator_tpu/ops/fusedtick.py:189", err, full["ms"],
+        time_ms(torch, [lambda x=x, r=r: fused_tick_plain(work, x, NOW, r)
+                        for x, r in zip(wins, resps)], reps=5),
+        None, tick_bytes(live, lanes), live * FUSED_TICK_INT32_OPS_PER_LANE)
+    e["checked"] = [what for what, _ in cases]
+    e["working_set_mb"] = working_set_mb(E, mats)
+    e["by_width"] = by_width
+    e["single_algorithm"] = {name: timed(ws, lanes)
+                             for name, ws in singles.items()}
+    return e, table, state
+
+
 def ragged_entry(torch, dev, rng, lanes: int, table_slots: int,
-                 rotate: int):
-    """The ragged tick against its plain version, bit for bit, on a window
-    with balanced extents and on one whose every lane is on shard 0, and
-    its times on both (RAGGED_SHARDS shards of table_slots / RAGGED_SHARDS
-    slots; the bound is the fused tick's, whatever the skew)."""
+                 rotate: int, against=None):
+    """Kernel B.4, the ragged tick, over RAGGED_SHARDS shards of
+    ``table_slots / RAGGED_SHARDS`` slots: held against its plain version
+    bit for bit on a window with balanced extents and on one whose every
+    lane is on shard 0, on their column slices at every TICK_WIDTHS and
+    EDGE_WIDTHS width (offsets clipped to the slice) and on whole windows
+    of 255, 256 and 257 lanes; timed on both at each TICK_WIDTHS width,
+    rotating over ``rotate`` windows, each with its own response buffer
+    (the bound is the fused tick's, whatever the skew)."""
     from gubernator_tpu_torch.carry import sharded_table_from_columns
     from gubernator_tpu_torch.ops import engine as E
     from gubernator_tpu_torch.ops.raggedtick import (
@@ -383,90 +622,99 @@ def ragged_entry(torch, dev, rng, lanes: int, table_slots: int,
     n = RAGGED_SHARDS
     L = table_slots // n
     state = random_state(rng, n * L)
-    wins = {skew: [ragged_window(E, rng, n, L, lanes, state, skew)
-                   for _ in range(rotate)] for skew in (False, True)}
+    raw = {skew: [ragged_window(E, rng, n, L, lanes, state, skew)
+                  for _ in range(rotate)] for skew in (False, True)}
+    whole = [ragged_window(E, rng, n, L, w, state) for w in (255, 256, 257)]
+    edges = edge_window(E, rng, 257, state)  # all on shard 0
+    whole.append((edges, np.array([0] + [257] * n, np.int32), 257))
     table = sharded_table_from_columns(state, n, L, dev)
-    dwins = {skew: [(torch.from_numpy(m).to(dev), torch.from_numpy(o).to(dev))
-                    for m, o, _ in ws] for skew, ws in wins.items()}
+
+    def narrow(m, o, w):
+        return (m[:, :w], torch.from_numpy(np.minimum(o, w).astype(
+            np.int32)).to(dev))
+
+    dwins = {skew: [(torch.from_numpy(m).to(dev), o) for m, o, _ in ws]
+             for skew, ws in raw.items()}
+    cases = []
+    for skew, ws in dwins.items():
+        m, o = ws[0]
+        cases += [(f"{'skewed' if skew else 'balanced'} slice {w}",
+                   narrow(m, o, w))
+                  for w in sorted(set(TICK_WIDTHS + EDGE_WIDTHS)) if w <= lanes]
+    cases += [(f"window {m.shape[1]}{' EDGE' if k == 3 else ''}",
+               (torch.from_numpy(m).to(dev), torch.from_numpy(o).to(dev)))
+              for k, (m, o, _) in enumerate(whole)]
     err = 0
-    for skew in (False, True):
-        m, o = dwins[skew][0]
-        t_k, t_p = table.clone(), table.clone()
-        r_k = fused_ragged_tick(t_k, m, o, n, L, NOW)
-        r_p = fused_ragged_tick_plain(t_p, m, o, n, L, NOW,
-                                      torch.empty_like(r_k))
-        torch.cuda.synchronize()
-        err = max(err, _max_abs(torch, r_k, r_p), _max_abs(torch, t_k, t_p))
-        assert torch.equal(r_k, r_p), "fused_ragged_tick response differs"
-        assert torch.equal(t_k, t_p), "fused_ragged_tick table differs"
-        del t_k, t_p
+    for what, (m, o) in cases:
+        err = max(err, check_tick(
+            torch, fused_ragged_tick, fused_ragged_tick_plain, table,
+            (m, o, n, L, NOW), "fused_ragged_tick " + what))
     work = table.clone()
-    resp = torch.empty((6, lanes), dtype=torch.int32, device=dev)
+    resps = [torch.empty((6, lanes), dtype=torch.int32, device=dev)
+             for _ in range(rotate)]
+    fn = None if against is None else against["fused_ragged_tick"]
 
-    def timed(ws):
-        return time_ms(torch, [lambda w=w: fused_ragged_tick(
-            work, *w, n, L, NOW, out=resp) for w in ws])
+    def timed(ws, w):
+        cut = [narrow(m, o, w) for m, o in ws]
+        theirs = None if fn is None else [
+            lambda x=x, r=r: fn(work.data_ptr(), n, L, x[1].data_ptr(),
+                                x[0].data_ptr(), x[0].stride(0),
+                                r.data_ptr(), r.stride(0), w, NOW,
+                                _stream(torch))
+            for x, r in zip(cut, resps)]
+        return ab_times(torch, [
+            lambda x=x, r=r: fused_ragged_tick(work, *x, n, L, NOW,
+                                               out=r[:, :w])
+            for x, r in zip(cut, resps)], theirs)
 
-    live = wins[False][0][2]
+    live = lanes - 64
+    by_width = {}
+    for w in tick_widths(lanes):
+        k = min(w, live)
+        by_width[w] = {
+            "balanced": timed(dwins[False], w), "skewed": timed(dwins[True], w),
+            **_bound(tick_bytes(k, w) + (n + 1) * 4,
+                     k * FUSED_TICK_INT32_OPS_PER_LANE)}
+    full = by_width[lanes]
+    full_cut = [narrow(m, o, lanes) for m, o in dwins[False]]
     e = _entry(
         "fused_ragged_tick", "gubernator_tpu_torch/csrc/fused_ragged_tick.cu",
-        "gubernator_tpu/ops/raggedtick.py:153", err, timed(dwins[False]),
-        time_ms(torch, [lambda w=w: fused_ragged_tick_plain(
-            work, *w, n, L, NOW, resp) for w in dwins[False]], reps=5),
-        None, live * 256 + lanes * (76 + 24) + (n + 1) * 4,
+        "gubernator_tpu/ops/raggedtick.py:153", err, full["balanced"]["ms"],
+        time_ms(torch, [lambda x=x, r=r: fused_ragged_tick_plain(
+            work, *x, n, L, NOW, r) for x, r in zip(full_cut, resps)], reps=5),
+        None, tick_bytes(live, lanes) + (n + 1) * 4,
         live * FUSED_TICK_INT32_OPS_PER_LANE)
     e["shards"] = n
-    e["skewed"] = {"ms": timed(dwins[True]), "bound_ms": e["bound_ms"],
-                   "extent_lanes": int(wins[True][0][1][1])}
+    e["checked"] = [what for what, _ in cases]
+    e["working_set_mb"] = working_set_mb(E, [m for m, _, _ in raw[False]])
+    e["by_width"] = by_width
+    e["skewed"] = {**full["skewed"], "bound_ms": e["bound_ms"],
+                   "extent_lanes": int(raw[True][0][1][1])}
     return e
 
 
-def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8,
-                 merged_heads=8192):
+def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
+                 merged_heads=8192, against=None):
     """Each kernel against its plain version on the card, bit for bit, and
     their times.  Timed inputs rotate over ``rotate`` windows / slot sets
-    of the 128 MB table, so most rows come from HBM as in the engine."""
-    from gubernator_tpu_torch.carry import table_from_columns
+    of the 256 MB table: the ticks' windows touch more than twice the 50 MB
+    L2 in rows and columns (``working_set_mb``), so their rows come from
+    HBM as in the engine.  ``against`` (build_against) adds another
+    checkout's tick kernels, timed in turns with these."""
     from gubernator_tpu_torch.ops import engine as E
     from gubernator_tpu_torch.ops import rowtable
-    from gubernator_tpu_torch.ops.fusedtick import fused_tick, fused_tick_plain
 
     rng = np.random.default_rng(SEED)
     cap = table_slots
-    state = random_state(rng, cap)
-    m, live = fused_window(E, rng, cap, lanes, state)
-    heads = [merged_window(E, rng, cap, merged_heads, state)]
-    table = table_from_columns(state, cap, dev)
-    wins = [torch.from_numpy(m).to(dev)] + [
-        torch.from_numpy(fused_window(E, rng, cap, lanes, state)[0]).to(dev)
-        for _ in range(rotate - 1)]
-    heads += [merged_window(E, rng, cap, merged_heads, state)
-              for _ in range(rotate - 1)]
     out = {}
-
-    t_k, t_p = table.clone(), table.clone()
-    r_k = fused_tick(t_k, wins[0], NOW)
-    r_p = fused_tick_plain(t_p, wins[0], NOW, torch.empty_like(r_k))
-    torch.cuda.synchronize()
-    err = max(_max_abs(torch, r_k, r_p), _max_abs(torch, t_k, t_p))
-    assert torch.equal(r_k, r_p), "fused_tick response differs from plain"
-    assert torch.equal(t_k, t_p), "fused_tick table differs from plain"
-    del t_k, t_p
-    scratch = table.clone()
-    resp = torch.empty_like(r_k)
-    out["fused_tick"] = _entry(
-        "fused_tick", "gubernator_tpu_torch/csrc/fused_tick.cu",
-        "gubernator_tpu/ops/fusedtick.py:189", err,
-        time_ms(torch, [lambda w=w: fused_tick(scratch, w, NOW, out=resp)
-                        for w in wins]),
-        time_ms(torch, [lambda w=w: fused_tick_plain(scratch, w, NOW, resp)
-                        for w in wins], reps=5),
-        None, live * 256 + lanes * (76 + 24),
-        live * FUSED_TICK_INT32_OPS_PER_LANE)
-
+    out["fused_tick"], table, state = tick_entry(
+        torch, dev, rng, lanes, table_slots, rotate, against)
+    heads = [merged_window(E, rng, cap, merged_heads, state)
+             for _ in range(rotate)]
     out["fused_merged_tick"] = merged_entry(
         torch, table, [(torch.from_numpy(mh).to(dev), torch.from_numpy(c).to(dev))
-                       for mh, c, _ in heads], heads[0][2])
+                       for mh, c, _ in heads], heads[0][2], against)
+    scratch = table.clone()
 
     def slot_sets(n, guard_every=0):
         sets = []
@@ -516,7 +764,7 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8,
             sets[0].numel() * 8 + n_live * 256, 0)
 
     out["fused_ragged_tick"] = ragged_entry(torch, dev, rng, lanes,
-                                            table_slots, rotate)
+                                            table_slots, rotate, against)
     out["gather_rows"] = check_gather(slot_sets(lanes))
     rows = torch.from_numpy(
         rng.integers(-2**62, 2**62, (lanes, 16)).astype(np.int64)).to(dev)
@@ -542,9 +790,11 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 20, rotate=8,
 
 
 @contextlib.contextmanager
-def counted(torch, launches: dict, name: str):
+def counted(torch, launches: dict, name: str, widths: dict):
     """Every kernel's launch count set to 0 just before the block and read
-    into ``launches[name]`` just after."""
+    into ``launches[name]`` just after; the tick kernels' launches by lane
+    width (power-of-two buckets) into ``widths[name]``, ticks that did not
+    launch left out."""
     import gubernator_tpu_torch as gt
 
     torch.cuda.synchronize()
@@ -552,6 +802,8 @@ def counted(torch, launches: dict, name: str):
     yield
     torch.cuda.synchronize()
     launches[name] = gt.kernel_launches()
+    widths[name] = {k: v for k, v in gt.kernel_launches_by_width().items()
+                    if v}
 
 
 def host_split(eng, wins, now) -> dict:
@@ -669,8 +921,10 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     launches = {}
     now = NOW
 
+    widths = {}
+
     def counted_path(name):
-        return counted(torch, launches, name)
+        return counted(torch, launches, name, widths)
 
     def routes(e):
         return (e.metric_grouped_ticks, e.metric_layered_ticks,
@@ -832,6 +1086,7 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     assert launches["reclaim"]["gather_rows"] > 0
     assert launches["reclaim"]["scatter_rows"] > 0
     info["launches_by_path"] = launches
+    info["launches_by_width"] = widths
     total = {k: sum(p[k] for p in launches.values())
              for k in launches["unique"]}
     assert total["fused_ragged_tick"] == 0
@@ -895,8 +1150,11 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
                          device="cpu")
     info = {"n_shards": n_shards, "local_capacity": local_capacity,
             "table_bytes": eng.table.numel() * 8}
-    launches = {}
+    launches, widths = {}, {}
     now = NOW
+
+    def counted_path(name):
+        return counted(torch, launches, name, widths)
 
     def shard_of(prefix, ids):
         blob, off = key_blob(prefix, ids)
@@ -925,7 +1183,7 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     for name, cols in compare:
         now += 1_000
         r0 = (eng.metric_rank_rounds, ref.metric_rank_rounds)
-        with counted(torch, launches, "compare_" + name):
+        with counted_path("compare_" + name):
             got, gerr = eng.process_columns(cols, now)
         want, werr = ref.process_columns(cols, now)
         assert gerr == werr, name
@@ -958,7 +1216,7 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     t0 = time.perf_counter()
     chunk = 32 * width
     prefill_now = now
-    with counted(torch, launches, "prefill"):
+    with counted_path("prefill"):
         for a in range(0, len(ids), chunk):
             mat, errs = eng.process_columns(window_columns(
                 reqcols, rng, b"p", ids[a:a + chunk], now, prefill=True), now)
@@ -976,7 +1234,7 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     wins = [window_columns(reqcols, rng, b"p", u, now + 2_000) for u in uids]
     submit_s = resolve_s = 0.0
     pending, done = [], []
-    with counted(torch, launches, "unique"):
+    with counted_path("unique"):
         t0 = time.perf_counter()
         for cols in wins:
             t1 = time.perf_counter()
@@ -1010,7 +1268,7 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     rest = ids[pick[windows * width:]]
     hids = rest[(rng.zipf(1.2, width) - 1) % len(rest)]
     r0 = eng.metric_rank_rounds
-    with counted(torch, launches, "herd"):
+    with counted_path("herd"):
         t0 = time.perf_counter()
         mat, errs = eng.process_columns(herd_columns(
             reqcols, b"p", hids, token_prefill=True), now + 3_000)
@@ -1027,7 +1285,7 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     # Every key of one window on shard 0: one extent covers the batch.
     shard0 = ids[shard_of(b"p", ids) == 0]
     sk = rng.choice(shard0, width, replace=False)
-    with counted(torch, launches, "skewed"):
+    with counted_path("skewed"):
         t0 = time.perf_counter()
         mat, _ = eng.process_columns(window_columns(
             reqcols, rng, b"p", sk, now + 4_000), now + 4_000)
@@ -1036,7 +1294,7 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     only_ragged("skewed")
 
     # Fresh keys against full shards: each shard reclaims.
-    with counted(torch, launches, "reclaim"):
+    with counted_path("reclaim"):
         t0 = time.perf_counter()
         mat, errs = eng.process_columns(window_columns(
             reqcols, rng, b"f", np.arange(width), now + 5_000), now + 5_000)
@@ -1049,14 +1307,22 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     assert got["gather_rows"] > 0 and got["scatter_rows"] > 0
     assert got["fused_ragged_tick"] == 1
     info["launches_by_path"] = launches
+    info["launches_by_width"] = widths
     total = {k: sum(p[k] for p in launches.values())
              for k in launches["unique"]}
     return info, total
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="CHECKOUT",
+                    help="another checkout of this repository: its tick "
+                         "kernels are timed in turns with these in phase 2")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1078,18 +1344,30 @@ def main() -> int:
                                   "cuda": torch.version.cuda,
                                   "ptxas": ptxas}), flush=True)
 
-    kernels = kernel_phase(torch, dev)
+    against = build_against(args.against) if args.against else None
+    kernels = kernel_phase(torch, dev, against=against)
     print("phase2 " + json.dumps(kernels), flush=True)
+    assert kernels["fused_tick"]["working_set_mb"] > 2 * L2_MB
+    assert kernels["fused_ragged_tick"]["working_set_mb"] > 2 * L2_MB
 
     info, launches = engine_phase(torch, dev,
                                   fused_ms=kernels["fused_tick"]["ms"])
     print("phase3 " + json.dumps(info), flush=True)
-    del info
     mesh, mesh_launches = mesh_phase(torch, dev)
     print("phase4 " + json.dumps(mesh), flush=True)
     for name in launches:
         launches[name] += mesh_launches[name]
         assert launches[name] > 0, f"{name} was not launched on the main path"
+    # The ticks' launches by lane width over both phases' paths.
+    widths = {}
+    for phase in (info, mesh):
+        for per_path in phase["launches_by_width"].values():
+            for name, counts in per_path.items():
+                for w, c in counts.items():
+                    widths.setdefault(name, {})
+                    widths[name][w] = widths[name].get(w, 0) + c
+    print("launch_widths " + json.dumps(
+        {k: dict(sorted(v.items())) for k, v in widths.items()}), flush=True)
 
     table = []
     for name in ("fused_tick", "fused_merged_tick", "fused_ragged_tick",

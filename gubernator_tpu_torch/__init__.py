@@ -45,17 +45,36 @@ def kernel_launches() -> dict:
     }
 
 
-def reset_kernel_launches() -> None:
-    from gubernator_tpu_torch.ops import fusedtick, raggedtick, rowtable
+def _tick_wrappers() -> dict:
+    from gubernator_tpu_torch.ops import fusedtick, raggedtick
 
-    fusedtick.fused_tick.launches = 0
-    fusedtick.fused_merged_tick.launches = 0
-    raggedtick.fused_ragged_tick.launches = 0
+    return {
+        "fused_tick": fusedtick.fused_tick,
+        "fused_merged_tick": fusedtick.fused_merged_tick,
+        "fused_ragged_tick": raggedtick.fused_ragged_tick,
+    }
+
+
+def kernel_launches_by_width() -> dict:
+    """Launch counts of each tick kernel by lane width: ``{kernel:
+    {bucket: count}}``, a bucket being the least power of two at or above
+    a launch's width."""
+    return {name: dict(sorted(w.launches_by_width.items()))
+            for name, w in _tick_wrappers().items()}
+
+
+def reset_kernel_launches() -> None:
+    """Every kernel's launch count, and the ticks' counts by width, to 0."""
+    from gubernator_tpu_torch.ops import rowtable
+
+    for w in _tick_wrappers().values():
+        w.launches = 0
+        w.launches_by_width = {}
     rowtable.gather_rows.launches = 0
     rowtable.scatter_rows.launches = 0
 
 
 __all__ = [
     "default_device", "resolve_device", "kernel_launches",
-    "reset_kernel_launches",
+    "kernel_launches_by_width", "reset_kernel_launches",
 ]

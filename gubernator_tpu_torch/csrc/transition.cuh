@@ -74,12 +74,20 @@ GT_HD int64_t wmul(int64_t a, int64_t b) {
 GT_HD int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
 GT_HD int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 
-// Floor division and modulo for b > 0 (every caller guarantees it).
+// Floor division and modulo for b > 0 (every caller guarantees it).  When
+// both operands lie in [0, 2^32) floor and truncation agree and unsigned
+// 32-bit division gives the same quotient and remainder, in a few
+// instructions on the card instead of the long 64-bit routine.
+GT_HD bool fits_u32(int64_t a, int64_t b) {
+  return (((uint64_t)a | (uint64_t)b) >> 32) == 0;
+}
 GT_HD int64_t floor_div(int64_t a, int64_t b) {
+  if (fits_u32(a, b)) return (int64_t)((uint32_t)a / (uint32_t)b);
   int64_t q = a / b;
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 GT_HD int64_t floor_mod(int64_t a, int64_t b) {
+  if (fits_u32(a, b)) return (int64_t)((uint32_t)a % (uint32_t)b);
   int64_t m = a % b;
   return (m != 0 && m < 0) ? m + b : m;
 }
@@ -232,201 +240,253 @@ GT_HD Zoo concurrency(const int64_t* s, const Req& r, bool exists,
   return z;
 }
 
-// One lane: `s` is the gathered row (read), `o` the row to store.
-GT_HD Resp transition(int64_t now, const int64_t* s, const Req& r,
-                      int64_t* o) {
-  bool reset_b = (r.behavior & RESET_REMAINING) != 0;
-  bool drain_b = (r.behavior & DRAIN_OVER_LIMIT) != 0;
-  bool greg_b = (r.behavior & DURATION_IS_GREGORIAN) != 0;
+// Lane classes: one per transition path, picked by the request's
+// algorithm the way the reference dispatches it (unknown values resolve to
+// the sliding window, negative ones to the leaky bucket).  The tile
+// kernels (tile.cuh) sort a tile's lanes by class so that a warp runs one
+// path; INERT lanes (padding, invalid or out-of-range slots) touch no row.
+constexpr int C_TOKEN = 0, C_LEAKY = 1, C_SLIDING = 2, C_GCRA = 3,
+              C_CONC = 4, C_INERT = 5, N_CLASSES = 6;
 
-  bool exists = r.known != 0 && s[W_IN_USE] != 0 && now <= s[W_EXPIRE_AT];
-  bool is_token = r.algorithm == TOKEN;
+GT_HD int algo_class(int32_t algorithm) {
+  return algorithm == TOKEN ? C_TOKEN
+       : algorithm < SLIDING ? C_LEAKY
+       : algorithm == GCRA ? C_GCRA
+       : algorithm == CONC ? C_CONC
+       : C_SLIDING;
+}
+
+// What every class reads first: the behavior flags and whether the slot
+// holds a live item.
+struct Lane {
+  bool reset_b, drain_b, greg_b, exists;
+};
+
+GT_HD Lane lane_flags(int64_t now, const int64_t* s, const Req& r) {
+  Lane f;
+  f.reset_b = (r.behavior & RESET_REMAINING) != 0;
+  f.drain_b = (r.behavior & DRAIN_OVER_LIMIT) != 0;
+  f.greg_b = (r.behavior & DURATION_IS_GREGORIAN) != 0;
+  f.exists = r.known != 0 && s[W_IN_USE] != 0 && now <= s[W_EXPIRE_AT];
+  return f;
+}
+
+// ---- token bucket (algorithms.go:37-257) ----
+GT_HD Resp token_transition(const int64_t* s, const Req& r, const Lane& f,
+                            int64_t* o) {
+  bool algo_match = s[W_ALGORITHM] == (int64_t)r.algorithm;
+  int64_t h = r.hits, limit = r.limit, r_dur = r.duration,
+          r_created = r.created_at;
+  double s_remf = bits_to_f64(s[W_REMAINING_F]);
+  bool tok_reset = f.exists && f.reset_b;
+  bool tok_exist = f.exists && !f.reset_b && algo_match;
+  o[W_ALGORITHM] = TOKEN;
+  o[W_LIMIT] = limit;
+  o[W_TAT] = 0;
+  o[W_PREV_COUNT] = 0;
+  Resp resp;
+  if (tok_reset) {
+    // RESET_REMAINING on an existing item removes it (:78-90).
+    o[W_REMAINING] = 0;
+    o[W_REMAINING_F] = f64_to_bits(s_remf * 0.0);
+    o[W_DURATION] = 0;
+    o[W_CREATED_AT] = 0;
+    o[W_UPDATED_AT] = 0;
+    o[W_BURST] = 0;
+    o[W_STATUS] = 0;
+    o[W_EXPIRE_AT] = 0;
+    o[W_IN_USE] = 0;
+    resp.status = UNDER;
+    resp.remaining = limit;
+    resp.reset_time = 0;
+    resp.over_limit = 0;
+  } else if (tok_exist) {
+    int64_t t_rem0 = s[W_LIMIT] != limit
+        ? imax(wadd(s[W_REMAINING], wsub(limit, s[W_LIMIT])), 0)
+        : s[W_REMAINING];
+    int64_t rl_status = s[W_STATUS];
+    int64_t rl_rem_base = t_rem0;
+    bool dur_changed = s[W_DURATION] != r_dur;
+    int64_t expire_cand =
+        f.greg_b ? r.greg_exp : wadd(s[W_CREATED_AT], r_dur);
+    bool renew = expire_cand <= r_created;
+    int64_t expire_new = renew ? wadd(r_created, r_dur) : expire_cand;
+    int64_t t_created = (dur_changed && renew) ? r_created : s[W_CREATED_AT];
+    int64_t t_rem1 = (dur_changed && renew) ? limit : t_rem0;
+    int64_t t_expire = dur_changed ? expire_new : s[W_EXPIRE_AT];
+    bool t_query = h == 0;
+    bool t_at_zero = !t_query && rl_rem_base == 0 && h > 0;
+    bool t_exact = !t_query && !t_at_zero && t_rem1 == h;
+    bool t_over = !t_query && !t_at_zero && !t_exact && h > t_rem1;
+    bool t_dec = !t_query && !t_at_zero && !t_exact && !t_over;
+    o[W_REMAINING] = t_exact ? 0
+                   : t_over ? (f.drain_b ? 0 : t_rem1)
+                   : t_dec ? wsub(t_rem1, h) : t_rem1;
+    o[W_REMAINING_F] = f64_to_bits(s_remf);
+    o[W_DURATION] = r_dur;
+    o[W_CREATED_AT] = t_created;
+    o[W_UPDATED_AT] = s[W_UPDATED_AT];
+    o[W_BURST] = s[W_BURST];
+    o[W_STATUS] = t_at_zero ? OVER : s[W_STATUS];
+    o[W_EXPIRE_AT] = t_expire;
+    o[W_IN_USE] = 1;
+    resp.status = (t_at_zero || t_over) ? OVER : rl_status;
+    resp.remaining = t_exact ? 0
+                   : t_over ? (f.drain_b ? 0 : rl_rem_base)
+                   : t_dec ? wsub(t_rem1, h) : rl_rem_base;
+    resp.reset_time = t_expire;
+    resp.over_limit = t_at_zero || t_over;
+  } else {
+    int64_t tn_expire = f.greg_b ? r.greg_exp : wadd(r_created, r_dur);
+    bool tn_over = h > limit;
+    int64_t tn_rem = tn_over ? limit : wsub(limit, h);
+    o[W_REMAINING] = tn_rem;
+    o[W_REMAINING_F] = f64_to_bits(s_remf);
+    o[W_DURATION] = r_dur;
+    o[W_CREATED_AT] = r_created;
+    o[W_UPDATED_AT] = s[W_UPDATED_AT];
+    o[W_BURST] = s[W_BURST];
+    o[W_STATUS] = UNDER;
+    o[W_EXPIRE_AT] = tn_expire;
+    o[W_IN_USE] = 1;
+    resp.status = tn_over ? OVER : UNDER;
+    resp.remaining = tn_rem;
+    resp.reset_time = tn_expire;
+    resp.over_limit = tn_over;
+  }
+  return resp;
+}
+
+// ---- leaky bucket (algorithms.go:260-493) ----
+GT_HD Resp leaky_transition(int64_t now, const int64_t* s, const Req& r,
+                            const Lane& f, int64_t* o) {
   bool algo_match = s[W_ALGORITHM] == (int64_t)r.algorithm;
   int64_t h = r.hits, limit = r.limit, r_dur = r.duration,
           r_created = r.created_at;
   double safe_limit_f = (double)(limit == 0 ? 1 : limit);
-  double s_remf = bits_to_f64(s[W_REMAINING_F]);
-
-  // ---- token bucket (algorithms.go:37-257) ----
-  bool tok_reset = exists && reset_b;
-  bool tok_exist = exists && !reset_b && algo_match;
-  int64_t t_rem0 = s[W_LIMIT] != limit
-      ? imax(wadd(s[W_REMAINING], wsub(limit, s[W_LIMIT])), 0)
-      : s[W_REMAINING];
-  int64_t rl_status = s[W_STATUS];
-  int64_t rl_rem_base = t_rem0;
-  bool dur_changed = s[W_DURATION] != r_dur;
-  int64_t expire_cand = greg_b ? r.greg_exp : wadd(s[W_CREATED_AT], r_dur);
-  bool renew = expire_cand <= r_created;
-  int64_t expire_new = renew ? wadd(r_created, r_dur) : expire_cand;
-  int64_t t_created = (dur_changed && renew) ? r_created : s[W_CREATED_AT];
-  int64_t t_rem1 = (dur_changed && renew) ? limit : t_rem0;
-  int64_t t_expire = dur_changed ? expire_new : s[W_EXPIRE_AT];
-  int64_t rl_reset = t_expire;
-  bool t_query = h == 0;
-  bool t_at_zero = !t_query && rl_rem_base == 0 && h > 0;
-  bool t_exact = !t_query && !t_at_zero && t_rem1 == h;
-  bool t_over = !t_query && !t_at_zero && !t_exact && h > t_rem1;
-  bool t_dec = !t_query && !t_at_zero && !t_exact && !t_over;
-  int64_t te_rem = t_exact ? 0
-                 : t_over ? (drain_b ? 0 : t_rem1)
-                 : t_dec ? wsub(t_rem1, h) : t_rem1;
-  int64_t te_status = t_at_zero ? OVER : s[W_STATUS];
-  int64_t te_resp_status = (t_at_zero || t_over) ? OVER : rl_status;
-  int64_t te_resp_rem = t_exact ? 0
-                      : t_over ? (drain_b ? 0 : rl_rem_base)
-                      : t_dec ? wsub(t_rem1, h) : rl_rem_base;
-  int64_t tn_expire = greg_b ? r.greg_exp : wadd(r_created, r_dur);
-  bool tn_over = h > limit;
-  int64_t tn_rem = tn_over ? limit : wsub(limit, h);
-  int64_t tn_resp_status = tn_over ? OVER : UNDER;
-
-  // ---- leaky bucket (algorithms.go:260-493) ----
   int64_t burst = r.burst == 0 ? limit : r.burst;
-  double burst_f = (double)burst;
-  bool leak_exist = exists && algo_match;
-  double b_rem0 = reset_b ? burst_f : s_remf;
-  bool burst_changed = s[W_BURST] != burst;
-  double b_rem1 =
-      (burst_changed && burst > trunc_i64(b_rem0)) ? burst_f : b_rem0;
-  double rate = (double)(greg_b ? r.greg_dur : r_dur) / safe_limit_f;
-  int64_t duration_eff = greg_b ? wsub(r.greg_exp, now) : r_dur;
-  int64_t elapsed = wsub(r_created, s[W_UPDATED_AT]);
-  double leak = (double)elapsed / (rate == 0.0 ? 1.0 : rate);
-  bool leaked = trunc_i64(leak) > 0;
-  double b_rem2 = leaked ? b_rem1 + leak : b_rem1;
-  int64_t b_upd = leaked ? r_created : s[W_UPDATED_AT];
-  double b_rem3 = trunc_i64(b_rem2) > burst ? burst_f : b_rem2;
-  int64_t rem_i = trunc_i64(b_rem3);
-  int64_t rate_i = trunc_i64(rate);
-  double h_f = (double)h;
-  bool l_at_zero = rem_i == 0 && h > 0;
-  bool l_exact = !l_at_zero && rem_i == h;
-  bool l_over = !l_at_zero && !l_exact && h > rem_i;
-  bool l_query = !l_at_zero && !l_exact && !l_over && h == 0;
-  bool l_dec = !l_at_zero && !l_exact && !l_over && !l_query;
-  double le_remf = l_exact ? 0.0
-                 : l_over ? (drain_b ? 0.0 : b_rem3)
-                 : l_dec ? b_rem3 - h_f : b_rem3;
-  int64_t le_resp_status = (l_at_zero || l_over) ? OVER : UNDER;
-  int64_t le_resp_rem = l_exact ? 0
-                      : l_over ? (drain_b ? 0 : rem_i)
-                      : l_dec ? trunc_i64(b_rem3 - h_f) : rem_i;
-  int64_t le_reset_rem = l_over ? rem_i : le_resp_rem;
-  int64_t le_resp_reset = wadd(r_created, wmul(wsub(limit, le_reset_rem), rate_i));
-  int64_t le_expire = h != 0 ? wadd(r_created, duration_eff) : s[W_EXPIRE_AT];
-  int64_t ln_rate_i = trunc_i64((double)r_dur / safe_limit_f);
-  int64_t ln_duration = greg_b ? wsub(r.greg_exp, now) : r_dur;
-  bool ln_over = h > burst;
-  double ln_remf = ln_over ? 0.0 : (double)wsub(burst, h);
-  int64_t ln_resp_rem = ln_over ? 0 : wsub(burst, h);
-  int64_t ln_resp_reset = wadd(r_created, wmul(wsub(limit, ln_resp_rem), ln_rate_i));
-  int64_t ln_resp_status = ln_over ? OVER : UNDER;
-  int64_t ln_expire = wadd(r_created, ln_duration);
-
+  bool leak_exist = f.exists && algo_match;
+  o[W_ALGORITHM] = LEAKY;
+  o[W_LIMIT] = limit;
+  o[W_REMAINING] = s[W_REMAINING];
+  o[W_BURST] = burst;
+  o[W_IN_USE] = 1;
+  o[W_TAT] = 0;
+  o[W_PREV_COUNT] = 0;
   Resp resp;
-  if (r.algorithm >= SLIDING) {
-    // ---- algorithm zoo; unknown values resolve to sliding window ----
-    Zoo z = r.algorithm == GCRA ? gcra(s, r, exists, reset_b)
-          : r.algorithm == CONC ? concurrency(s, r, exists, reset_b)
-          : sliding_window(s, r, exists, reset_b, drain_b);
-    o[W_ALGORITHM] = r.algorithm;
-    o[W_LIMIT] = limit;
-    o[W_REMAINING] = z.remaining;
-    o[W_REMAINING_F] = 0;  // +0.0
+  if (leak_exist) {
+    double s_remf = bits_to_f64(s[W_REMAINING_F]);
+    double burst_f = (double)burst;
+    double b_rem0 = f.reset_b ? burst_f : s_remf;
+    bool burst_changed = s[W_BURST] != burst;
+    double b_rem1 =
+        (burst_changed && burst > trunc_i64(b_rem0)) ? burst_f : b_rem0;
+    double rate = (double)(f.greg_b ? r.greg_dur : r_dur) / safe_limit_f;
+    int64_t duration_eff = f.greg_b ? wsub(r.greg_exp, now) : r_dur;
+    int64_t elapsed = wsub(r_created, s[W_UPDATED_AT]);
+    double leak = (double)elapsed / (rate == 0.0 ? 1.0 : rate);
+    bool leaked = trunc_i64(leak) > 0;
+    double b_rem2 = leaked ? b_rem1 + leak : b_rem1;
+    int64_t b_upd = leaked ? r_created : s[W_UPDATED_AT];
+    double b_rem3 = trunc_i64(b_rem2) > burst ? burst_f : b_rem2;
+    int64_t rem_i = trunc_i64(b_rem3);
+    int64_t rate_i = trunc_i64(rate);
+    double h_f = (double)h;
+    bool l_at_zero = rem_i == 0 && h > 0;
+    bool l_exact = !l_at_zero && rem_i == h;
+    bool l_over = !l_at_zero && !l_exact && h > rem_i;
+    bool l_query = !l_at_zero && !l_exact && !l_over && h == 0;
+    bool l_dec = !l_at_zero && !l_exact && !l_over && !l_query;
+    double le_remf = l_exact ? 0.0
+                   : l_over ? (f.drain_b ? 0.0 : b_rem3)
+                   : l_dec ? b_rem3 - h_f : b_rem3;
+    int64_t le_resp_rem = l_exact ? 0
+                        : l_over ? (f.drain_b ? 0 : rem_i)
+                        : l_dec ? trunc_i64(b_rem3 - h_f) : rem_i;
+    int64_t le_reset_rem = l_over ? rem_i : le_resp_rem;
+    o[W_REMAINING_F] = f64_to_bits(le_remf);
     o[W_DURATION] = r_dur;
-    o[W_CREATED_AT] = z.created_at;
-    o[W_UPDATED_AT] = r_created;
-    o[W_BURST] = r.burst;
-    o[W_STATUS] = z.status;
-    o[W_EXPIRE_AT] = z.expire_at;
-    o[W_IN_USE] = 1;
-    o[W_TAT] = z.tat;
-    o[W_PREV_COUNT] = z.prev_count;
-    resp = z.resp;
-  } else if (is_token) {
-    o[W_ALGORITHM] = TOKEN;
-    o[W_LIMIT] = limit;
-    o[W_TAT] = 0;
-    o[W_PREV_COUNT] = 0;
-    if (tok_reset) {
-      // RESET_REMAINING on an existing item removes it (:78-90).
-      o[W_REMAINING] = 0;
-      o[W_REMAINING_F] = f64_to_bits(s_remf * 0.0);
-      o[W_DURATION] = 0;
-      o[W_CREATED_AT] = 0;
-      o[W_UPDATED_AT] = 0;
-      o[W_BURST] = 0;
-      o[W_STATUS] = 0;
-      o[W_EXPIRE_AT] = 0;
-      o[W_IN_USE] = 0;
-      resp.status = UNDER;
-      resp.remaining = limit;
-      resp.reset_time = 0;
-      resp.over_limit = 0;
-    } else if (tok_exist) {
-      o[W_REMAINING] = te_rem;
-      o[W_REMAINING_F] = f64_to_bits(s_remf);
-      o[W_DURATION] = r_dur;
-      o[W_CREATED_AT] = t_created;
-      o[W_UPDATED_AT] = s[W_UPDATED_AT];
-      o[W_BURST] = s[W_BURST];
-      o[W_STATUS] = te_status;
-      o[W_EXPIRE_AT] = t_expire;
-      o[W_IN_USE] = 1;
-      resp.status = te_resp_status;
-      resp.remaining = te_resp_rem;
-      resp.reset_time = rl_reset;
-      resp.over_limit = t_at_zero || t_over;
-    } else {
-      o[W_REMAINING] = tn_rem;
-      o[W_REMAINING_F] = f64_to_bits(s_remf);
-      o[W_DURATION] = r_dur;
-      o[W_CREATED_AT] = r_created;
-      o[W_UPDATED_AT] = s[W_UPDATED_AT];
-      o[W_BURST] = s[W_BURST];
-      o[W_STATUS] = UNDER;
-      o[W_EXPIRE_AT] = tn_expire;
-      o[W_IN_USE] = 1;
-      resp.status = tn_resp_status;
-      resp.remaining = tn_rem;
-      resp.reset_time = tn_expire;
-      resp.over_limit = tn_over;
-    }
+    o[W_CREATED_AT] = s[W_CREATED_AT];
+    o[W_UPDATED_AT] = b_upd;
+    o[W_STATUS] = s[W_STATUS];
+    o[W_EXPIRE_AT] = h != 0 ? wadd(r_created, duration_eff) : s[W_EXPIRE_AT];
+    resp.status = (l_at_zero || l_over) ? OVER : UNDER;
+    resp.remaining = le_resp_rem;
+    resp.reset_time =
+        wadd(r_created, wmul(wsub(limit, le_reset_rem), rate_i));
+    resp.over_limit = l_at_zero || l_over;
   } else {
-    o[W_ALGORITHM] = LEAKY;
-    o[W_LIMIT] = limit;
-    o[W_REMAINING] = s[W_REMAINING];
-    o[W_BURST] = burst;
-    o[W_IN_USE] = 1;
-    o[W_TAT] = 0;
-    o[W_PREV_COUNT] = 0;
-    if (leak_exist) {
-      o[W_REMAINING_F] = f64_to_bits(le_remf);
-      o[W_DURATION] = r_dur;
-      o[W_CREATED_AT] = s[W_CREATED_AT];
-      o[W_UPDATED_AT] = b_upd;
-      o[W_STATUS] = s[W_STATUS];
-      o[W_EXPIRE_AT] = le_expire;
-      resp.status = le_resp_status;
-      resp.remaining = le_resp_rem;
-      resp.reset_time = le_resp_reset;
-      resp.over_limit = l_at_zero || l_over;
-    } else {
-      o[W_REMAINING_F] = f64_to_bits(ln_remf);
-      o[W_DURATION] = ln_duration;
-      o[W_CREATED_AT] = s[W_CREATED_AT];
-      o[W_UPDATED_AT] = r_created;
-      o[W_STATUS] = UNDER;
-      o[W_EXPIRE_AT] = ln_expire;
-      resp.status = ln_resp_status;
-      resp.remaining = ln_resp_rem;
-      resp.reset_time = ln_resp_reset;
-      resp.over_limit = ln_over;
-    }
+    int64_t ln_rate_i = trunc_i64((double)r_dur / safe_limit_f);
+    int64_t ln_duration = f.greg_b ? wsub(r.greg_exp, now) : r_dur;
+    bool ln_over = h > burst;
+    double ln_remf = ln_over ? 0.0 : (double)wsub(burst, h);
+    int64_t ln_resp_rem = ln_over ? 0 : wsub(burst, h);
+    o[W_REMAINING_F] = f64_to_bits(ln_remf);
+    o[W_DURATION] = ln_duration;
+    o[W_CREATED_AT] = s[W_CREATED_AT];
+    o[W_UPDATED_AT] = r_created;
+    o[W_STATUS] = UNDER;
+    o[W_EXPIRE_AT] = wadd(r_created, ln_duration);
+    resp.status = ln_over ? OVER : UNDER;
+    resp.remaining = ln_resp_rem;
+    resp.reset_time =
+        wadd(r_created, wmul(wsub(limit, ln_resp_rem), ln_rate_i));
+    resp.over_limit = ln_over;
+  }
+  return resp;
+}
+
+// ---- algorithm zoo: the row a zoo transition stores ----
+GT_HD Resp zoo_store(const Zoo& z, const Req& r, int64_t* o) {
+  o[W_ALGORITHM] = r.algorithm;
+  o[W_LIMIT] = r.limit;
+  o[W_REMAINING] = z.remaining;
+  o[W_REMAINING_F] = 0;  // +0.0
+  o[W_DURATION] = r.duration;
+  o[W_CREATED_AT] = z.created_at;
+  o[W_UPDATED_AT] = r.created_at;
+  o[W_BURST] = r.burst;
+  o[W_STATUS] = z.status;
+  o[W_EXPIRE_AT] = z.expire_at;
+  o[W_IN_USE] = 1;
+  o[W_TAT] = z.tat;
+  o[W_PREV_COUNT] = z.prev_count;
+  return z.resp;
+}
+
+// One live lane of class `cls` (== algo_class(r.algorithm)): `s` is the
+// gathered row (read), `o` the row to store.  Each class computes only its
+// own quantities.
+GT_HD Resp transition_class(int cls, int64_t now, const int64_t* s,
+                            const Req& r, int64_t* o) {
+  Lane f = lane_flags(now, s, r);
+  Resp resp;
+  switch (cls) {
+    case C_TOKEN:
+      resp = token_transition(s, r, f, o);
+      break;
+    case C_LEAKY:
+      resp = leaky_transition(now, s, r, f, o);
+      break;
+    case C_GCRA:
+      resp = zoo_store(gcra(s, r, f.exists, f.reset_b), r, o);
+      break;
+    case C_CONC:
+      resp = zoo_store(concurrency(s, r, f.exists, f.reset_b), r, o);
+      break;
+    default:
+      resp = zoo_store(sliding_window(s, r, f.exists, f.reset_b, f.drain_b),
+                       r, o);
+      break;
   }
   for (int w = W_PREV_COUNT + 1; w < ROW_W; ++w) o[w] = 0;
   return resp;
+}
+
+// One lane: `s` is the gathered row (read), `o` the row to store.
+GT_HD Resp transition(int64_t now, const int64_t* s, const Req& r,
+                      int64_t* o) {
+  return transition_class(algo_class(r.algorithm), now, s, r, o);
 }
 
 // ---- closed-form duplicate fold (kernel B.3) ----
@@ -562,6 +622,13 @@ GT_HD void store_resp(int32_t* out, int64_t ld, int64_t j, const Resp& p,
   out[3 * ld + j] = live ? (int32_t)(p.remaining >> 32) : 0;
   out[4 * ld + j] = live ? (int32_t)(uint32_t)(uint64_t)p.reset_time : 0;
   out[5 * ld + j] = live ? (int32_t)(p.reset_time >> 32) : 0;
+}
+
+// Lane placement of the fused tick (fused_tick.cu): the lane's table row,
+// or -1 for a lane that touches no row (valid == 0, or a slot outside
+// [0, capacity): padding aims at the guard row, per-item errors too).
+GT_HD int64_t slot_row(int64_t capacity, int64_t slot, int64_t valid) {
+  return valid != 0 && slot >= 0 && slot < capacity ? slot : -1;
 }
 
 // Lane placement of the ragged tick (fused_ragged_tick.cu) over a table of

@@ -58,6 +58,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def width_bucket(lanes: int) -> int:
+    """The power of two a launch of ``lanes`` lanes is counted under: the
+    least one at or above it."""
+    return 1 << max(int(lanes) - 1, 0).bit_length()
+
+
+def count_launch(wrapper, lanes: int) -> None:
+    """One launch of a tick wrapper's kernel: its total and its count by
+    lane width (``wrapper.launches_by_width``, keyed by width_bucket)."""
+    wrapper.launches += 1
+    k = width_bucket(lanes)
+    wrapper.launches_by_width[k] = wrapper.launches_by_width.get(k, 0) + 1
+
+
 def unpack_req32(m32: torch.Tensor) -> Dict[str, torch.Tensor]:
     """(19, B) int32 REQ32 matrix → logical int64 request columns."""
     r = {name: m32[REQ32_INDEX[name]].to(torch.int64) for name in REQ32_NARROW}
@@ -136,11 +150,12 @@ def fused_tick(table: torch.Tensor, m32: torch.Tensor, now: int,
         out.data_ptr(), out.stride(0), b, now,
         torch.cuda.current_stream(table.device).cuda_stream)
     _build.check(rc, "fused_tick")
-    fused_tick.launches += 1
+    count_launch(fused_tick, b)
     return out
 
 
 fused_tick.launches = 0
+fused_tick.launches_by_width = {}
 
 
 # ----------------------------------------------------------------------
@@ -231,8 +246,9 @@ def fused_merged_tick(table: torch.Tensor, mhead: torch.Tensor,
         mhead.stride(0), count.data_ptr(), out.data_ptr(), u, now,
         torch.cuda.current_stream(table.device).cuda_stream)
     _build.check(rc, "fused_merged_tick")
-    fused_merged_tick.launches += 1
+    count_launch(fused_merged_tick, u)
     return out
 
 
 fused_merged_tick.launches = 0
+fused_merged_tick.launches_by_width = {}

@@ -31,7 +31,8 @@ import torch
 
 from gubernator_tpu_torch import _build
 from gubernator_tpu_torch.ops.fusedtick import (
-    REQ32_INDEX, REQ32_ROWS, RESP_ROWS, _check_table, fused_tick_plain)
+    REQ32_INDEX, REQ32_ROWS, RESP_ROWS, _check_table, count_launch,
+    fused_tick_plain)
 
 
 def choose_tile(b: int, n_shards: int) -> int:
@@ -170,8 +171,9 @@ def fused_ragged_tick(table: torch.Tensor, m32: torch.Tensor,
         m32.stride(0), out.data_ptr(), out.stride(0), b, now,
         torch.cuda.current_stream(table.device).cuda_stream)
     _build.check(rc, "fused_ragged_tick")
-    fused_ragged_tick.launches += 1
+    count_launch(fused_ragged_tick, b)
     return out
 
 
 fused_ragged_tick.launches = 0
+fused_ragged_tick.launches_by_width = {}

@@ -32,6 +32,54 @@ from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
 
 pytestmark = pytest.mark.cuda
 
+# The unique-slot ticks' tile shapes (csrc/tile.cuh): one lane, the edges
+# of the one-thread-a-lane path (8 / 9 lanes) and of the 64-lane tile,
+# 255-257 lanes; windows mixed, of one algorithm each, or of EDGE lanes
+# only.  The CPU tests hold the host build of the kernels' tile code
+# against the plain versions on the same cases.
+TILE_WIDTHS = (1, 8, 9, 63, 64, 65, 255, 256, 257)
+TILE_KINDS = ("mixed", "edge") + cs.ALGORITHMS
+
+
+def tick_case(kind: str, width: int, seed: int, cap: int = 1024):
+    """``(state, m)``: random stored state of ``cap`` slots and a window
+    of kind ``kind`` whose first ``width`` columns are the case.  Below 128
+    lanes ``m`` is wider (slice it on the device: ld_m > B, as rank rounds
+    pass, every lane live); from 128 up it is a whole window ending in 64
+    padding lanes.  From 9 lanes up lane 3 has valid == 0 and lane 5 a
+    slot past the table."""
+    rng = np.random.default_rng(seed)
+    state = cs.random_state(rng, cap)
+    if kind == "edge":
+        m = cs.edge_window(E, rng, width, state)
+    else:
+        m, n = cs.fused_window(E, rng, cap, max(width, 128 + 64), state)
+        if kind != "mixed":
+            m = cs.with_algorithm(E, m, cs.ALGORITHMS.index(kind), n)
+    if width >= 9:
+        m[E.REQ32_INDEX["valid"], 3] = 0
+        m[E.REQ32_INDEX["slot"], 5] = cap + 5
+    return state, m
+
+
+def ragged_case(kind: str, width: int, seed: int, shards: int = 3,
+                local: int = 512):
+    """``(state, m, offsets)`` for the ragged tick over ``shards`` shards
+    of ``local`` slots: the first ``width`` columns of ``m`` (a wider
+    balanced or skewed window; offsets clipped to them) or a window of
+    EDGE lanes on shard 0."""
+    rng = np.random.default_rng(seed)
+    state = cs.random_state(rng, shards * local)
+    if kind == "edge":
+        m = cs.edge_window(E, rng, width, state)
+        offs = np.array([0] + [width] * shards, np.int32)
+    else:
+        m, offs, _ = cs.ragged_window(E, rng, shards, local,
+                                      max(width, 128) + 64, state,
+                                      skew=kind == "skewed")
+        offs = np.minimum(offs, width).astype(np.int32)
+    return state, m, offs
+
 
 @pytest.fixture
 def dev():
@@ -71,6 +119,47 @@ def test_fused_tick_on_a_column_slice(dev):
     assert torch.equal(out[:, 17:200], want)
     assert (out[:, :17] == -1).all() and (out[:, 200:] == -1).all()
     assert torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("width", TILE_WIDTHS)
+@pytest.mark.parametrize("kind", TILE_KINDS)
+def test_fused_tick_tile_shapes_match_plain(dev, kind, width):
+    state, m = tick_case(kind, width, seed=width)
+    cap = len(state["algorithm"])
+    table = table_from_columns(state, cap, dev)
+    mt = torch.from_numpy(m).to(dev)[:, :width]
+    t_k, t_p = table.clone(), table.clone()
+    r_k = fused_tick(t_k, mt, cs.NOW)
+    r_p = fused_tick_plain(t_p, mt, cs.NOW, torch.empty_like(r_k))
+    assert torch.equal(r_k, r_p)
+    assert torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("width", (1, 8, 9, 64, 65, 257))
+@pytest.mark.parametrize("kind", ("balanced", "skewed", "edge"))
+def test_fused_ragged_tick_tile_shapes_match_plain(dev, kind, width):
+    state, m, offs = ragged_case(kind, width, seed=width)
+    table = sharded_table_from_columns(state, 3, 512, dev)
+    mt = torch.from_numpy(m).to(dev)[:, :width]
+    ot = torch.from_numpy(offs).to(dev)
+    t_k, t_p = table.clone(), table.clone()
+    r_k = fused_ragged_tick(t_k, mt, ot, 3, 512, cs.NOW)
+    r_p = fused_ragged_tick_plain(t_p, mt, ot, 3, 512, cs.NOW,
+                                  torch.empty_like(r_k))
+    assert torch.equal(r_k, r_p)
+    assert torch.equal(t_k, t_p)
+
+
+def test_tick_launches_counted_by_width(dev):
+    gt.reset_kernel_launches()
+    state, m = tick_case("mixed", 257, seed=1)
+    table = table_from_columns(state, 1024, dev)
+    mt = torch.from_numpy(m).to(dev)
+    for w in (1, 2, 3, 64, 65, 257):
+        fused_tick(table, mt[:, :w], cs.NOW)
+    assert gt.kernel_launches()["fused_tick"] == 6
+    assert gt.kernel_launches_by_width()["fused_tick"] == {
+        1: 1, 2: 1, 4: 1, 64: 1, 128: 1, 512: 1}
 
 
 @pytest.mark.parametrize("cap,heads", [(300, 129), (1000, 300), (4096, 1000)])

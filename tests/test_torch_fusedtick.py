@@ -8,10 +8,15 @@
   remainder like float64 only there.
 * The same against the fused Pallas kernel ``make_fused_tick_fn`` in
   interpret mode, where this jax build can run it.
-* The CUDA kernel's lane code (``csrc/transition.cuh``), compiled for the
-  host, against the plain version bit for bit, inexact rates and edge
-  lanes included.  The kernel itself runs only on the card, where
-  chip_smoke.py holds it against the plain version.
+* The CUDA kernel's lane code (``csrc/transition.cuh``) and its tile
+  steps (``csrc/tile.cuh``: staging, class partition, per-class
+  transition, write-back in lane order), compiled for the host, against
+  the plain version bit for bit: inexact rates and edge lanes, windows of
+  one lane, of the tile edges and of 255-257 lanes, mixed, of one
+  algorithm each and of EDGE lanes only, and floor division's 32-bit
+  fast path at its edges.  The kernel itself runs only on the card, where
+  chip_smoke.py and tests/test_torch_cuda.py hold it against the plain
+  version.
 """
 
 import ctypes
@@ -31,6 +36,7 @@ from gubernator_tpu_torch.carry import columns_from_table, table_from_columns
 from gubernator_tpu_torch.ops.buckets import STATE_FIELDS
 from gubernator_tpu_torch.ops.fusedtick import fused_tick, fused_tick_plain
 from tests.test_torch_common import NOW, edge_lanes, gen_lanes, pack_m32
+from tests.test_torch_cuda import TILE_KINDS, TILE_WIDTHS, tick_case
 
 CAP = 256
 _I32 = ("algorithm", "status")
@@ -124,6 +130,8 @@ def _host_kernel():
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.gt_fused_tick_host.restype = ctypes.c_int
     lib.gt_fused_tick_host.argtypes = [vp, i64, vp, i64, vp, i64, i64, i64]
+    lib.gt_floor_divmod_host.restype = ctypes.c_int
+    lib.gt_floor_divmod_host.argtypes = [vp, vp, i64, vp, vp]
     return lib
 
 
@@ -172,3 +180,62 @@ def test_fused_tick_on_column_slices_matches_whole_window():
     fused_tick(t2, torch.from_numpy(m)[:, 10:30], NOW, out=out[:, 10:30])
     assert torch.equal(out[:, 10:30], whole)
     assert torch.equal(t1, t2)
+
+
+def host_tick(table, mt, now):
+    """The host build of the fused tick kernel on ``table`` in place."""
+    resp = torch.full((6, mt.shape[1]), -7, dtype=torch.int32)
+    rc = _host_kernel().gt_fused_tick_host(
+        table.data_ptr(), table.shape[0] - 1, mt.data_ptr(), mt.stride(0),
+        resp.data_ptr(), resp.stride(0), mt.shape[1], now)
+    assert rc == 0
+    return resp
+
+
+@pytest.mark.parametrize("width", TILE_WIDTHS)
+@pytest.mark.parametrize("kind", TILE_KINDS)
+def test_tile_code_on_host_matches_plain(kind, width):
+    """The kernel's tile steps at the tile shapes: one lane, the direct
+    path's edge (8 / 9 lanes), the 64-lane tile's edges, 255-257 lanes;
+    narrow windows are column slices of wider ones (ld_m > B)."""
+    state, m = tick_case(kind, width, seed=width)
+    t_plain = table_from_columns(state, len(state["algorithm"]), "cpu")
+    t_host = t_plain.clone()
+    mt = torch.from_numpy(m)[:, :width]
+    r_plain = fused_tick_plain(t_plain, mt, NOW,
+                               torch.empty((6, width), dtype=torch.int32))
+    assert torch.equal(host_tick(t_host, mt, NOW), r_plain)
+    assert torch.equal(t_host, t_plain)
+
+
+def test_floor_division_fast_path_matches_numpy():
+    """transition.cuh floor_div / floor_mod against numpy's floor division
+    around the 32-bit fast path's edges, negative dividends included."""
+    edges = [0, 1, 2, 7, 2**31 - 1, 2**31, 2**32 - 1, 2**32, 2**32 + 1,
+             2**53, 2**63 - 1]
+    a = np.array(edges + [-v for v in edges[1:]] + [-2**63], np.int64)
+    b = np.array([1, 2, 3, 7, 2**31 - 1, 2**31, 2**32 - 1, 2**32,
+                  2**32 + 1, 2**62], np.int64)
+    aa, bb = (np.ascontiguousarray(x.ravel()) for x in np.meshgrid(a, b))
+    q, r = np.empty_like(aa), np.empty_like(aa)
+    rc = _host_kernel().gt_floor_divmod_host(
+        aa.ctypes.data, bb.ctypes.data, aa.size, q.ctypes.data, r.ctypes.data)
+    assert rc == 0
+    np.testing.assert_array_equal(q, np.floor_divide(aa, bb))
+    np.testing.assert_array_equal(r, np.mod(aa, bb))
+
+
+def test_launches_counted_by_power_of_two_width():
+    import gubernator_tpu_torch as gt
+    from gubernator_tpu_torch.ops.fusedtick import count_launch, width_bucket
+
+    assert [width_bucket(w) for w in (1, 2, 3, 4, 5, 64, 65, 32768)] == [
+        1, 2, 4, 4, 8, 64, 128, 32768]
+    gt.reset_kernel_launches()
+    for w in (3, 4, 65):
+        count_launch(fused_tick, w)
+    assert gt.kernel_launches()["fused_tick"] == 3
+    assert gt.kernel_launches_by_width()["fused_tick"] == {4: 2, 128: 1}
+    gt.reset_kernel_launches()
+    assert gt.kernel_launches_by_width() == {
+        "fused_tick": {}, "fused_merged_tick": {}, "fused_ragged_tick": {}}

@@ -9,7 +9,8 @@
   mesh engine's psum gathers it).  The interpret program is compiled
   once for all of them (~50 s of this file's time, cold).
 * The CUDA kernel's lane code (``csrc/transition.cuh`` ``ragged_row`` and
-  the transition), compiled for the host, against the plain version.
+  the transition) and its tile steps (``csrc/tile.cuh``), compiled for the
+  host, against the plain version, also at the tile shapes.
 * ``choose_tile``, ``RaggedExtents`` and the native ``crc32_batch``
   against the JAX package and ``zlib``.
 """
@@ -30,7 +31,8 @@ from gubernator_tpu.ops.raggedtick import make_fused_ragged_tick_fn
 from gubernator_tpu.parallel.partition import RaggedExtents as JaxExtents
 import gubernator_tpu_torch as gt
 from gubernator_tpu_torch import _build
-from gubernator_tpu_torch.carry import columns_from_table, table_from_columns
+from gubernator_tpu_torch.carry import (
+    columns_from_table, sharded_table_from_columns, table_from_columns)
 from gubernator_tpu_torch.native import crc32_batch
 from gubernator_tpu_torch.ops import engine as teng
 from gubernator_tpu_torch.ops.buckets import STATE_FIELDS
@@ -39,6 +41,7 @@ from gubernator_tpu_torch.ops.raggedtick import (
 from gubernator_tpu_torch.ops.reqcols import pack_blob
 from gubernator_tpu_torch.parallel.partition import RaggedExtents
 from tests.test_torch_common import NOW, edge_lanes, gen_lanes, pack_m32
+from tests.test_torch_cuda import ragged_case
 from tests.test_torch_fusedtick import assert_tables_equal, jax_logical
 
 L = 16          # local capacity of each shard
@@ -197,6 +200,27 @@ def test_kernel_lane_code_on_host_matches_plain(seed, exact):
     assert (r_plain[:, :3] == 0).all() and (r_plain[:, -7:] == 0).all()
     assert (r_plain[:, [5, 20]] == 0).all()
     assert (t_plain[cap::cap + 1] == 0).all()
+
+
+@pytest.mark.parametrize("width", (1, 8, 9, 64, 65, 257))
+@pytest.mark.parametrize("kind", ("balanced", "skewed", "edge"))
+def test_tile_code_on_host_matches_plain(kind, width):
+    """The host build of the ragged kernel's tile steps at the tile shapes,
+    narrow windows as column slices of wider ones (offsets clipped)."""
+    state, m, offs = ragged_case(kind, width, seed=width)
+    t_plain = sharded_table_from_columns(state, 3, 512, "cpu")
+    t_host = t_plain.clone()
+    mt = torch.from_numpy(m)[:, :width]
+    r_plain = fused_ragged_tick_plain(
+        t_plain, mt, torch.from_numpy(offs), 3, 512, NOW,
+        torch.empty((6, width), dtype=torch.int32))
+    r_host = torch.full((6, width), -7, dtype=torch.int32)
+    rc = _host_kernel().gt_fused_ragged_tick_host(
+        t_host.data_ptr(), 3, 512, offs.ctypes.data, mt.data_ptr(),
+        mt.stride(0), r_host.data_ptr(), r_host.stride(0), width, NOW)
+    assert rc == 0
+    assert torch.equal(r_host, r_plain)
+    assert torch.equal(t_host, t_plain)
 
 
 def test_wrapper_checks_and_cpu_launches_nothing():
