@@ -13,17 +13,19 @@ Phases, one output line each:
    padding and edge lanes), on column slices of them at every width it is
    timed at and at the edges of its tiles (1, 8, 9, 63, 64, 65, 255-257
    lanes), on whole windows of 255-257 lanes, on windows of EDGE lanes
-   only and on the five single-algorithm windows; the merged tick on 8192
-   unique heads of the same table (Zipf(1.2) group sizes on token and
-   leaky heads, size 1 on the zoo's, the edge lanes, 64 padding heads) and
-   on a 512-head layer; gather and scatter on 32768 random slots; and the
-   ragged tick (B.4) on 32768-lane windows of global slots over 8 shards
+   only and on the five single-algorithm windows; the merged tick (B.3)
+   on 8192 unique heads of the same table (Zipf(1.2) group sizes on token
+   and leaky heads, size 1 on the zoo's, the edge lanes, 64 padding
+   heads), on its slices at the same tile edges and at 512 and 4096 heads,
+   and on windows of token, leaky or zoo heads only; gather and scatter
+   on 32768 random slots; and the ragged tick (B.4) on 32768-lane windows of global slots over 8 shards
    of the same size, with balanced extents and with every lane on one
    shard, and on their slices and edge windows as B.1.  CUDA-event times
    (median of 25) of each kernel, its plain version and, for
    gather/scatter, ``index_select`` / ``index_copy_`` as a yardstick; B.1
-   at every power of two from 1 to 32768 lanes and B.4 at 1, 64, 4096 and
-   32768 (``by_width``), and B.1 on each single-algorithm window, rotating
+   at every power of two from 1 to 32768 lanes, B.4 at 1, 64, 4096 and
+   32768 and B.3 at 512, 4096 and 8192 heads (``by_width``), B.1 on each
+   single-algorithm window and B.3 on each single-class window, rotating
    over windows that touch more than twice the L2 (``working_set_mb``).
    ``--against CHECKOUT`` times that checkout's tick kernels in turns with
    these (``against_ms``);
@@ -91,6 +93,9 @@ MERGED_TICK_INT32_OPS_PER_LANE = 460
 # written when live): 76 B of request, 4 B of count, 96 B of journal.
 MERGED_BYTES_PER_HEAD = 76 + 4 + 96
 LAYER_WIDTH = 512  # a narrow layer of the layered plan
+# Head widths phase 2 times the merged tick at besides its full window
+# (8192 heads, the grouped plan's): the layered plan's layers.
+MERGED_WIDTHS = (LAYER_WIDTH, 4096)
 # Lane widths phase 2 times the unique-slot ticks at: a rank round's usual
 # single lane, one 64-lane tile, a first rank round or a merge tick's
 # heads, the full window.
@@ -102,6 +107,9 @@ POW2_WIDTHS = tuple(1 << k for k in range(16))
 # the kernels' one-thread-a-lane path (8 / 9 lanes) and of their 64-lane
 # tiles, and 255-257 lanes.
 EDGE_WIDTHS = (8, 9, 63, 65, 255, 256, 257)
+# The merged tick's: the same tile edges, one head and a layer.
+MERGED_EDGE_WIDTHS = (1, 8, 9, 63, 64, 65, 255, 256, 257, LAYER_WIDTH,
+                      4096)
 ALGORITHMS = ("token", "leaky", "sliding_window", "gcra", "concurrency")
 REPS = 25        # timed runs a measurement; the median is kept
 INNER = 8        # launches between the two events of one timed run
@@ -485,49 +493,77 @@ def _stream(torch):
     return torch.cuda.current_stream().cuda_stream
 
 
-def merged_entry(torch, table, wins, live, against=None):
+def merged_single(engine_mod, rng, m, count, live: int, kind: str):
+    """Head window ``m`` with every live head of one class: ``token`` or
+    ``leaky`` (Zipf(1.2) group sizes), or ``zoo`` (sliding window, GCRA or
+    concurrency at random, group sizes as drawn: the fold skips them)."""
+    m, count = m.copy(), count.copy()
+    A = engine_mod.REQ32_INDEX["algorithm"]
+    if kind == "zoo":
+        m[A, :live] = rng.integers(2, 5, live)
+    else:
+        m[A, :live] = ALGORITHMS.index(kind)
+        count[:live] = np.minimum(rng.zipf(1.2, live), 1 << 20)
+    return m, count
+
+
+def merged_entry(torch, table, wins, live, singles, against=None):
     """The merged tick against its plain version, bit for bit, on the first
-    window of heads and on its first LAYER_WIDTH heads, and its times at
-    both widths (the grouped plan's head block and one narrow layer of the
-    layered plan)."""
+    window of heads, on its column slices at MERGED_EDGE_WIDTHS (ld_m > U,
+    as the layered plan's layers pass) and on the single-class windows
+    ``singles``; its times at MERGED_WIDTHS and the full window
+    (``by_width``: one narrow layer of the layered plan, a mid layer, the
+    grouped plan's head block) and on the single-class windows at full
+    width."""
     from gubernator_tpu_torch.ops.fusedtick import (
         MERGED24_W, fused_merged_tick, fused_merged_tick_plain)
 
     u = wins[0][0].shape[1]
-    lw = LAYER_WIDTH
-    narrow = [(mh[:, :lw], c[:lw]) for mh, c in wins]
+    mh0, c0 = wins[0]
+    cases = [(f"slice {w}", (mh0[:, :w], c0[:w]))
+             for w in MERGED_EDGE_WIDTHS if w < u]
+    cases += [(f"window {u}", wins[0])]
+    cases += [(f"{kind} window", ws[0]) for kind, ws in singles.items()]
     err = 0
-    for mh, c in (wins[0], narrow[0]):
+    for what, (mh, c) in cases:
         err = max(err, check_tick(torch, fused_merged_tick,
                                   fused_merged_tick_plain, table,
-                                  (mh, c, NOW), "fused_merged_tick"))
+                                  (mh, c, NOW), "fused_merged_tick " + what))
     scratch = table.clone()
     jr = torch.empty((u, MERGED24_W), dtype=torch.int32, device=table.device)
     cap = table.shape[0] - 1
 
-    def timed(ws, n_live):
+    def timed(ws, w):
         theirs = None if against is None else [
-            lambda w=w: against["fused_merged_tick"](
-                scratch.data_ptr(), cap, w[0].data_ptr(), w[0].stride(0),
-                w[1].data_ptr(), jr.data_ptr(), w[0].shape[1], NOW,
-                _stream(torch)) for w in ws]
-        t = ab_times(torch, [lambda w=w: fused_merged_tick(
-            scratch, *w, NOW, out=jr[:w[0].shape[1]]) for w in ws], theirs)
-        n = ws[0][0].shape[1]
-        return t, n_live * 256 + n * MERGED_BYTES_PER_HEAD, \
-            n_live * MERGED_TICK_INT32_OPS_PER_LANE
+            lambda x=x: against["fused_merged_tick"](
+                scratch.data_ptr(), cap, x[0].data_ptr(), x[0].stride(0),
+                x[1].data_ptr(), jr.data_ptr(), w, NOW, _stream(torch))
+            for x in ws]
+        return ab_times(torch, [lambda x=x: fused_merged_tick(
+            scratch, x[0][:, :w], x[1][:w], NOW, out=jr[:w]) for x in ws],
+            theirs)
 
-    t, nbytes, ops = timed(wins, live)
+    def bound(w):
+        n = min(w, live)
+        return _bound(n * 256 + w * MERGED_BYTES_PER_HEAD,
+                      n * MERGED_TICK_INT32_OPS_PER_LANE)
+
+    by_width = {w: {**timed(wins, w), **bound(w)}
+                for w in tick_widths(u, MERGED_WIDTHS)}
+    full = by_width[u]
     e = _entry(
         "fused_merged_tick", "gubernator_tpu_torch/csrc/fused_merged_tick.cu",
-        "gubernator_tpu/ops/fusedtick.py:387", err, t["ms"],
+        "gubernator_tpu/ops/fusedtick.py:387", err, full["ms"],
         time_ms(torch, [lambda w=w: fused_merged_tick_plain(
             scratch, *w, NOW, jr) for w in wins], reps=5),
-        None, nbytes, ops)
-    e.update({k: v for k, v in t.items() if k != "ms"})
-    t, nbytes, ops = timed(narrow, lw)
+        None, live * 256 + u * MERGED_BYTES_PER_HEAD,
+        live * MERGED_TICK_INT32_OPS_PER_LANE)
+    e.update({k: v for k, v in full.items() if k in ("ms_repeat",
+                                                     "against_ms")})
     e["heads"] = u
-    e["at_layer_width"] = {"heads": lw, **t, **_bound(nbytes, ops)}
+    e["checked"] = [what for what, _ in cases]
+    e["by_width"] = by_width
+    e["single_class"] = {kind: timed(ws, u) for kind, ws in singles.items()}
     return e
 
 
@@ -711,9 +747,19 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
         torch, dev, rng, lanes, table_slots, rotate, against)
     heads = [merged_window(E, rng, cap, merged_heads, state)
              for _ in range(rotate)]
+    live = heads[0][2]
+    srng = np.random.default_rng(SEED + 1)  # keeps rng's later draws
+    singles = {kind: [merged_single(E, srng, mh, c, live, kind)
+                      for mh, c, _ in heads]
+               for kind in ("token", "leaky", "zoo")}
+
+    def on_dev(ws):
+        return [(torch.from_numpy(mh).to(dev), torch.from_numpy(c).to(dev))
+                for mh, c in ws]
+
     out["fused_merged_tick"] = merged_entry(
-        torch, table, [(torch.from_numpy(mh).to(dev), torch.from_numpy(c).to(dev))
-                       for mh, c, _ in heads], heads[0][2], against)
+        torch, table, on_dev([(mh, c) for mh, c, _ in heads]), live,
+        {kind: on_dev(ws) for kind, ws in singles.items()}, against)
     scratch = table.clone()
 
     def slot_sets(n, guard_every=0):

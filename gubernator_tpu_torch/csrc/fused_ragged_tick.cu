@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(gt::TILE_THREADS)
                              const int32_t* __restrict__ m32, int64_t ld_m,
                              int32_t* __restrict__ resp, int64_t ld_r,
                              int64_t lanes, int64_t now) {
-  gt::tile_tick(table, m32, ld_m, resp, ld_r, lanes, now, place);
+  gt::tile_tick(table, m32, ld_m, lanes, now, place, gt::RespOut{resp, ld_r});
 }
 
 }  // namespace

@@ -36,20 +36,13 @@
 
 namespace {
 
-struct SlotPlace {
-  int64_t capacity;
-  __device__ int64_t operator()(int64_t, int64_t slot, int64_t valid) const {
-    return gt::slot_row(capacity, slot, valid);
-  }
-};
-
 __global__ void __launch_bounds__(gt::TILE_THREADS)
     fused_tick_kernel(int64_t* __restrict__ table, int64_t capacity,
                       const int32_t* __restrict__ m32, int64_t ld_m,
                       int32_t* __restrict__ resp, int64_t ld_r, int64_t lanes,
                       int64_t now) {
-  gt::tile_tick(table, m32, ld_m, resp, ld_r, lanes, now,
-                SlotPlace{capacity});
+  gt::tile_tick(table, m32, ld_m, lanes, now, gt::SlotPlace{capacity},
+                gt::RespOut{resp, ld_r});
 }
 
 }  // namespace

@@ -483,12 +483,6 @@ GT_HD Resp transition_class(int cls, int64_t now, const int64_t* s,
   return resp;
 }
 
-// One lane: `s` is the gathered row (read), `o` the row to store.
-GT_HD Resp transition(int64_t now, const int64_t* s, const Req& r,
-                      int64_t* o) {
-  return transition_class(algo_class(r.algorithm), now, s, r, o);
-}
-
 // ---- closed-form duplicate fold (kernel B.3) ----
 //
 // Port of gubernator_tpu/ops/transition32.py merged_fold32 (its result in
@@ -524,40 +518,49 @@ GT_HD int64_t floor_i64(double x) {
 }
 
 // `o` is the head's post-transition row; the fold rewrites its remaining,
-// status and remaining_f words in place.
+// status and remaining_f words in place.  The extras (base, q, rate_i, s0,
+// expire) are every head's; the fold itself only a live token or leaky
+// head's with followers, so a warp of zoo heads (tile.cuh) skips it.  Both
+// divisions take floor_div's 32-bit path when their operands fit: q's
+// dividend is >= 0 and h >= 1, and rate_i's dividend is >= 0, so for a
+// positive divisor floor and truncation agree; a negative limit keeps
+// floor_div_any.
 GT_HD MergedHead merged_fold(int64_t now, int64_t* o, const Req& r,
                              int32_t count) {
   bool is_tok = r.algorithm == TOKEN;
   int64_t h = r.hits > 0 ? r.hits : 1;
   double remf = bits_to_f64(o[W_REMAINING_F]);
   int64_t base = is_tok ? o[W_REMAINING] : floor_i64(remf);
-  int64_t q = imax(base, 0) / h;
-  int64_t li = (int64_t)count - 1;
-  bool alive = now <= o[W_EXPIRE_AT];
-  bool fold = count > 1 && alive && r.valid != 0 && r.algorithm <= LEAKY;
-
-  int64_t residue = wsub(base, wmul(q, h));
-  bool divisible = residue == 0;
-  bool drain = (r.behavior & DRAIN_OVER_LIMIT) != 0;
-  int64_t rem_last =
-      li <= q ? wsub(base, wmul(li, h)) : (drain ? 0 : residue);
-  bool at_zero_last = divisible ? li > q : (drain && li > wadd(q, 1));
-  bool zero_f = (q >= 1 && divisible && li >= q) ||
-                (base > 0 && drain && li > q);
-  double remf_last =
-      zero_f ? 0.0 : remf - (double)wmul(imin(li, q), h);
+  int64_t q = floor_div(imax(base, 0), h);
+  int64_t dur = imax(r.duration, 0);
+  int64_t safe_limit = r.limit == 0 ? 1 : r.limit;
 
   MergedHead m;
   m.base = base;
   m.q = q;
-  m.rate_i = floor_div_any(imax(r.duration, 0), r.limit == 0 ? 1 : r.limit);
+  m.rate_i = safe_limit > 0 ? floor_div(dur, safe_limit)
+                            : floor_div_any(dur, safe_limit);
   m.s0 = o[W_STATUS];
   m.expire = o[W_EXPIRE_AT];
-  if (fold && is_tok) {
-    o[W_REMAINING] = rem_last;
+  bool alive = now <= o[W_EXPIRE_AT];
+  bool fold = count > 1 && alive && r.valid != 0 && r.algorithm <= LEAKY;
+  if (!fold) return m;
+
+  int64_t li = (int64_t)count - 1;
+  int64_t residue = wsub(base, wmul(q, h));
+  bool divisible = residue == 0;
+  bool drain = (r.behavior & DRAIN_OVER_LIMIT) != 0;
+  if (is_tok) {
+    bool at_zero_last = divisible ? li > q : (drain && li > wadd(q, 1));
+    o[W_REMAINING] =
+        li <= q ? wsub(base, wmul(li, h)) : (drain ? 0 : residue);
     if (at_zero_last) o[W_STATUS] = OVER;
+  } else {
+    bool zero_f = (q >= 1 && divisible && li >= q) ||
+                  (base > 0 && drain && li > q);
+    o[W_REMAINING_F] = f64_to_bits(
+        zero_f ? 0.0 : remf - (double)wmul(imin(li, q), h));
   }
-  if (fold && !is_tok) o[W_REMAINING_F] = f64_to_bits(remf_last);
   return m;
 }
 

@@ -4,8 +4,9 @@ These tests need an NVIDIA GPU with the CUDA toolkit (the kernels build
 with ``nvcc`` at first use); without one they skip.  They cover shapes the
 main path does not reach in ``chip_smoke.py``: widths that are not a
 multiple of a block, column slices, merged-tick launches into row slices
-of one journal, rows narrower than 16 words, out-of-range and guard-row
-slots, ragged windows with empty shards, inert lanes and slots outside
+of one journal, the merged tick at its tile shapes and at the fold's
+32-bit division edges, rows narrower than 16 words, out-of-range and
+guard-row slots, ragged windows with empty shards, inert lanes and slots outside
 their shard, the engine on a tiny table that fills and reclaims (with herd
 windows on the grouped plan), layered windows on a 2^14-slot table, and
 the mesh engine on four tiny shards.  They import nothing of JAX, so
@@ -79,6 +80,76 @@ def ragged_case(kind: str, width: int, seed: int, shards: int = 3,
                                       skew=kind == "skewed")
         offs = np.minimum(offs, width).astype(np.int32)
     return state, m, offs
+
+
+# The merged tick's tile shapes: the unique ticks' and a 512-head layer of
+# the layered plan; head windows mixed, of EDGE lanes only, or of token,
+# leaky or zoo heads only.
+MERGED_WIDTHS = TILE_WIDTHS + (512,)
+MERGED_KINDS = ("mixed", "edge", "token", "leaky", "zoo")
+
+
+def merged_case(kind: str, width: int, seed: int, cap: int = 1024):
+    """``(state, m, count)``: random stored state of ``cap`` slots, a head
+    window of kind ``kind`` whose first ``width`` columns are the case
+    (``m`` is wider below 192 heads: slice it on the device, ld_m > U) and
+    group sizes up to 1000, every seventh head alone.  From 9 heads up
+    head 3 is padding aimed at ``capacity`` and head 5 has valid == 0."""
+    rng = np.random.default_rng(seed)
+    state = cs.random_state(rng, cap)
+    R = E.REQ32_INDEX
+    if kind == "edge":
+        m = cs.edge_window(E, rng, width, state)
+    else:
+        m, _, n = cs.merged_window(E, rng, cap, max(width, 128 + 64), state)
+        if kind != "mixed":
+            m[R["algorithm"], :n] = (
+                rng.integers(2, 5, n) if kind == "zoo"
+                else cs.ALGORITHMS.index(kind))
+    count = rng.integers(1, 1001, m.shape[1]).astype(np.int32)
+    count[::7] = 1
+    if width >= 9:
+        m[R["slot"], 3] = cap
+        m[R["valid"], 5] = 0
+    return state, m, count
+
+
+# The fold's divisions at their 32-bit edges (csrc/transition.cuh
+# merged_fold): rate_i = max(duration, 0) // limit over these limits and
+# durations, and q = max(base, 0) // hits over bases and hits around 2^32.
+FOLD_LIMITS = (-7, 0, 1, 2**31 - 1, 2**32 - 1, 2**32, 2**32 + 1)
+FOLD_DURATIONS = (-5, 0, 2**32 - 1, 2**32)
+FOLD_BASES = (2**31 - 1, 2**32 - 1, 2**32, 2**32 + 1, 2**33)
+FOLD_HITS = (1, 3, 2**32 - 1, 2**32)
+
+
+def division_case(cap: int = 1024):
+    """``(state, m, count)``: token and leaky heads on slots 0.. at the
+    fold's division edges, every head with followers and no leak (the
+    stored row was updated at the request's time), half of them draining."""
+    rng = np.random.default_rng(17)
+    state = cs.random_state(rng, cap)
+    edges = []
+    for alg in (0, 1):
+        edges += [(dict(algorithm=alg, limit=lim, duration=dur, hits=1),
+                   dict(algorithm=alg, limit=lim, duration=dur))
+                  for lim in FOLD_LIMITS for dur in FOLD_DURATIONS]
+        big = 2**40
+        edges += [(dict(algorithm=alg, limit=big, duration=60_000, hits=h,
+                        burst=big),
+                   dict(algorithm=alg, limit=big, duration=60_000, burst=big,
+                        remaining=b + h, remaining_f=b + h + 0.5))
+                  for b in FOLD_BASES for h in FOLD_HITS]
+    n = len(edges)
+    req = cs.random_requests(rng, n)
+    for k, edge in enumerate(edges):
+        cs._set_edge(req, state, k, k, edge)
+        state["updated_at"][k] = cs.NOW
+    req["created_at"][:] = cs.NOW
+    req["behavior"][:] = np.where(np.arange(n) % 2, 32, 0)
+    m = cs._pack(E, cap, n, np.arange(n), req)
+    count = rng.integers(2, 1001, n).astype(np.int32)
+    return state, m, count
 
 
 @pytest.fixture
@@ -197,6 +268,37 @@ def test_fused_merged_tick_into_journal_slices(dev):
         assert torch.equal(journal[a + 8:b + 8], want)
     assert (journal[:8] == -1).all()
     assert torch.equal(t_k, t_p)
+
+
+def merged_on(dev, state, m, count, width):
+    """The merged tick and its plain version on copies of ``state``'s
+    table, the first ``width`` heads of ``m``, the kernel's journal a row
+    slice of a wider one: both must agree bit for bit, rows outside the
+    slice untouched."""
+    cap = len(state["algorithm"])
+    table = table_from_columns(state, cap, dev)
+    mt = torch.from_numpy(m).to(dev)[:, :width]
+    ct = torch.from_numpy(count[:width]).to(dev)
+    t_k, t_p = table.clone(), table.clone()
+    journal = torch.full((width + 16, 24), -1, dtype=torch.int32, device=dev)
+    fused_merged_tick(t_k, mt, ct, cs.NOW, out=journal[8:8 + width])
+    want = fused_merged_tick_plain(
+        t_p, mt, ct, cs.NOW,
+        torch.empty((width, 24), dtype=torch.int32, device=dev))
+    assert torch.equal(journal[8:8 + width], want)
+    assert (journal[:8] == -1).all() and (journal[8 + width:] == -1).all()
+    assert torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("width", MERGED_WIDTHS)
+@pytest.mark.parametrize("kind", MERGED_KINDS)
+def test_fused_merged_tick_tile_shapes_match_plain(dev, kind, width):
+    merged_on(dev, *merged_case(kind, width, seed=width), width)
+
+
+def test_fused_merged_fold_division_edges_match_plain(dev):
+    state, m, count = division_case()
+    merged_on(dev, state, m, count, m.shape[1])
 
 
 @pytest.mark.parametrize("width", [16, 4])

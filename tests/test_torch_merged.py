@@ -52,6 +52,8 @@ from gubernator_tpu_torch.ops.reqcols import ReqColumns as TReqColumns
 from gubernator_tpu_torch.types import Behavior
 from tests.test_torch_common import (
     NOW, edge_lanes, gen_lanes, pack_m32, teng_pack)
+from tests.test_torch_cuda import (
+    MERGED_KINDS, MERGED_WIDTHS, division_case, merged_case)
 from tests.test_torch_engine import keyset, run_windows
 
 CAP = 256          # grouped: merged pipeline and its engine
@@ -409,6 +411,51 @@ def test_kernel_lane_code_on_host_matches_plain(seed, exact):
                        ct.data_ptr(), j_host.data_ptr(), m.shape[1], NOW) == 0
     assert torch.equal(j_host, j_plain)
     assert torch.equal(t_host, t_plain)
+
+
+def host_merged_matches_plain(state, m, count, width):
+    """The host build of the merged tick's tile steps against the plain
+    version on the first ``width`` heads of ``m`` (a column slice: ld_m >
+    U when ``m`` is wider), its journal a row slice of a wider one: rows
+    and journal bit for bit, rows outside the slice untouched."""
+    cap = len(state["algorithm"])
+    t_plain = table_from_columns(state, cap, "cpu")
+    t_host = t_plain.clone()
+    mt = torch.from_numpy(m)[:, :width]
+    ct = torch.from_numpy(count[:width].copy())
+    j_plain = fused_merged_tick_plain(
+        t_plain, mt, ct, NOW, torch.empty((width, 24), dtype=torch.int32))
+    journal = torch.full((width + 16, 24), -7, dtype=torch.int32)
+    assert _host_lib()(t_host.data_ptr(), cap, mt.data_ptr(), mt.stride(0),
+                       ct.data_ptr(), journal[8:].data_ptr(), width,
+                       NOW) == 0
+    assert torch.equal(journal[8:8 + width], j_plain)
+    assert (journal[:8] == -7).all() and (journal[8 + width:] == -7).all()
+    assert torch.equal(t_host, t_plain)
+
+
+@pytest.mark.parametrize("width", MERGED_WIDTHS)
+@pytest.mark.parametrize("kind", MERGED_KINDS)
+def test_merged_tile_code_on_host_matches_plain(kind, width):
+    """The merged kernel's tile steps (csrc/tile.cuh MergedOut) at the tile
+    shapes: one head, the narrow path's edge (8 / 9 heads), the 64-head
+    tile's edges, 255-257 heads and a 512-head layer; padding and invalid
+    heads among the live ones, group sizes up to 1000."""
+    host_merged_matches_plain(*merged_case(kind, width, seed=width), width)
+
+
+def test_merged_fold_division_edges_on_host_match_plain():
+    """The fold's divisions at their 32-bit path's edges: rate_i over
+    limits -7, 0, 1, 2^31 - 1, 2^32 - 1, 2^32, 2^32 + 1 and durations
+    -5, 0, 2^32 - 1, 2^32; q over bases and hits around 2^32."""
+    state, m, count = division_case()
+    host_merged_matches_plain(state, m, count, m.shape[1])
+    # the heads do fold: the journal's q and rate_i reach past 2^32
+    t = table_from_columns(state, len(state["algorithm"]), "cpu")
+    j = fused_merged_tick_plain(
+        t, torch.from_numpy(m), torch.from_numpy(count), NOW,
+        torch.empty((m.shape[1], 24), dtype=torch.int32)).numpy()
+    assert (j[:, 9] != 0).any() and (j[:, 11] != 0).any()
 
 
 def test_count_one_is_the_fused_tick():
