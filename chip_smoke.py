@@ -20,14 +20,20 @@ Phases, one output line each:
    and on windows of token, leaky or zoo heads only; gather and scatter
    on 32768 random slots; and the ragged tick (B.4) on 32768-lane windows of global slots over 8 shards
    of the same size, with balanced extents and with every lane on one
-   shard, and on their slices and edge windows as B.1.  CUDA-event times
+   shard, and on their slices and edge windows as B.1; the chained
+   duplicate tick (B.5) on 32768-lane windows of Zipf(1.2) slots (the
+   phase-3 fallback window's skew), on their slices, on a 4096-lane
+   window of one segment and on a window of EDGE lanes.  CUDA-event times
    (median of 25) of each kernel, its plain version and, for
    gather/scatter, ``index_select`` / ``index_copy_`` as a yardstick; B.1
    at every power of two from 1 to 32768 lanes, B.4 at 1, 64, 4096 and
    32768 and B.3 at 512, 4096 and 8192 heads (``by_width``), B.1 on each
    single-algorithm window and B.3 on each single-class window, rotating
-   over windows that touch more than twice the L2 (``working_set_mb``).
-   ``--against CHECKOUT`` times that checkout's tick kernels in turns with
+   over windows that touch more than twice the L2 (``working_set_mb``);
+   B.5 on its windows and on the one-segment window, whose time over its
+   lanes is one link of a segment's chain (``longest_chain_ms``: the
+   longest segment's links at that rate, a chain length measured in this
+   kernel, not a bound).  ``--against CHECKOUT`` times that checkout's tick kernels in turns with
    these (``against_ms``);
 3. the engine at full size: ``TickEngine(capacity=10_000_000,
    max_batch=32768)`` serves windows that are first held against a
@@ -38,10 +44,12 @@ Phases, one output line each:
    packing and sort), a 32768-wide Zipf(1.2) herd (the grouped plan: one
    merged launch) and a herd with RESET rows on its 256 hottest keys (the
    layered plan), both checked against a scalar token-bucket model, a
-   random Zipf(1.2) window of 32768 (the rank-round fallback) and a window
-   of fresh keys against the full table (reclaim: gather + scatter).  Each
-   of these paths runs with every kernel's launch count set to 0 just
-   before it and read just after;
+   random Zipf(1.2) window of 32768 (neither plan: one B.5 launch), a
+   window of fresh keys against the full table (reclaim: gather +
+   scatter), and the table's state exported, loaded into a fresh engine
+   and exported again (the two exports compared).  Each of these paths
+   runs with every kernel's launch count set to 0 just before it and read
+   just after;
 4. the sharded engine at full size: ``MeshTickEngine(n_shards=8,
    local_capacity=1_250_000, max_batch=32768)`` serves windows first held
    against a ``device="cpu"`` mesh engine of 8 smaller shards (unique,
@@ -66,6 +74,7 @@ printing a result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -322,6 +331,35 @@ def merged_window(engine_mod, rng, cap: int, lanes: int, state: dict):
     return m, count, n
 
 
+def sorted_window(engine_mod, rng, cap: int, lanes: int, state: dict,
+                  one_slot: bool = False):
+    """A slot-sorted (19, lanes) window whose slots repeat, for the chained
+    duplicate tick: Zipf(1.2) slots over the table (the phase-3 fallback
+    window's key skew), or with ``one_slot`` every lane on one random slot
+    (one segment as long as the window); random requests over all five
+    algorithms and flags, the EDGE lanes' requests and stored state on
+    lanes spread over the window, and the last ``lanes // 8`` lanes
+    padding aimed at the guard row (none with ``one_slot``)."""
+    n = lanes if one_slot else lanes - lanes // 8
+    if one_slot:
+        slots = np.full(n, rng.integers(0, cap))
+    else:
+        slots = np.sort((rng.zipf(1.2, n) - 1) % cap)
+    req = random_requests(rng, n)
+    edge_at = rng.choice(n, min(n, len(EDGE)), replace=False)
+    for k, edge in zip(edge_at, EDGE):
+        _set_edge(req, state, k, slots[k], edge)
+    return _pack(engine_mod, cap, lanes, slots, req)
+
+
+def longest_segment(engine_mod, m, cap: int) -> int:
+    """The most live lanes of one slot in window ``m``."""
+    R = engine_mod.REQ32_INDEX
+    sl = m[R["slot"]]
+    s = sl[(m[R["valid"]] != 0) & (sl >= 0) & (sl < cap)]
+    return int(np.bincount(s).max()) if len(s) else 0
+
+
 RAGGED_SHARDS = 8
 
 
@@ -398,14 +436,21 @@ def _max_abs(torch, a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def check_tick(torch, fn, plain, table, args, what):
+def check_tick(torch, fn, plain, table, args, what, plain_ms=None):
     """``fn`` and its plain version on two copies of ``table``, the same
     ``args``: the response and the table must be equal bit for bit.
-    Returns the largest absolute difference (0)."""
+    Returns the largest absolute difference (0).  With a list
+    ``plain_ms``, the plain call's wall time (ms, the card synchronized
+    before and after) is appended to it."""
     t_k, t_p = table.clone(), table.clone()
     r_k = fn(t_k, *args)
-    r_p = plain(t_p, *args, torch.empty_like(r_k))
+    r_p = torch.empty_like(r_k)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain(t_p, *args, r_p)
+    torch.cuda.synchronize()
+    if plain_ms is not None:
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
     err = max(_max_abs(torch, r_k, r_p), _max_abs(torch, t_k, t_p))
     assert torch.equal(r_k, r_p), f"{what}: response differs from plain"
     assert torch.equal(t_k, t_p), f"{what}: table differs from plain"
@@ -729,6 +774,82 @@ def ragged_entry(torch, dev, rng, lanes: int, table_slots: int,
     return e
 
 
+# Lanes of the one-segment window phase 2 times the chained duplicate
+# tick on: its time over these lanes is one link of a segment's chain.
+CHAIN_LANES = 4096
+# The chained tick's column slices held against its plain version.
+SORTED_EDGE_WIDTHS = (1, 8, 9, 63, 64, 65, 255, 256, 257, 4096)
+
+
+def sorted_entry(torch, dev, rng, state, lanes: int, rotate: int):
+    """Kernel B.5, the chained duplicate tick, on ``state``'s random table
+    (the windows' EDGE lanes' stored state in place): held against its plain version (rank rounds of the
+    fused tick's plain version, on the card) bit for bit on a Zipf(1.2)
+    window of ``lanes`` lanes (the phase-3 fallback window's skew), on
+    its column slices at SORTED_EDGE_WIDTHS (ld_m > B), on a window of
+    one segment of CHAIN_LANES lanes and on a window of EDGE lanes; timed
+    on the Zipf windows, rotating over ``rotate`` of them, and on the
+    one-segment window; the plain version is timed by the check's one
+    call on the first Zipf window.  ``longest_chain_ms`` is the Zipf
+    window's longest segment times one link of the one-segment window's
+    chain: what the kernel's own chain costs at that length, not a
+    bound."""
+    from gubernator_tpu_torch.carry import table_from_columns
+    from gubernator_tpu_torch.ops import engine as E
+    from gubernator_tpu_torch.ops.sortedtick import (
+        fused_sorted_tick, fused_sorted_tick_plain)
+
+    cap = len(state["algorithm"])
+    mats = [sorted_window(E, rng, cap, lanes, state) for _ in range(rotate)]
+    chain = sorted_window(E, rng, cap, CHAIN_LANES, state, one_slot=True)
+    req = random_requests(rng, 257)
+    eslots = np.arange(257) // 3
+    for k in range(257):
+        _set_edge(req, state, k, eslots[k], EDGE[k % len(EDGE)])
+    edges = _pack(E, cap, 257, eslots, req)
+    table = table_from_columns(state, cap, dev)
+    wins = [torch.from_numpy(m).to(dev) for m in mats]
+    chain_d = torch.from_numpy(chain).to(dev)
+    cases = [(f"slice {w}", wins[0][:, :w]) for w in SORTED_EDGE_WIDTHS
+             if w < lanes]
+    cases += [(f"zipf window {lanes}", wins[0]),
+              (f"one segment {CHAIN_LANES}", chain_d),
+              ("EDGE window 257", torch.from_numpy(edges).to(dev))]
+    err = 0
+    plain_ms = []
+    for what, m in cases:
+        err = max(err, check_tick(
+            torch, fused_sorted_tick, fused_sorted_tick_plain, table,
+            (m, NOW), "fused_sorted_tick " + what,
+            plain_ms if m is wins[0] else None))
+    work = table.clone()
+    resps = [torch.empty((6, lanes), dtype=torch.int32, device=dev)
+             for _ in wins]
+    ms = time_ms(torch, [lambda x=x, r=r: fused_sorted_tick(work, x, NOW,
+                                                             out=r)
+                         for x, r in zip(wins, resps)])
+    chain_ms = time_ms(torch, lambda: fused_sorted_tick(work, chain_d, NOW))
+    R = E.REQ32_INDEX
+    sl = mats[0][R["slot"]]
+    live = (mats[0][R["valid"]] != 0) & (sl >= 0) & (sl < cap)
+    distinct = len(np.unique(sl[live]))
+    longest = longest_segment(E, mats[0], cap)
+    e = _entry(
+        "fused_sorted_tick", "gubernator_tpu_torch/csrc/fused_sorted_tick.cu",
+        "gubernator_tpu/ops/tick32.py:357", err, ms, plain_ms[0], None,
+        distinct * 256 + int(live.sum()) * (76 + 24)
+        + int((~live).sum()) * (8 + 24),
+        int(live.sum()) * FUSED_TICK_INT32_OPS_PER_LANE)
+    e["lanes"] = lanes
+    e["distinct_slots"] = distinct
+    e["longest_segment"] = longest
+    e["chain_lanes"] = CHAIN_LANES
+    e["chain_ms"] = chain_ms
+    e["longest_chain_ms"] = longest * chain_ms / CHAIN_LANES
+    e["checked"] = [what for what, _ in cases]
+    return e
+
+
 def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
                  merged_heads=8192, against=None):
     """Each kernel against its plain version on the card, bit for bit, and
@@ -809,6 +930,10 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
                             for s in sets]),
             sets[0].numel() * 8 + n_live * 256, 0)
 
+    # Its own generator: the other kernels' windows stay those of
+    # earlier runs.
+    out["fused_sorted_tick"] = sorted_entry(
+        torch, dev, np.random.default_rng(SEED + 2), state, lanes, rotate)
     out["fused_ragged_tick"] = ragged_entry(torch, dev, rng, lanes,
                                             table_slots, rotate, against)
     out["gather_rows"] = check_gather(slot_sets(lanes))
@@ -974,12 +1099,14 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
 
     def routes(e):
         return (e.metric_grouped_ticks, e.metric_layered_ticks,
-                e.metric_rank_rounds)
+                e.metric_sorted_ticks)
 
     # Windows held against the CPU engine: same keys, same now, same
     # answers (slot numbers differ, state per key does not), and the same
-    # route on both: the random Zipf window falls back to rank rounds, the
-    # herd takes the grouped plan, the herd with RESET rows the layered.
+    # route on both: the random Zipf window neither plan takes goes to the
+    # chained tick (B.5 on the card, its plain version's rank rounds on
+    # the CPU), the herd takes the grouped plan, the herd with RESET rows
+    # the layered.
     n_c = width
     herd_ids = (rng.zipf(1.2, compare_zipf) - 1) % (4 * n_c)
     lay_ids = (rng.zipf(1.2, compare_zipf) - 1) % (4 * n_c)
@@ -988,7 +1115,7 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
          (0, 0, 0)),
         ("zipf", window_columns(
             reqcols, rng, b"c", (rng.zipf(1.2, compare_zipf) - 1) % (4 * n_c),
-            now), None),
+            now), (0, 0, 1)),
         ("revisit", window_columns(reqcols, rng, b"c", rng.permutation(n_c),
                                    now), (0, 0, 0)),
         ("herd", herd_columns(reqcols, b"h", herd_ids), (1, 0, 0)),
@@ -1000,16 +1127,16 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
         for name, cols, route in compare:
             now += 1_000
             before = [routes(eng), routes(ref)]
+            r0 = ref.metric_rank_rounds
             got, gerr = eng.process_columns(cols, now)
             want, werr = ref.process_columns(cols, now)
             assert gerr == werr, name
             np.testing.assert_array_equal(got, want, err_msg=name)
             for e, b in zip((eng, ref), before):
                 d = tuple(x - y for x, y in zip(routes(e), b))
-                if route is None:
-                    assert d[:2] == (0, 0) and d[2] > 0, (name, d)
-                else:
-                    assert d == route, (name, d)
+                assert d == route, (name, d)
+            assert (ref.metric_rank_rounds > r0) == (route[2] == 1), name
+    assert eng.metric_rank_rounds == 0
     info["compared_windows"] = [name for name, _, _ in compare]
     info["per_item_errors"] = len(gerr)
 
@@ -1104,8 +1231,8 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     info["layered_layers"] = dup_window("layered", (0, 1, 0), now + 3_500)
 
     # A Zipf(1.2) window of random requests (per-request parameters, so
-    # neither plan takes it): the rank-round fallback.
-    g0, l0, r0 = routes(eng)
+    # neither plan takes it): the chained tick, one B.5 launch.
+    g0, l0, c0 = routes(eng)
     ids = (rng.zipf(1.2, width) - 1) % todo
     zipf = window_columns(reqcols, rng, b"p", ids, now + 4_000)
     with counted_path("fallback"):
@@ -1114,9 +1241,11 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
         info["fallback_window_s"] = time.perf_counter() - t0
     assert mat.shape == (5, width)
     info["fallback_unique_keys"] = int(len(np.unique(ids)))
-    info["fallback_rank_rounds"] = eng.metric_rank_rounds - r0
-    assert routes(eng)[:2] == (g0, l0) and info["fallback_rank_rounds"] > 0
-    assert launches["fallback"]["fused_tick"] == info["fallback_rank_rounds"]
+    info["fallback_longest_segment"] = int(np.bincount(ids).max())
+    info["fallback_b5_launches"] = launches["fallback"]["fused_sorted_tick"]
+    assert routes(eng) == (g0, l0, c0 + 1) and eng.metric_rank_rounds == 0
+    assert info["fallback_b5_launches"] == 1
+    assert launches["fallback"]["fused_tick"] == 0
 
     # Fresh keys against the full table: reclaim evicts LRU victims.
     fresh = window_columns(reqcols, rng, b"f", np.arange(width), now + 5_000)
@@ -1131,12 +1260,137 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     assert eng.metric_unexpired_evictions > 0
     assert launches["reclaim"]["gather_rows"] > 0
     assert launches["reclaim"]["scatter_rows"] > 0
+
+    # The full table's state out and back: export its live rows, load them
+    # into a fresh engine and export that; the second export must equal
+    # the rows of the first that had not expired by the load.
+    info.update(state_round_trip(torch, dev, eng, capacity, width,
+                                 now + 5_000, launches, widths))
     info["launches_by_path"] = launches
     info["launches_by_width"] = widths
     total = {k: sum(p[k] for p in launches.values())
              for k in launches["unique"]}
     assert total["fused_ragged_tick"] == 0
     return info, total
+
+
+@contextlib.contextmanager
+def device_timed(torch, module, names, out: dict):
+    """``module``'s functions ``names`` wrapped for the block: each call is
+    bracketed by two CUDA events on the current stream (no
+    synchronisation), and after the block ``out[name]`` holds the summed
+    ms between them.  An event pair spans the wrapper's own launch and
+    any idle gap before its kernel starts, so the sum bounds the kernels'
+    device time from above.  A wrapper counts its launches on the module
+    attribute it calls itself by, so each shim carries the original's
+    attributes and hands them back when the block ends.  Nest it inside
+    ``counted``: the counts are read after the originals are back."""
+    orig = {n: getattr(module, n) for n in names}
+    marks = {n: [] for n in names}
+
+    def shim(n):
+        @functools.wraps(orig[n])
+        def call(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            r = orig[n](*args, **kw)
+            b.record()
+            marks[n].append((a, b))
+            return r
+        return call
+
+    for n in names:
+        setattr(module, n, shim(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            for attr in vars(orig[n]):
+                setattr(orig[n], attr, getattr(getattr(module, n), attr))
+            setattr(module, n, orig[n])
+    torch.cuda.synchronize()
+    for n in names:
+        out[n] = sum(a.elapsed_time(b) for a, b in marks[n])
+
+
+def check_export_sample(torch, eng, snap, rng, k: int = 4096) -> None:
+    """``k`` random items of ``eng``'s export held against the engine's
+    table decoded apart from the export's codec: each key's slot from a
+    slot-map lookup, its row from the table by plain indexing, decoded by
+    ``rowtable.host_columns``, and its lease columns read directly."""
+    from gubernator_tpu_torch.ops.reqcols import compact_blob
+    from gubernator_tpu_torch.ops.rowtable import host_columns
+    from gubernator_tpu_torch.ops.snapshot import (
+        ITEM_FIELDS, LEASE_SNAP_FIELDS)
+
+    n = len(snap["key_offsets"]) - 1
+    pick = np.zeros(n, bool)
+    pick[rng.choice(n, min(k, n), replace=False)] = True
+    blob, offsets = compact_blob(snap["key_blob"], snap["key_offsets"], pick)
+    slots = eng.slots.lookup_blob(blob, offsets)
+    assert (slots >= 0).all(), "an exported key is not mapped"
+    idx = torch.from_numpy(slots).to(eng.table.device)
+    rows = eng.table[idx]
+    cols = host_columns(torch.cat([rows, torch.zeros_like(rows[:1])]))
+    assert cols["in_use"].all()
+    for f in ITEM_FIELDS:
+        want = cols[f].view(np.int64) if f == "remaining_f" else cols[f]
+        got = (snap[f][pick].view(np.int64) if f == "remaining_f"
+               else snap[f][pick])
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    lease = [eng._lease_budget, eng._lease_expire, eng._lease_gen]
+    for f, col in zip(LEASE_SNAP_FIELDS, lease):
+        np.testing.assert_array_equal(
+            snap[f][pick], col[idx].long().cpu().numpy(), err_msg=f)
+
+
+def state_round_trip(torch, dev, eng, capacity: int, width: int, now: int,
+                     launches: dict, widths: dict) -> dict:
+    """``eng``'s live state exported, loaded into a fresh engine of the
+    same size at ``now`` and exported again (the ``state`` path's
+    launches): the seconds and bytes of each step, the row kernels'
+    device ms in each (``device_timed``), a sample of the first export
+    held against the table (``check_export_sample``), and the check that
+    the second export holds exactly the first's rows that had not
+    expired."""
+    from gubernator_tpu_torch.ops import rowtable
+    from gubernator_tpu_torch.ops.engine import TickEngine
+    from gubernator_tpu_torch.ops.reqcols import compact_blob
+
+    out = {}
+    kernels = ("gather_rows", "scatter_rows")
+    with counted(torch, launches, "state", widths):
+        ex, ld = {}, {}
+        with device_timed(torch, rowtable, kernels, ex):
+            t0 = time.perf_counter()
+            snap = eng.export_columns()
+            out["state_export_s"] = time.perf_counter() - t0
+        out["state_export"] = dict(eng.last_export_stats)
+        twin = TickEngine(capacity=capacity, max_batch=width, device=dev)
+        with device_timed(torch, rowtable, kernels, ld):
+            t0 = time.perf_counter()
+            twin.load_columns(snap, now)
+            torch.cuda.synchronize()
+            out["state_load_s"] = time.perf_counter() - t0
+        out["state_load"] = dict(twin.last_load_stats)
+        out["state_export_row_kernels_ms_at_most"] = ex
+        out["state_load_row_kernels_ms_at_most"] = ld
+        back = twin.export_columns()
+    check_export_sample(torch, eng, snap, np.random.default_rng(SEED))
+    keep = snap["expire_at"] >= now
+    out["state_loaded_items"] = int(keep.sum())
+    assert out["state_load"]["rows"] == keep.sum()
+    assert keep.sum() > capacity // 2, "most rows must outlive the load"
+    blob, offsets = compact_blob(snap["key_blob"], snap["key_offsets"], keep)
+    assert bytes(back["key_blob"]) == bytes(blob)
+    np.testing.assert_array_equal(back["key_offsets"], offsets)
+    for f, col in snap.items():
+        if f not in ("key_blob", "key_offsets"):
+            np.testing.assert_array_equal(back[f], col[keep], err_msg=f)
+    assert launches["state"]["gather_rows"] > 0
+    assert launches["state"]["scatter_rows"] > 0
+    return out
 
 
 def mesh_host_split(eng, wins, now) -> dict:
@@ -1417,7 +1671,7 @@ def main(argv=None) -> int:
 
     table = []
     for name in ("fused_tick", "fused_merged_tick", "fused_ragged_tick",
-                 "gather_rows", "scatter_rows"):
+                 "fused_sorted_tick", "gather_rows", "scatter_rows"):
         k = kernels[name]
         table.append({
             "name": name, "route": k["route"], "source": k["source"],

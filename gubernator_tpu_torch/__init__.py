@@ -34,24 +34,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def kernel_launches() -> dict:
     """Launch count of every CUDA kernel wrapper, by kernel name."""
-    from gubernator_tpu_torch.ops import fusedtick, raggedtick, rowtable
+    from gubernator_tpu_torch.ops import rowtable
 
     return {
-        "fused_tick": fusedtick.fused_tick.launches,
-        "fused_merged_tick": fusedtick.fused_merged_tick.launches,
-        "fused_ragged_tick": raggedtick.fused_ragged_tick.launches,
+        **{name: w.launches for name, w in _tick_wrappers().items()},
         "gather_rows": rowtable.gather_rows.launches,
         "scatter_rows": rowtable.scatter_rows.launches,
     }
 
 
 def _tick_wrappers() -> dict:
-    from gubernator_tpu_torch.ops import fusedtick, raggedtick
+    from gubernator_tpu_torch.ops import fusedtick, raggedtick, sortedtick
 
     return {
         "fused_tick": fusedtick.fused_tick,
         "fused_merged_tick": fusedtick.fused_merged_tick,
         "fused_ragged_tick": raggedtick.fused_ragged_tick,
+        "fused_sorted_tick": sortedtick.fused_sorted_tick,
     }
 
 

@@ -45,6 +45,7 @@ LIBS = {
     "fused_tick": ("nvcc", ("fused_tick.cu",)),
     "fused_merged_tick": ("nvcc", ("fused_merged_tick.cu",)),
     "fused_ragged_tick": ("nvcc", ("fused_ragged_tick.cu",)),
+    "fused_sorted_tick": ("nvcc", ("fused_sorted_tick.cu",)),
     "rows": ("nvcc", ("rows.cu",)),
     "fused_tick_host": ("cxx", ("fused_tick_host.cc",)),
 }

@@ -12,13 +12,14 @@
 // (ops/fusedtick.py, ops/raggedtick.py), which checks the kernels'
 // arithmetic and tile layout on a machine without a GPU; the kernels
 // themselves are held against the plain versions on the card by
-// chip_smoke.py.
+// chip_smoke.py.  The chained duplicate tick (fused_sorted_tick.cu) runs
+// its lane code (sorted_tick.cuh) lane after lane.
 
 #include <stdint.h>
 
 #include <memory>
 
-#include "tile.cuh"
+#include "sorted_tick.cuh"
 
 namespace {
 
@@ -125,6 +126,18 @@ extern "C" int gt_fused_merged_tick_host(int64_t* table, int64_t capacity,
   return tile_tick_host(table, m32, ld_m, lanes, now,
                         gt::SlotPlace{capacity},
                         gt::MergedOut{count, journal});
+}
+
+// The chained duplicate tick's lanes, one after another: each segment's
+// head runs its slot's requests in window order.
+extern "C" int gt_fused_sorted_tick_host(int64_t* table, int64_t capacity,
+                                         const int32_t* m32, int64_t ld_m,
+                                         int32_t* resp, int64_t ld_r,
+                                         int64_t lanes, int64_t now) {
+  for (int64_t j = 0; j < lanes; ++j) {
+    gt::sorted_lane(table, capacity, m32, ld_m, resp, ld_r, lanes, now, j);
+  }
+  return 0;
 }
 
 // floor_div and floor_mod (transition.cuh) of n pairs with b > 0, for the

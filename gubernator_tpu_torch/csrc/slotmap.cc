@@ -182,6 +182,17 @@ void guber_slotmap_resolve_batch(void* p, const char* blob,
   }
 }
 
+// Batch lookup without assignment: out_slots[i] = the key's slot, or -1
+// when the key has none (lease windows skip keys that are not resident).
+void guber_slotmap_lookup_batch(void* p, const char* blob,
+                                const int64_t* offsets, int64_t n,
+                                int64_t* out_slots) {
+  auto* m = static_cast<SlotMap*>(p);
+  for (int64_t i = 0; i < n; ++i) {
+    out_slots[i] = m->get(blob + offsets[i], offsets[i + 1] - offsets[i]);
+  }
+}
+
 // Fill out[slot] = 1 for every slot that currently has a key (the engine's
 // reclaim scan wants the live-slot mask as one array).
 void guber_slotmap_mapped(void* p, uint8_t* out) {

@@ -37,6 +37,10 @@ def load_library() -> ctypes.CDLL:
     lib.guber_slotmap_size.argtypes = [vp]
     lib.guber_slotmap_resolve_batch.argtypes = [
         vp, ctypes.c_char_p, _I64P, i64, _I64P, _U8P]
+    lib.guber_slotmap_lookup_batch.argtypes = [
+        vp, ctypes.c_char_p, _I64P, i64, _I64P]
+    lib.guber_slotmap_assign_batch.argtypes = [
+        vp, ctypes.c_char_p, _I64P, i64, _I64P]
     lib.guber_slotmap_mapped.argtypes = [vp, _U8P]
     lib.guber_slotmap_release_batch.argtypes = [vp, _I64P, i64]
     lib.guber_slotmap_keys_batch.restype = i64
@@ -114,6 +118,24 @@ class NativeSlotMap:
         )
         return slots, known
 
+    def lookup_blob(self, blob, offsets: np.ndarray) -> np.ndarray:
+        """The slot of each key of a packed (blob, offsets) pair, -1 for a
+        key that has none; nothing is assigned."""
+        return self._batch(self._lib.guber_slotmap_lookup_batch, blob,
+                           offsets)
+
+    def assign_blob(self, blob, offsets: np.ndarray) -> np.ndarray:
+        """The slot of each key, assigned when new; -1 where the table is
+        full."""
+        return self._batch(self._lib.guber_slotmap_assign_batch, blob,
+                           offsets)
+
+    def _batch(self, fn, blob, offsets: np.ndarray) -> np.ndarray:
+        offsets = np.ascontiguousarray(offsets, np.int64)
+        slots = np.empty(len(offsets) - 1, np.int64)
+        fn(self._h, as_char_p(blob), offsets, len(slots), slots)
+        return slots
+
     def release_batch(self, slots: np.ndarray) -> None:
         slots = np.ascontiguousarray(slots, np.int64)
         self._lib.guber_slotmap_release_batch(self._h, slots, len(slots))
@@ -124,15 +146,12 @@ class NativeSlotMap:
         slots = np.ascontiguousarray(slots, np.int64)
         n = len(slots)
         offsets = np.zeros(n + 1, np.int64)
-        cap = max(4096, n * 64)
-        while True:
-            buf = ctypes.create_string_buffer(cap)
-            need = self._lib.guber_slotmap_keys_batch(
-                self._h, slots, n, buf, cap, offsets
-            )
-            if need <= cap:
-                break
-            cap = int(need)
+        # The first call sizes the blob, the second fills it.
+        need = self._lib.guber_slotmap_keys_batch(
+            self._h, slots, n, None, 0, offsets)
+        buf = ctypes.create_string_buffer(max(int(need), 1))
+        self._lib.guber_slotmap_keys_batch(
+            self._h, slots, n, buf, need, offsets)
         return buf.raw[: offsets[n]], offsets
 
     def keys_batch(self, slots: np.ndarray) -> List[bytes]:

@@ -12,15 +12,20 @@ ops/buckets.py), and a *tick* applies a window of requests in place:
 
 Windows whose slots repeat take the grouped plan (one merged tick kernel
 launch that folds each key's identical duplicates in closed form), else
-the layered plan (one merged launch per unit layer), else rank rounds
-(ops/tick.py); each keeps the reference's sequential per-key semantics.
-The host owns the
-key→slot map, stamps time, resolves Gregorian calendar math and reclaims
-slots (TTL first, then LRU), synchronously when a window does not fit.
+the layered plan (one merged launch per unit layer), else the chained
+duplicate tick (ops/sortedtick.py: one launch that applies each key's
+requests in window order); each keeps the reference's sequential per-key
+semantics.  The host owns the key→slot map, stamps time, resolves
+Gregorian calendar math and reclaims slots (TTL first, then LRU),
+synchronously when a window does not fit.
+
+State moves in and out through the row kernels: columnar snapshots
+(``export_columns`` / ``load_columns``, their item-dict forms, a dirty set
+for deltas), owner-pushed GLOBAL installs, and the quota-lease columns
+(``lease_window``), three device columns beside the table.
 
 Not in this engine yet: background reclaim, the cold/SSD tiers and the
-Store, quota leases, GLOBAL installs, snapshot export/load.  Constructor
-options for them raise ``NotImplementedError``.
+Store.  Constructor options for them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,14 +38,20 @@ import torch
 
 from gubernator_tpu_torch import DeviceLike, resolve_device
 from gubernator_tpu_torch.native import NativeSlotMap
-from gubernator_tpu_torch.ops.buckets import zeros_table
+from gubernator_tpu_torch.ops.buckets import WORD, zeros_table
 from gubernator_tpu_torch.ops import rowtable, tick
 from gubernator_tpu_torch.ops.fusedtick import (  # noqa: F401
     REQ32_INDEX, REQ32_ROWS, REQ32_WIDE, fused_tick)
 from gubernator_tpu_torch.ops.reqcols import (
-    CREATED_UNSET, ReqColumns, compact_blob)
+    CREATED_UNSET, ReqColumns, compact_blob, pack_blob)
+from gubernator_tpu_torch.ops.snapshot import (
+    ITEM_FIELDS, LEASE_SNAP_FIELDS, SNAP_FIELDS, ZOO_SNAP_FIELDS,
+    columns_from_rows, empty_snapshot, items_from_snapshot,
+    rows_from_columns, snapshot_from_items)
+from gubernator_tpu_torch.ops.sortedtick import (
+    fused_sorted_tick, fused_sorted_tick_plain)
 from gubernator_tpu_torch.types import (
-    Algorithm, Behavior, RateLimitRequest, RateLimitResponse)
+    Algorithm, Behavior, GlobalUpdate, RateLimitRequest, RateLimitResponse)
 from gubernator_tpu_torch.utils import timeutil
 
 
@@ -478,6 +489,21 @@ class SlotMap:
              for j in range(len(offsets) - 1)]
         )
 
+    def _keys_of(self, blob, offsets: np.ndarray) -> List[str]:
+        mv = memoryview(blob)
+        return [bytes(mv[offsets[j]:offsets[j + 1]]).decode()
+                for j in range(len(offsets) - 1)]
+
+    def lookup_blob(self, blob, offsets: np.ndarray) -> np.ndarray:
+        """The slot of each key, -1 for a key that has none."""
+        return np.array([self._map.get(k, -1)
+                         for k in self._keys_of(blob, offsets)], np.int64)
+
+    def assign_blob(self, blob, offsets: np.ndarray) -> np.ndarray:
+        """The slot of each key, assigned when new; -1 where full."""
+        return np.array([-1 if s is None else s for s in map(
+            self.assign, self._keys_of(blob, offsets))], np.int64)
+
     def release_batch(self, slots: np.ndarray) -> None:
         for s in slots:
             self.release(int(s))
@@ -485,6 +511,9 @@ class SlotMap:
     def keys_batch(self, slots: np.ndarray) -> List[bytes]:
         """Keys of a batch of slots (b"" for unassigned)."""
         return [(self._keys[int(s)] or "").encode() for s in slots]
+
+    def keys_blob(self, slots: np.ndarray) -> tuple[bytes, np.ndarray]:
+        return pack_blob(self.keys_batch(slots))
 
 
 def select_reclaim_victims(
@@ -516,6 +545,10 @@ def select_reclaim_victims(
 
 
 EVICT_CHUNK = 1 << 16
+
+# Rows a state movement (export, load, install) gathers or scatters at a
+# time: bounds the row buffer on the card at 128 MB.
+STATE_CHUNK = 1 << 20
 
 # Tables at least this large take the layered plan (the JAX engine's gate:
 # below it, duplicate windows it declines go to the sequential program).
@@ -718,11 +751,26 @@ class TickEngine(BatchFront):
         self.metric_over_limit = 0
         self.metric_unexpired_evictions = 0
         self.metric_shed_requests = 0
-        # Duplicate windows by route (ops/tick.py): grouped and layered
-        # windows, and the rank rounds launched for the rest.
+        # Duplicate windows by route (ops/tick.py, ops/sortedtick.py):
+        # grouped, layered and chained windows, and the rank rounds the
+        # chained tick's plain version ran (CPU tables only).
         self.metric_grouped_ticks = 0
         self.metric_layered_ticks = 0
+        self.metric_sorted_ticks = 0
         self.metric_rank_rounds = 0
+        # Slots mutated since the last export (export_columns(dirty_only)).
+        self._dirty = np.zeros(self.capacity, bool)
+        # Quota-lease columns beside the table, capacity + 1 entries.
+        self._lease_budget = torch.zeros(self.capacity + 1, dtype=torch.int64,
+                                         device=self.device)
+        self._lease_expire = torch.zeros_like(self._lease_budget)
+        self._lease_gen = torch.zeros(self.capacity + 1, dtype=torch.int32,
+                                      device=self.device)
+        self.metric_lease_dispatches = 0
+        self.metric_lease_windows = 0
+        self.metric_lease_ops = 0
+        self.last_export_stats: dict = {}
+        self.last_load_stats: dict = {}
 
     # ------------------------------------------------------------------
     # Reclaim
@@ -856,33 +904,55 @@ class TickEngine(BatchFront):
             now = now if now is not None else timeutil.now_ms()
             self._tick_count += 1
             slab, n, errors, inv, has_dups = self._build_cols(cols, now)
+            self._mark_dirty(slab.numpy(), n)
             if has_dups:
-                resp, inv = self._tick_duplicates(slab.numpy(), n, inv, now)
-                uploaded = False
+                resp, uploaded = self._tick_duplicates(slab, n, now)
             else:
-                dev_m = (slab.to(self.device, non_blocking=True)
-                         if self.device.type == "cuda" else slab)
-                resp = fused_tick(self.table, dev_m, now)
+                resp = fused_tick(self.table, self._upload(slab), now)
                 uploaded = True
             self._pending.clear()
             handle = TickHandle(self, resp, n, inv, errors, cols.limit)
             self._staging.retire(handle if uploaded else None)
             return handle
 
-    def _tick_duplicates(self, m: np.ndarray, n: int, inv: np.ndarray,
-                         now: int):
+    def _upload(self, slab: torch.Tensor) -> torch.Tensor:
+        """The staging slab on the table's device (an asynchronous copy
+        from pinned memory on a CUDA engine)."""
+        if self.device.type == "cuda":
+            return slab.to(self.device, non_blocking=True)
+        return slab
+
+    def _mark_dirty(self, m: np.ndarray, n: int) -> None:
+        """Mark the slots a packed window mutates: hits != 0, a slot new
+        to the table, or RESET_REMAINING.  Pure queries read without
+        moving state (a leaky query's refill recomputes from
+        ``updated_at`` after a restore), so they do not mark."""
+        R = REQ32_INDEX
+        h = R["hits"]
+        mutating = ((m[h, :n] != 0) | (m[h + 1, :n] != 0)
+                    | (m[R["known"], :n] == 0)
+                    | ((m[R["behavior"], :n]
+                        & int(Behavior.RESET_REMAINING)) != 0))
+        s = m[R["slot"], :n]
+        self._dirty[s[mutating & (s < self.capacity)]] = True
+
+    def _tick_duplicates(self, slab: torch.Tensor, n: int, now: int):
         """Dispatch a window whose slots repeat, in the JAX engine's order:
         the grouped plan (one merged launch and the member expansion),
         else, on serving-size tables, the layered plan (one merged launch
-        per unit layer), else rank rounds.  Returns ``(resp, inv)``: the
-        (6, ·) device response and the request → response-lane map."""
+        per unit layer), else the chained duplicate tick (one launch).
+        Returns ``(resp, uploaded)``: the (6, ·) device response in the
+        window's slot-sorted lane order, and whether the slab itself was
+        uploaded (it must outlive the copy)."""
+        m = slab.numpy()
         plan = build_group_plan(m, n, self.capacity, now)
         if plan is not None:
             mhead, count, uidx, rank, _ = plan
             self.metric_grouped_ticks += 1
             return tick.merged_pipeline(
                 self.table,
-                *tick.upload(self.device, mhead, count, uidx, rank), now), inv
+                *tick.upload(self.device, mhead, count, uidx, rank),
+                now), False
         lplan = (build_layer_plan(m, n, self.capacity, now)
                  if self.capacity >= LAYERED_MIN_CAPACITY else None)
         if lplan is not None:
@@ -891,14 +961,265 @@ class TickEngine(BatchFront):
             self.metric_layered_ticks += 1
             return tick.layered_pipeline(
                 self.table, *tick.upload(self.device, mh0, cnt0, mhk[:k],
-                                        cntk[:k], uidx, rank), now), inv
-        resp, perm, rounds = tick.tick_rank_rounds(self.table, m, n, now)
-        self.metric_rank_rounds += rounds
-        # Response lane k answers sorted lane perm[k].
-        pos = np.empty(n, np.int64)
-        pos[perm] = np.arange(n)
-        return resp, pos[inv]
+                                        cntk[:k], uidx, rank), now), False
+        self.metric_sorted_ticks += 1
+        r0 = fused_sorted_tick_plain.rounds
+        resp = fused_sorted_tick(self.table, self._upload(slab), now)
+        self.metric_rank_rounds += fused_sorted_tick_plain.rounds - r0
+        return resp, True
 
     def _account_resolved(self, resp_mat: np.ndarray, errors) -> None:
         """Bookkeeping of a resolved window (the caller holds the lock)."""
         self.metric_over_limit += masked_over_limit(resp_mat, errors)
+
+    # ------------------------------------------------------------------
+    # State movement: installs, leases, snapshots
+    # ------------------------------------------------------------------
+    def _write_rows(self, slots: np.ndarray, rows: np.ndarray) -> int:
+        """Whole rows to the table at unique ``slots`` through the scatter
+        kernel, STATE_CHUNK rows at a time; returns the bytes uploaded."""
+        for a in range(0, len(slots), STATE_CHUNK):
+            rowtable.scatter_rows(
+                self.table,
+                torch.from_numpy(slots[a:a + STATE_CHUNK]).to(self.device),
+                torch.from_numpy(rows[a:a + STATE_CHUNK]).to(self.device))
+        return slots.nbytes + rows.nbytes
+
+    def _assign_keys(self, blob, offsets: np.ndarray, now: int) -> np.ndarray:
+        """Slots for keys whose rows are written directly (installs):
+        assigned when new, with one reclaim when the table is full; -1
+        where it stays full.  The slots are stamped with this tick, so the
+        reclaim spares them."""
+        slots, known = self.slots.resolve_blob(blob, offsets)
+        full = slots < 0
+        self._last_access[slots[~full]] = self._tick_count
+        if full.any():
+            self._reclaim(now, want=max(int(full.sum()), self.capacity // 16))
+            s2, k2 = self.slots.resolve_blob(
+                *compact_blob(blob, offsets, full))
+            slots[full], known[full] = s2, k2
+            self._last_access[s2[s2 >= 0]] = self._tick_count
+        ok = slots >= 0
+        n_miss = int(np.count_nonzero(known[ok] == 0))
+        self.metric_hits += int(np.count_nonzero(ok)) - n_miss
+        self.metric_misses += n_miss
+        return slots
+
+    def install_globals(self, updates: Sequence[GlobalUpdate],
+                        now: Optional[int] = None) -> None:
+        """Install owner-pushed GLOBAL state (the reference's
+        UpdatePeerGlobals receive path, gubernator.go:425-459) as whole
+        rows: token buckets get status, limit, duration, remaining,
+        ``created_at = now``; leaky buckets ``remaining_f``, limit,
+        duration, ``burst = limit``, ``updated_at = now``; both
+        ``expire_at = reset_time``.  The last update of a key wins; keys
+        the table cannot place are dropped (the next push retries).  The
+        rows are live when this returns."""
+        if not updates:
+            return
+        with self._lock:
+            now = now if now is not None else timeutil.now_ms()
+            # A new logical tick: the previous tick's slots must not stay
+            # protected from reclaim.
+            self._tick_count += 1
+            slots = self._assign_keys(
+                *pack_blob([u.key.encode() for u in updates]), now)
+            by_slot: Dict[int, GlobalUpdate] = {}
+            for u, s in zip(updates, slots.tolist()):
+                if s >= 0:
+                    by_slot[s] = u
+            if not by_slot:
+                return
+            tgt = np.fromiter(by_slot, np.int64, len(by_slot))
+            us = list(by_slot.values())
+            a = np.array([[u.algorithm, u.status.limit, u.status.remaining,
+                           u.status.status, u.duration, u.status.reset_time]
+                          for u in us], np.int64).T
+            algo, limit, remaining, status, duration, reset_time = a
+            leaky = algo == int(Algorithm.LEAKY_BUCKET)
+            zero = np.zeros(len(us), np.int64)
+            cols = dict(
+                algorithm=algo, limit=limit,
+                remaining=np.where(leaky, 0, remaining),
+                remaining_f=np.where(leaky, remaining.astype(np.float64), 0.0),
+                duration=duration,
+                created_at=np.where(leaky, 0, now),
+                updated_at=np.where(leaky, now, 0),
+                burst=np.where(leaky, limit, 0),
+                status=status, expire_at=reset_time, tat=zero,
+                prev_count=zero)
+            self._dirty[tgt] = True
+            self._write_rows(tgt, rows_from_columns(cols, np.arange(len(us))))
+
+    def lease_window(self, keys: Sequence[bytes], budgets: Sequence[int],
+                     expires: Sequence[int], gens: Sequence[int],
+                     is_set: bool = True) -> int:
+        """Apply one window of quota-lease column updates in one device
+        dispatch (docs/leases.md).  ``is_set`` installs the (budget,
+        expiry, generation) triple, the last in window order for a key
+        that repeats; otherwise budgets add as deltas clamped at 0 and
+        expiry and generation only move forward.  Keys without a slot are
+        skipped.  Returns the number of updates applied."""
+        n = len(keys)
+        if n == 0:
+            return 0
+        with self._lock:
+            slots = self.slots.lookup_blob(*pack_blob(list(keys)))
+            live = np.flatnonzero(slots >= 0)
+            cols = np.stack([
+                slots, np.asarray(budgets, np.int64),
+                np.asarray(expires, np.int64),
+                np.asarray(gens, np.int64).astype(np.int32)])[:, live]
+            if is_set:
+                s = cols[0]
+                _, ridx = np.unique(s[::-1], return_index=True)
+                cols = cols[:, len(s) - 1 - ridx]
+            idx, bud, exp, gen = torch.from_numpy(
+                np.ascontiguousarray(cols)).to(self.device)
+            gen = gen.to(torch.int32)
+            if is_set:
+                self._lease_budget[idx] = bud
+                self._lease_expire[idx] = exp
+                self._lease_gen[idx] = gen
+            else:
+                self._lease_budget.index_put_((idx,), bud, accumulate=True)
+                self._lease_budget.clamp_(min=0)
+                self._lease_expire.scatter_reduce_(0, idx, exp, "amax")
+                self._lease_gen.scatter_reduce_(0, idx, gen, "amax")
+            self.metric_lease_dispatches += 1
+            self.metric_lease_windows += 1
+            self.metric_lease_ops += len(live)
+            self._dirty[slots[live]] = True
+            return len(live)
+
+    def lease_columns(self, keys: Sequence[bytes]):
+        """The lease columns of a batch of keys: (budget, expire_ms,
+        generation) as int64 / int64 / int32 arrays, zeros for keys
+        without a slot.  For diagnostics and tests."""
+        with self._lock:
+            slots = self.slots.lookup_blob(*pack_blob(list(keys)))
+            live = slots >= 0
+            out = np.zeros((3, len(keys)), np.int64)
+            out[:, live] = self._leases_at(slots[live])
+            return out[0], out[1], out[2].astype(np.int32)
+
+    def _leases_at(self, slots: np.ndarray) -> np.ndarray:
+        """(3, k) int64 host copy of the lease columns (budget, expiry,
+        generation) at ``slots``."""
+        idx = torch.from_numpy(slots).to(self.device)
+        return torch.stack([
+            self._lease_budget[idx], self._lease_expire[idx],
+            self._lease_gen[idx].long()]).cpu().numpy()
+
+    def export_columns(self, dirty_only: bool = False) -> dict:
+        """The live state as a columnar snapshot (ops/snapshot.py): the
+        mapped slots' rows cross to the host through the gather kernel,
+        STATE_CHUNK rows at a time, rows not in use are dropped, and the
+        lease columns ride as extra keys.  ``dirty_only`` exports only
+        the slots mutated since the previous export, an upsert delta for
+        ``load_columns``; every export clears the dirty set.
+        ``last_export_stats`` says what crossed: ``rows`` gathered,
+        ``d2h_bytes``, ``items`` exported."""
+        with self._lock:
+            mask = self.slots.mapped_mask()
+            if dirty_only:
+                mask &= self._dirty
+            mapped = np.flatnonzero(mask)
+            self._dirty[:] = False
+            parts, chunks = [], []
+            for a in range(0, len(mapped), STATE_CHUNK):
+                part = mapped[a:a + STATE_CHUNK]
+                rows = rowtable.gather_rows(
+                    self.table, torch.from_numpy(part).to(self.device))
+                rows = rows.cpu().numpy()
+                alive = rows[:, WORD["in_use"]] != 0
+                parts.append(part[alive])
+                chunks.append(columns_from_rows(rows[alive]))
+            live = (np.concatenate(parts) if parts
+                    else np.zeros(0, np.int64))
+            nbytes = len(mapped) * self.table.shape[1] * 8
+            snap = empty_snapshot()
+            if len(live):
+                snap["key_blob"], snap["key_offsets"] = \
+                    self.slots.keys_blob(live)
+                for f in ITEM_FIELDS:
+                    snap[f] = np.concatenate([c[f] for c in chunks])
+                lease = self._leases_at(live)
+                nbytes += lease.nbytes
+                for f, col in zip(LEASE_SNAP_FIELDS, lease):
+                    snap[f] = col
+            self.last_export_stats = {
+                "rows": len(mapped), "d2h_bytes": nbytes, "items": len(live),
+                "partial": dirty_only}
+            return snap
+
+    def export_items(self) -> List[dict]:
+        """The live state as Loader-contract item dicts."""
+        return items_from_snapshot(self.export_columns())
+
+    def load_columns(self, snap: dict, now: Optional[int] = None) -> None:
+        """Upsert a columnar snapshot (``export_columns``, either
+        package's): rows that expired by ``now`` are dropped, a key that
+        repeats keeps its last row, a snapshot without the zoo columns
+        loads them as zeros and one without the lease columns leaves the
+        engine's as they are, and the rows land through the scatter
+        kernel, STATE_CHUNK at a time.  Loaded slots are marked dirty.
+        ``last_load_stats`` says what crossed: ``rows`` written and
+        ``h2d_bytes`` uploaded (slots, rows and lease columns)."""
+        with self._lock:
+            now = now if now is not None else timeutil.now_ms()
+            self._tick_count += 1  # as install_globals: unblock reclaim
+            offsets = np.asarray(snap["key_offsets"], np.int64)
+            n = len(offsets) - 1
+            if n == 0:
+                return
+            cols = {f: np.asarray(snap[f]) for f in SNAP_FIELDS}
+            cols.update((f, np.asarray(snap[f]) if f in snap
+                         else np.zeros(n, np.int64)) for f in ZOO_SNAP_FIELDS)
+            has_lease = all(f in snap for f in LEASE_SNAP_FIELDS)
+            if has_lease:
+                cols.update((f, np.asarray(snap[f])) for f in LEASE_SNAP_FIELDS)
+            blob = snap["key_blob"]
+            keep = cols["expire_at"] >= now
+            if not keep.all():
+                blob, offsets = compact_blob(blob, offsets, keep)
+                cols = {f: c[keep] for f, c in cols.items()}
+                n = int(keep.sum())
+                if n == 0:
+                    return
+            shortfall = len(self.slots) + n - self.capacity
+            if shortfall > 0:
+                self._reclaim(now, want=shortfall)
+            slots = self.slots.assign_blob(blob, offsets)
+            sel = np.flatnonzero(slots >= 0)  # a full table drops the tail
+            if len(sel) == 0:
+                return
+            # The last occurrence of each slot (one key, one slot).
+            s = slots[sel]
+            _, ridx = np.unique(s[::-1], return_index=True)
+            sel = sel[len(s) - 1 - ridx]
+            tgt = slots[sel]
+            self._last_access[tgt] = self._tick_count
+            self._dirty[tgt] = True
+            nbytes = self._write_rows(tgt, rows_from_columns(cols, sel))
+            if has_lease:
+                lease = np.stack([cols[f][sel].astype(np.int64)
+                                  for f in LEASE_SNAP_FIELDS])
+                nbytes += tgt.nbytes + lease.nbytes
+                idx = torch.from_numpy(tgt).to(self.device)
+                lease = torch.from_numpy(lease).to(self.device)
+                self._lease_budget[idx] = lease[0]
+                self._lease_expire[idx] = lease[1]
+                self._lease_gen[idx] = lease[2].to(torch.int32)
+            self.last_load_stats = {"rows": len(tgt), "h2d_bytes": nbytes}
+
+    def load_items(self, items: Sequence[dict],
+                   now: Optional[int] = None) -> None:
+        """Load Loader-contract item dicts (through ``load_columns``)."""
+        items = list(items)
+        if items:
+            self.load_columns(snapshot_from_items(items), now=now)
+
+    def cache_size(self) -> int:
+        """Keys mapped to a slot."""
+        return len(self.slots)

@@ -125,11 +125,10 @@ def fused_tick_plain(table: torch.Tensor, m32: torch.Tensor, now: int,
     return out
 
 
-def fused_tick(table: torch.Tensor, m32: torch.Tensor, now: int,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Apply one unique-slot window to ``table`` in place; returns the
-    (6, B) int32 compact response (``out`` when given)."""
-    _check_table(table)
+def check_window(table: torch.Tensor, m32: torch.Tensor,
+                 out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check a (19, B) request window and its (6, B) response against the
+    table; returns ``out``, allocated when None."""
     if m32.dim() != 2 or m32.shape[0] != REQ32_ROWS or m32.dtype != torch.int32 \
             or m32.stride(1) != 1:
         raise ValueError("m32 must be (19, B) int32 with unit column stride")
@@ -140,6 +139,16 @@ def fused_tick(table: torch.Tensor, m32: torch.Tensor, now: int,
         raise ValueError("out must be (6, B) int32 with unit column stride")
     if m32.device != table.device or out.device != table.device:
         raise ValueError("table, m32 and out must share one device")
+    return out
+
+
+def fused_tick(table: torch.Tensor, m32: torch.Tensor, now: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply one unique-slot window to ``table`` in place; returns the
+    (6, B) int32 compact response (``out`` when given)."""
+    _check_table(table)
+    out = check_window(table, m32, out)
+    b = m32.shape[1]
     now = int(now)
     if table.device.type == "cpu":
         return fused_tick_plain(table, m32, now, out)

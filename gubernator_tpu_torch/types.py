@@ -3,7 +3,8 @@
 The port's own copy of the reference contract (``gubernator.proto:56-203``):
 ``Algorithm`` (token and leaky bucket plus the sliding-window, GCRA and
 concurrency extensions), ``Behavior`` bitflags, ``Status``, and the
-``RateLimitRequest`` / ``RateLimitResponse`` dataclasses.
+``RateLimitRequest`` / ``RateLimitResponse`` dataclasses, and the
+owner-pushed ``GlobalUpdate``.
 """
 
 from __future__ import annotations
@@ -88,3 +89,15 @@ class RateLimitResponse:
     reset_time: int = 0
     error: str = ""
     metadata: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class GlobalUpdate:
+    """Owner-pushed authoritative GLOBAL bucket state
+    (reference UpdatePeerGlobal, peers.proto:52-72)."""
+
+    key: str
+    status: "RateLimitResponse"
+    algorithm: int = Algorithm.TOKEN_BUCKET
+    duration: int = 0
+    created_at: int = 0

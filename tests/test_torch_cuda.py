@@ -7,9 +7,11 @@ multiple of a block, column slices, merged-tick launches into row slices
 of one journal, the merged tick at its tile shapes and at the fold's
 32-bit division edges, rows narrower than 16 words, out-of-range and
 guard-row slots, ragged windows with empty shards, inert lanes and slots outside
-their shard, the engine on a tiny table that fills and reclaims (with herd
-windows on the grouped plan), layered windows on a 2^14-slot table, and
-the mesh engine on four tiny shards.  They import nothing of JAX, so
+their shard, the chained duplicate tick on Zipf windows, one-segment
+windows and EDGE windows at 1-4096 lanes, the engine on a tiny table that
+fills and reclaims (with herd windows on the grouped plan and random
+windows on the chained tick), its state exported and loaded, layered
+windows on a 2^14-slot table, and the mesh engine on four tiny shards.  They import nothing of JAX, so
 they run where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -29,6 +31,9 @@ from gubernator_tpu_torch.ops.fusedtick import (
     fused_merged_tick, fused_merged_tick_plain, fused_tick, fused_tick_plain)
 from gubernator_tpu_torch.ops.raggedtick import (
     fused_ragged_tick, fused_ragged_tick_plain)
+from gubernator_tpu_torch.ops.sortedtick import (
+    fused_sorted_tick, fused_sorted_tick_plain)
+from gubernator_tpu_torch.types import GlobalUpdate, RateLimitResponse
 from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
 
 pytestmark = pytest.mark.cuda
@@ -152,6 +157,37 @@ def division_case(cap: int = 1024):
     return state, m, count
 
 
+# The chained duplicate tick's shapes: one lane, the edges of a warp and
+# of a block, 257 and 4096 lanes; Zipf(1.2) windows, windows of one
+# segment as long as the window, and EDGE windows (a few lanes a slot).
+SORTED_WIDTHS = (1, 8, 9, 64, 65, 257, 4096)
+SORTED_KINDS = ("zipf", "one", "edge")
+
+
+def sorted_case(kind: str, width: int, seed: int, cap: int = 1024):
+    """``(state, m)``: random stored state of ``cap`` slots and a
+    slot-sorted (19, width) window of kind ``kind`` whose slots repeat.
+    From 9 lanes up lane 3 has valid == 0 (inside its segment) and a Zipf
+    window's lane 0 a negative slot."""
+    rng = np.random.default_rng(seed)
+    state = cs.random_state(rng, cap)
+    R = E.REQ32_INDEX
+    if kind == "edge":
+        req = cs.random_requests(rng, width)
+        slots = np.arange(width) * min(cap, -(-width // 3)) // width
+        for k in range(width):
+            cs._set_edge(req, state, k, slots[k], cs.EDGE[k % len(cs.EDGE)])
+        m = cs._pack(E, cap, width, slots, req)
+    else:
+        m = cs.sorted_window(E, rng, cap, width, state,
+                             one_slot=kind == "one")
+    if width >= 9:
+        m[R["valid"], 3] = 0
+        if kind == "zipf":
+            m[R["slot"], 0] = -1
+    return state, m
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -219,6 +255,25 @@ def test_fused_ragged_tick_tile_shapes_match_plain(dev, kind, width):
                                   torch.empty_like(r_k))
     assert torch.equal(r_k, r_p)
     assert torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("width", SORTED_WIDTHS)
+@pytest.mark.parametrize("kind", SORTED_KINDS)
+def test_fused_sorted_tick_matches_plain(dev, kind, width):
+    state, m = sorted_case(kind, width, seed=width)
+    table = table_from_columns(state, 1024, dev)
+    mt = torch.from_numpy(m).to(dev)
+    t_k, t_p = table.clone(), table.clone()
+    gt.reset_kernel_launches()
+    r_k = fused_sorted_tick(t_k, mt, cs.NOW)
+    torch.cuda.synchronize()
+    launches = gt.kernel_launches()
+    assert launches.pop("fused_sorted_tick") == 1
+    assert not any(launches.values())
+    r_p = fused_sorted_tick_plain(t_p, mt, cs.NOW, torch.empty_like(r_k))
+    assert torch.equal(r_k, r_p)
+    assert torch.equal(t_k, t_p)
+    assert (t_k[1024] == 0).all()
 
 
 def test_tick_launches_counted_by_width(dev):
@@ -341,12 +396,68 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
         want, werr = ref.process_columns(cols, now)
         assert gerr == werr
         np.testing.assert_array_equal(got, want)
-    assert eng.metric_rank_rounds > 0 and eng.metric_unexpired_evictions > 0
+    # Windows neither plan takes: one chained launch each on the card,
+    # rank rounds on the CPU.
+    assert eng.metric_sorted_ticks == ref.metric_sorted_ticks > 0
+    assert eng.metric_rank_rounds == 0 and ref.metric_rank_rounds > 0
+    assert eng.metric_unexpired_evictions > 0
     assert eng.metric_grouped_ticks == 3
     launches = gt.kernel_launches()
     assert launches.pop("fused_ragged_tick") == 0
+    assert launches["fused_sorted_tick"] == eng.metric_sorted_ticks
     assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)
+
+
+def assert_snapshots_equal(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for f in want:
+        if f == "key_blob":
+            assert bytes(got[f]) == bytes(want[f])
+        else:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+
+
+def test_state_movement_on_the_card_matches_the_cpu_engine(dev):
+    """Windows, a GLOBAL install and lease windows on both engines, then
+    each engine's export loaded into a fresh engine of its device: every
+    export, delta and lease readback equal to the CPU engine's."""
+    rng = np.random.default_rng(14)
+    engines = [E.TickEngine(capacity=64, max_batch=48, device=d)
+               for d in (dev, "cpu")]
+    now = cs.NOW
+    ids = rng.integers(0, 40, 48)
+    keys = [b"k" + b"%08d" % i for i in range(40)]
+    first = cs.window_columns(reqcols, rng, b"k", ids, now)
+    cols = cs.window_columns(reqcols, rng, b"k", ids[:20], now + 10)
+    for eng in engines:
+        eng.process_columns(first, now)
+        eng.export_columns()
+    ups = [GlobalUpdate(key=f"g{i % 5}", algorithm=i % 2, duration=60_000,
+                        status=RateLimitResponse(
+                            status=i % 2, limit=10 + i, remaining=i,
+                            reset_time=now + 1_000 * i)) for i in range(8)]
+    snaps = []
+    for eng in engines:
+        eng.process_columns(cols, now + 10)
+        eng.install_globals(ups, now + 20)
+        eng.lease_window(keys[:10], range(10), [now + 5] * 10, [1] * 10)
+        eng.lease_window(keys[5:15], [-3] * 10, [now + 9] * 10, [0] * 10,
+                         is_set=False)
+        snaps.append((eng.export_columns(dirty_only=True),
+                      eng.export_columns(),
+                      eng.lease_columns(keys[:20])))
+        fresh = E.TickEngine(capacity=64, max_batch=48, device=eng.device)
+        fresh.load_columns(snaps[-1][1], now + 30)
+        snaps[-1] += (fresh.export_columns(),)
+    for got, want in zip(*snaps):
+        if isinstance(want, tuple):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+        else:
+            assert_snapshots_equal(got, want)
+    assert len(snaps[0][0]["key_offsets"]) > 1
+    assert torch.equal(engines[0].table.cpu(), engines[1].table)
 
 
 def test_layered_windows_on_the_card_match_the_cpu_engine(dev):
@@ -414,6 +525,8 @@ def test_mesh_engine_on_the_card_matches_the_cpu_engine(dev):
     assert eng.metric_rank_rounds == ref.metric_rank_rounds > 0
     assert eng.metric_unexpired_evictions > 0
     launches = gt.kernel_launches()
+    # The mesh's duplicate tiles run rank rounds of the fused tick.
     assert launches.pop("fused_merged_tick") == 0
+    assert launches.pop("fused_sorted_tick") == 0
     assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)

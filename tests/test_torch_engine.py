@@ -225,3 +225,12 @@ def test_python_slot_map_engine_matches_native():
         np.testing.assert_array_equal(ga, gb)
     assert port_state(a) == port_state(b)
     assert int(Algorithm.CONCURRENCY) == 4
+    # The state methods run on either map: lookups, assignment, key blobs.
+    snap = a.export_columns()
+    for e in (a, b):
+        e.lease_window(keyset([1, 2, 500]), [4, 5, 6], [NOW] * 3, [1] * 3)
+        e.load_columns(snap, NOW)
+    sa, sb = a.export_columns(), b.export_columns()
+    assert bytes(sa["key_blob"]) == bytes(sb["key_blob"])
+    for f in sa:
+        np.testing.assert_array_equal(sa[f], sb[f], err_msg=f)

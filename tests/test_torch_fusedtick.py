@@ -238,4 +238,5 @@ def test_launches_counted_by_power_of_two_width():
     assert gt.kernel_launches_by_width()["fused_tick"] == {4: 2, 128: 1}
     gt.reset_kernel_launches()
     assert gt.kernel_launches_by_width() == {
-        "fused_tick": {}, "fused_merged_tick": {}, "fused_ragged_tick": {}}
+        "fused_tick": {}, "fused_merged_tick": {}, "fused_ragged_tick": {},
+        "fused_sorted_tick": {}}

@@ -25,8 +25,10 @@ from gubernator_tpu_torch.ops import rowtable
 from gubernator_tpu_torch.ops.engine import TickEngine
 from gubernator_tpu_torch.ops.fusedtick import fused_tick
 from gubernator_tpu_torch.ops.raggedtick import fused_ragged_tick
+from gubernator_tpu_torch.ops.sortedtick import fused_sorted_tick
 from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
-from gubernator_tpu_torch.types import RateLimitRequest
+from gubernator_tpu_torch.types import (
+    GlobalUpdate, RateLimitRequest, RateLimitResponse)
 
 PKG_DIR = os.path.dirname(gt.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -51,6 +53,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "gubernator_tpu_torch.native",
             "gubernator_tpu_torch.algos.gcra",
             "gubernator_tpu_torch.ops.raggedtick",
+            "gubernator_tpu_torch.ops.sortedtick",
+            "gubernator_tpu_torch.ops.snapshot",
             "gubernator_tpu_torch.parallel.partition",
             "gubernator_tpu_torch.parallel.mesh_engine"} <= set(mods)
     code = (
@@ -109,6 +113,15 @@ def test_cpu_tensors_take_the_plain_paths_and_launch_no_kernel():
             for i in range(20)]
     resp = eng.process(reqs, now=1_700_000_000_000)
     assert len(resp) == 20 and eng.metric_rank_rounds > 0
+    assert eng.metric_sorted_ticks == 1
+    # State movement: an install, a lease window, an export and a load.
+    eng.install_globals([GlobalUpdate(
+        key="iso_g", status=RateLimitResponse(limit=5, remaining=4,
+                                              reset_time=1_700_000_060_000))],
+        now=1_700_000_000_000)
+    assert eng.lease_window([b"iso_g"], [3], [1_700_000_001_000], [1]) == 1
+    TickEngine(capacity=32, max_batch=16, device="cpu").load_columns(
+        eng.export_columns(), now=1_700_000_000_000)
     # Fill the table so a reclaim runs the gather and the evict scatter.
     more = [RateLimitRequest(name="iso", unique_key=f"f{i}", hits=1,
                              limit=3, duration=60_000) for i in range(40)]
@@ -132,7 +145,7 @@ def test_cpu_tensors_take_the_plain_paths_and_launch_no_kernel():
     assert mesh.metric_unexpired_evictions > 0
     assert gt.kernel_launches() == {
         "fused_tick": 0, "fused_merged_tick": 0, "fused_ragged_tick": 0,
-        "gather_rows": 0, "scatter_rows": 0}
+        "fused_sorted_tick": 0, "gather_rows": 0, "scatter_rows": 0}
 
 
 def test_wrappers_refuse_tensors_on_other_devices():
@@ -148,3 +161,6 @@ def test_wrappers_refuse_tensors_on_other_devices():
                                              device="meta"),
                           torch.zeros(2, dtype=torch.int32, device="meta"),
                           1, 8, 0)
+    with pytest.raises(ValueError):
+        fused_sorted_tick(table, torch.zeros((19, 4), dtype=torch.int32,
+                                             device="meta"), 0)
