@@ -63,8 +63,26 @@ Phases, one output line each:
    the skewed window must each take one ``fused_ragged_tick`` launch and
    no other; every path reports its launches.
 
-Phases 3 and 4 also report each path's tick launches by lane width
-(``launches_by_width``, power-of-two buckets), summed over both on the
+5. the tiers and persistence: first a ``TickEngine(capacity=2**14,
+   max_batch=4096, cold_capacity=2**13)`` with a ``MockStore`` and an
+   ``SsdStore`` held bit for bit against the same engine on the CPU over
+   16 windows of uniform draws over 2^16 keys, and background reclaim
+   under load (every answer a key's exact count); then
+   ``TickEngine(capacity=10_000_000, max_batch=32768,
+   cold_capacity=2**22, ssd=SsdStore(capacity_bytes=2**33))`` with
+   background reclaim at its default (on): eight probe keys, a prefill of
+   458 windows of fresh keys (a working set 1.5x the table: hot, cold and
+   SSD), 32 churn windows of distinct keys drawn from it (decisions/s,
+   p50 and max seconds, the host split: slot lookup, promote with the SSD
+   lookup, pack, sort; the row kernels' CUDA-event ms), the probes again
+   (each answers its count), and a ``SnapshotWriter`` flush and base of
+   the engine, read back and replayed into a fresh engine (seconds and
+   bytes of each step, 4096 sampled items held against the original's).
+   Phase 2 also times gather and scatter at the shapes the tiers launch
+   (``at_tier_shapes``).
+
+Phases 3-5 also report each path's tick launches by lane width
+(``launches_by_width``, power-of-two buckets), summed over them on the
 ``launch_widths`` line.  Then the kernel table as one JSON line, the card
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device the script exits non-zero before
@@ -79,6 +97,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -957,6 +976,34 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
             "rows": scan if name == "gather_rows" else E.EVICT_CHUNK,
             **{k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                  "max_abs_err")}}
+
+    # The shapes the tiers give them (phase 5), on random distinct rows:
+    # the demote readback of a sync round's victims (capacity // 16 of
+    # the 10M-slot table) and of a background round's (twice the low
+    # watermark), a window's promote scatter of tier hits (at most the
+    # window) and the write-through gather of a 4096-wide window.
+    # Their own generator: the draws above stay those of earlier runs.
+    trng = np.random.default_rng(SEED + 3)
+
+    def tier_sets(n):
+        return [torch.from_numpy(trng.choice(cap, n, replace=False).astype(
+            np.int64)).to(dev) for _ in range(rotate)]
+
+    tiers = {
+        "demote_readback_sync": ("gather_rows", 625_000),
+        "demote_readback_bg": ("gather_rows", 312_500),
+        "promote_scatter": ("scatter_rows", lanes),
+        "write_through_gather": ("gather_rows", 4096),
+    }
+    for shape, (name, n) in tiers.items():
+        if name == "gather_rows":
+            e = check_gather(tier_sets(n))
+        else:
+            e = check_scatter(tier_sets(n), torch.from_numpy(trng.integers(
+                -2**62, 2**62, (n, 16)).astype(np.int64)).to(dev))
+        out[name].setdefault("at_tier_shapes", {})[shape] = {
+            "rows": n, **{k: e[k] for k in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms", "max_abs_err")}}
     return out
 
 
@@ -1086,8 +1133,13 @@ def engine_phase(torch, dev, capacity=10_000_000, width=32768, windows=32,
     from gubernator_tpu_torch.ops.engine import TickEngine, resolve_ticks
 
     rng = np.random.default_rng(SEED + 1)
-    eng = TickEngine(capacity=capacity, max_batch=width, device=dev)
-    ref = TickEngine(capacity=ref_capacity, max_batch=width, device="cpu")
+    # Background reclaim off (its default is on at these sizes): the
+    # reclaim window below then reclaims in the window, as the CPU
+    # engine it is compared with does.
+    eng = TickEngine(capacity=capacity, max_batch=width, device=dev,
+                     bg_reclaim=False)
+    ref = TickEngine(capacity=ref_capacity, max_batch=width, device="cpu",
+                     bg_reclaim=False)
     info = {}
     launches = {}
     now = NOW
@@ -1367,7 +1419,8 @@ def state_round_trip(torch, dev, eng, capacity: int, width: int, now: int,
             snap = eng.export_columns()
             out["state_export_s"] = time.perf_counter() - t0
         out["state_export"] = dict(eng.last_export_stats)
-        twin = TickEngine(capacity=capacity, max_batch=width, device=dev)
+        twin = TickEngine(capacity=capacity, max_batch=width, device=dev,
+                          bg_reclaim=False)
         with device_timed(torch, rowtable, kernels, ld):
             t0 = time.perf_counter()
             twin.load_columns(snap, now)
@@ -1613,6 +1666,438 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     return info, total
 
 
+# ----------------------------------------------------------------------
+# Phase 5: the Store, the cold and SSD tiers, background reclaim and the
+# persistence package
+# ----------------------------------------------------------------------
+PROBES = 8
+PROBE_LIMIT = 1_000_000
+PROBE_HITS = 7
+TOKEN_LIMIT = 100
+
+
+def token_columns(reqcols, prefix: bytes, ids, hits: int = 1,
+                  limit: int = TOKEN_LIMIT, duration: int = 3_600_000):
+    """A window of token-bucket requests over keys ``prefix + id``; the
+    server stamps ``created_at``."""
+    n = len(ids)
+    blob, offsets = key_blob(prefix, ids)
+    full = [np.full(n, v, np.int64) for v in
+            (hits, limit, duration, 0, 0, reqcols.CREATED_UNSET, 0)]
+    return reqcols.ReqColumns(blob, offsets, *full)
+
+
+def request_objects(types, cols):
+    """``cols`` as request objects (the Store hooks take them)."""
+    blob = bytes(cols.key_blob)
+    off = cols.key_offsets
+    out = []
+    for j in range(len(cols)):
+        name, _, uk = blob[off[j]:off[j + 1]].decode().partition("_")
+        ca = int(cols.created_at[j])
+        out.append(types.RateLimitRequest(
+            name=name, unique_key=uk, hits=int(cols.hits[j]),
+            limit=int(cols.limit[j]), duration=int(cols.duration[j]),
+            algorithm=int(cols.algorithm[j]), behavior=int(cols.behavior[j]),
+            burst=int(cols.burst[j]), created_at=None if ca < 0 else ca))
+    return out
+
+
+# Counts of SsdStore.stats() that do not depend on when its writer thread
+# ran (bytes and slabs do, through compaction).
+SSD_COUNTS = ("size", "demotions", "promotions", "hits", "misses", "expired",
+              "lookup_calls")
+
+
+def tier_compare(torch, dev, root: str, capacity=1 << 14, width=4096,
+                 cold_capacity=1 << 13, windows=16, keys=1 << 16) -> dict:
+    """The tiered engine on ``dev`` against the same engine on the CPU, bit
+    for bit: each with a MockStore and an SsdStore of its own, background
+    reclaim off, ``windows`` windows of uniform draws over ``keys`` keys
+    (every algorithm and flag, most buckets an hour long).  Every (5, n)
+    response, the final
+    ``export_columns()``, ``cold_size()``, the cold and SSD tiers' counts
+    and the Store's contents must be equal."""
+    from gubernator_tpu_torch import types
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.ops.engine import TickEngine
+    from gubernator_tpu_torch.store import MockStore
+    from gubernator_tpu_torch.tiering import SsdStore
+
+    rng = np.random.default_rng(SEED + 5)
+    engs, stores = [], []
+    for tag, d in (("dev", dev), ("cpu", "cpu")):
+        st = MockStore()
+        engs.append(TickEngine(
+            capacity=capacity, max_batch=width, device=d, store=st,
+            cold_capacity=cold_capacity, bg_reclaim=False,
+            ssd=SsdStore(os.path.join(root, f"ssd_{tag}"))))
+        stores.append(st)
+    now = NOW
+    errors = 0
+    try:
+        for _ in range(windows):
+            now += 1_000
+            cols = window_columns(reqcols, rng, b"t_",
+                                  rng.integers(0, keys, width), now)
+            # Most buckets live an hour, so the table's victims are live
+            # and demote (Gregorian lanes keep their selectors).
+            long = (rng.random(width) < 0.75) & ((cols.behavior & 4) == 0)
+            cols.duration[long] = 3_600_000
+            batch = reqcols.ReqColumns.from_requests(
+                request_objects(types, cols), keep_refs=True)
+            (got, gerr), (want, werr) = (e.process_columns(batch, now)
+                                         for e in engs)
+            assert gerr == werr
+            np.testing.assert_array_equal(got, want, err_msg="tiers")
+            errors += len(gerr)
+        for e in engs:
+            e.ssd.flush()
+        a, b = engs
+        assert a.cold_size() == b.cold_size() > 0
+        assert a.cold.stats() == b.cold.stats()
+        sa, sb = a.ssd.stats(), b.ssd.stats()
+        assert {k: sa[k] for k in SSD_COUNTS} == {k: sb[k] for k in SSD_COUNTS}
+        assert stores[0].data == stores[1].data
+        assert stores[0].called == stores[1].called
+        ea, eb = a.export_columns(), b.export_columns()
+        assert ea.keys() == eb.keys()
+        assert bytes(ea["key_blob"]) == bytes(eb["key_blob"])
+        for f in ea:
+            if f != "key_blob":
+                np.testing.assert_array_equal(ea[f], eb[f], err_msg=f)
+        metrics = ("metric_cold_hits", "metric_ssd_hits",
+                   "metric_promote_dispatches", "metric_promote_ticks",
+                   "metric_demote_readbacks", "metric_unexpired_evictions")
+        for m in metrics:
+            assert getattr(a, m) == getattr(b, m), m
+        assert a.metric_ssd_tick_path_reads == 0
+        return {"windows": windows, "width": width, "keys": keys,
+                "per_item_errors": errors, "cold_size": a.cold_size(),
+                "ssd_size": sa["size"], "store_items": len(stores[0].data),
+                "exported_items": len(ea["key_offsets"]) - 1,
+                **{m[len("metric_"):]: getattr(a, m) for m in metrics}}
+    finally:
+        for e in engs:
+            e.close()
+
+
+def bg_continuity(torch, dev, capacity=1 << 16, width=4096,
+                  working_set=3 << 16, windows=200) -> dict:
+    """Background reclaim under load: ``windows`` windows of distinct
+    keys drawn from a working set three times the table, each request one
+    token hit, served while the reclaimer demotes into a cold tier large
+    enough for the whole set.  Every answer must be the key's exact count
+    (``continuity_errors`` counts those that are not): a key whose row
+    was zeroed before its readback, or two keys on one slot, would
+    answer otherwise."""
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.ops.engine import TickEngine
+
+    rng = np.random.default_rng(SEED + 6)
+    eng = TickEngine(capacity=capacity, max_batch=width, device=dev,
+                     bg_reclaim=True, cold_capacity=2 * working_set)
+    count = np.zeros(working_set, np.int64)
+    errors = shed = 0
+    now = NOW
+    try:
+        for k in range(windows):
+            ids = rng.choice(working_set, width, replace=False)
+            count[ids] += 1
+            mat, errs = eng.process_columns(
+                token_columns(reqcols, b"b", ids, limit=10**9), now + k)
+            shed += len(errs)
+            errors += int((mat[2] != 10**9 - count[ids]).sum())
+    finally:
+        eng.close()
+    return {"windows": windows, "width": width, "capacity": capacity,
+            "working_set": working_set, "continuity_errors": errors,
+            "shed": shed, "bg_rounds": eng.metric_bg_reclaims,
+            "sync_reclaims": eng.metric_sync_reclaims,
+            "evictions": eng.metric_unexpired_evictions,
+            "cold_hits": eng.metric_cold_hits}
+
+
+@contextlib.contextmanager
+def host_timed(owner, names, out: dict):
+    """``owner``'s callables ``names`` (module functions or an object's
+    methods) wrapped for the block; ``out[name]`` collects each call's
+    host seconds."""
+    orig = {n: getattr(owner, n) for n in names}
+    # An object's own attributes are the shims; a module's are replaced.
+    own = not isinstance(owner, type(sys))
+    for n in names:
+        out[n] = []
+
+        def call(*args, _n=n, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig[_n](*args, **kw)
+            finally:
+                out[_n].append(time.perf_counter() - t0)
+        setattr(owner, n, call)
+    try:
+        yield
+    finally:
+        for n in names:
+            if own:
+                delattr(owner, n)
+            else:
+                setattr(owner, n, orig[n])
+
+
+class TimedSlots:
+    """A slot map whose ``resolve_blob`` calls are timed into ``out``."""
+
+    def __init__(self, inner, out: list):
+        self._inner = inner
+        self._out = out
+
+    def __len__(self):
+        return len(self._inner)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def resolve_blob(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return self._inner.resolve_blob(*args)
+        finally:
+            self._out.append(time.perf_counter() - t0)
+
+
+def items_of(torch, eng, blob, offsets) -> dict:
+    """The state of keys (blob, offsets) in ``eng``, hot or cold, read
+    apart from the export's codec: a hot key's row by plain indexing of
+    the table, decoded by ``rowtable.host_columns``; a cold key's columns
+    straight from the cold tier."""
+    from gubernator_tpu_torch.ops.rowtable import host_columns
+    from gubernator_tpu_torch.ops.snapshot import ITEM_FIELDS
+
+    slots = eng.slots.lookup_blob(blob, offsets)
+    out = {}
+    hot = np.flatnonzero(slots >= 0)
+    rows = eng.table[torch.from_numpy(slots[hot]).to(eng.table.device)]
+    cols = host_columns(torch.cat([rows, torch.zeros_like(rows[:1])]))
+    for j, i in enumerate(hot):
+        key = bytes(blob[offsets[i]:offsets[i + 1]])
+        assert cols["in_use"][j]
+        out[key] = tuple(cols[f][j].item() for f in ITEM_FIELDS)
+    cold = eng.cold
+    with cold._lock:
+        for i in np.flatnonzero(slots < 0):
+            key = bytes(blob[offsets[i]:offsets[i + 1]])
+            c = cold._map[key]
+            out[key] = tuple(cold._cols[f][c].item() for f in ITEM_FIELDS)
+    return out
+
+
+def persistence_round_trip(torch, dev, eng, root: str, make_engine,
+                           now: int, launches: dict, widths: dict) -> dict:
+    """``SnapshotWriter`` over ``eng``: one ``flush()`` (the dirty hot and
+    cold rows as a delta), then ``write_base()``; then the directory read
+    back by a fresh ``SnapshotStore`` and replayed with ``load_columns``
+    into a fresh engine of the same configuration.  The seconds and bytes
+    of each step, and 4096 sampled keys' items of the restored engine
+    (hot or cold) held against the original's."""
+    from gubernator_tpu_torch.persistence import SnapshotStore, SnapshotWriter
+    from gubernator_tpu_torch.ops.reqcols import compact_blob
+
+    snap_dir = os.path.join(root, "snap")
+    out = {}
+    with counted(torch, launches, "persist", widths):
+        writer = SnapshotWriter(eng, SnapshotStore(snap_dir))
+        t0 = time.perf_counter()
+        out["flush_items"] = writer.flush()
+        out["flush_s"] = time.perf_counter() - t0
+        out["flush_bytes"] = os.path.getsize(
+            os.path.join(snap_dir, "delta-00000000.log"))
+        t0 = time.perf_counter()
+        writer.write_base()
+        out["base_s"] = time.perf_counter() - t0
+        base = os.path.join(snap_dir, "base-00000001.snap")
+        out["base_bytes"] = os.path.getsize(base)
+        out["base_items"] = eng.last_export_stats["items"]
+        writer.store.close()
+        t0 = time.perf_counter()
+        res = SnapshotStore(snap_dir).load()
+        out["read_s"] = time.perf_counter() - t0
+        assert res.corrupt_records == 0 and res.generation == 1
+        out["read_items"] = res.items
+        twin = make_engine(os.path.join(root, "ssd_twin"))
+        try:
+            t0 = time.perf_counter()
+            for snap in res.snapshots:
+                twin.load_columns(snap, now)
+            torch.cuda.synchronize()
+            out["replay_s"] = time.perf_counter() - t0
+            out["replay_hot"] = twin.cache_size()
+            out["replay_cold"] = twin.cold_size()
+            snap = res.snapshots[-1]
+            n = len(snap["key_offsets"]) - 1
+            pick = np.zeros(n, bool)
+            pick[np.random.default_rng(SEED).choice(n, min(4096, n),
+                                                    replace=False)] = True
+            blob, offsets = compact_blob(snap["key_blob"],
+                                         snap["key_offsets"], pick)
+            got = items_of(torch, twin, blob, offsets)
+            want = items_of(torch, eng, blob, offsets)
+            assert got == want, "restored items differ"
+            out["sampled_items_equal"] = len(got)
+        finally:
+            twin.close()
+    return out
+
+
+def tier_phase(torch, dev, root: str, capacity=10_000_000, width=32768,
+               cold_capacity=1 << 22, ssd_bytes=1 << 33, prefill_windows=458,
+               windows=32, small=None) -> tuple[dict, dict]:
+    """Phase 5.  First the small tiered engine on the card against the same
+    engine on the CPU (``tier_compare``) and background reclaim under load
+    (``bg_continuity``).  Then ``TickEngine(capacity, max_batch=width,
+    cold_capacity, ssd=SsdStore(..., capacity_bytes=ssd_bytes))`` with
+    background reclaim at its default (on at this size): eight probe keys
+    take ``PROBE_HITS`` of ``PROBE_LIMIT``; ``prefill_windows`` windows of
+    fresh keys fill a working set of ``prefill_windows * width`` keys (1.5x
+    the table: hot, cold and SSD); ``windows`` churn windows of distinct
+    keys drawn uniformly from it (each a B.1 window); the probes again with
+    hits 0.  Every answer is the key's exact count (continuity through the
+    tiers), one promote scatter a window, no SSD read on the tick path, no
+    shed request.  Then the persistence round trip.  Returns ``(info,
+    launches by path)``."""
+    from gubernator_tpu_torch.ops import engine as E
+    from gubernator_tpu_torch.ops import reqcols, rowtable
+    from gubernator_tpu_torch.ops.engine import TickEngine
+    from gubernator_tpu_torch.tiering import SsdStore
+
+    info = {}
+    launches, widths = {}, {}
+    with counted(torch, launches, "compare", widths):
+        info["compare"] = tier_compare(torch, dev, root, **(small or {}))
+    with counted(torch, launches, "bg_reclaim", widths):
+        info["bg_reclaim"] = bg_continuity(torch, dev)
+    assert info["bg_reclaim"]["continuity_errors"] == 0
+    assert info["bg_reclaim"]["bg_rounds"] > 0
+
+    def make_engine(ssd_dir):
+        return TickEngine(capacity=capacity, max_batch=width, device=dev,
+                          cold_capacity=cold_capacity,
+                          ssd=SsdStore(ssd_dir, capacity_bytes=ssd_bytes))
+
+    eng = make_engine(os.path.join(root, "ssd"))
+    try:
+        assert eng._bg_reclaim == (capacity >= 1 << 18)
+        now = NOW
+        rng = np.random.default_rng(SEED + 7)
+        probe_ids = np.arange(PROBES)
+        with counted(torch, launches, "probes", widths):
+            mat, errs = eng.process_columns(token_columns(
+                reqcols, b"q", probe_ids, hits=PROBE_HITS,
+                limit=PROBE_LIMIT), now)
+        assert not errs and (mat[2] == PROBE_LIMIT - PROBE_HITS).all()
+        ws = prefill_windows * width
+        count = np.zeros(ws, np.int64)
+        t0 = time.perf_counter()
+        with counted(torch, launches, "prefill", widths):
+            for k in range(prefill_windows):
+                ids = np.arange(k * width, (k + 1) * width)
+                count[ids] += 1
+                mat, errs = eng.process_columns(
+                    token_columns(reqcols, b"w", ids), now + 1)
+                assert not errs and (mat[2] == TOKEN_LIMIT - 1).all()
+        info["prefill_s"] = time.perf_counter() - t0
+        info["working_set"] = ws
+        info["after_prefill"] = {"hot": eng.cache_size(),
+                                 "cold": eng.cold_size(),
+                                 "ssd": len(eng.ssd)}
+        m0 = {m: getattr(eng, m) for m in vars(eng) if m.startswith("metric_")}
+        dev_ms, host, slot_s, win_s = {}, {}, [], []
+        errors = shed = 0
+        eng.slots = TimedSlots(eng.slots, slot_s)
+        try:
+            with counted(torch, launches, "churn", widths), \
+                    device_timed(torch, rowtable,
+                                 ("gather_rows", "scatter_rows"), dev_ms), \
+                    host_timed(E, ("pack_cols_req32", "sort_packed_by_slot"),
+                               host), \
+                    host_timed(eng, ("_promote_misses",), host):
+                for k in range(windows):
+                    ids = rng.choice(ws, width, replace=False)
+                    count[ids] += 1
+                    cols = token_columns(reqcols, b"w", ids)
+                    t0 = time.perf_counter()
+                    mat, errs = eng.process_columns(cols, now + 2 + k)
+                    win_s.append(time.perf_counter() - t0)
+                    shed += len(errs)
+                    errors += int((mat[2] != TOKEN_LIMIT - count[ids]).sum())
+        finally:
+            eng.slots = eng.slots._inner
+        d = {m[len("metric_"):]: getattr(eng, m) - v for m, v in m0.items()}
+        info["churn"] = {
+            "windows": windows,
+            "decisions_per_s": windows * width / sum(win_s),
+            "window_s_p50": float(np.median(win_s)),
+            "window_s_max": max(win_s),
+            "host_split_ms": {
+                "slot_lookup": 1e3 * sum(slot_s) / windows,
+                "promote_with_ssd": 1e3 * sum(host["_promote_misses"])
+                / windows,
+                "pack": 1e3 * sum(host["pack_cols_req32"]) / windows,
+                "sort": 1e3 * sum(host["sort_packed_by_slot"]) / windows},
+            "continuity_errors": errors,
+            "shed": shed,
+            "row_kernels_ms_at_most": dev_ms,
+            **{k: d[k] for k in (
+                "promotions", "cold_hits", "ssd_hits", "promote_dispatches",
+                "promote_ticks", "demote_readbacks", "evict_reclaims",
+                "ssd_tick_path_reads", "bg_reclaims", "sync_reclaims",
+                "unexpired_evictions", "shed_requests")},
+        }
+        c = info["churn"]
+        c["promote_dispatches_per_tick"] = (
+            c["promote_dispatches"] / max(1, c["promote_ticks"]))
+        c["demote_readbacks_per_evicting_reclaim"] = (
+            c["demote_readbacks"] / max(1, c["evict_reclaims"]))
+        with counted(torch, launches, "probes_again", widths):
+            mat, errs = eng.process_columns(token_columns(
+                reqcols, b"q", probe_ids, hits=0, limit=PROBE_LIMIT),
+                now + 2 + windows)
+        # Stop the reclaimer and drain the SSD writer: the persistence
+        # step then reads a table no thread moves.
+        eng.close()
+        info["probe_continuity_errors"] = int(
+            len(errs) + (mat[2] != PROBE_LIMIT - PROBE_HITS).sum())
+        info["totals"] = {
+            m[len("metric_"):]: getattr(eng, m) for m in (
+                "metric_promotions", "metric_cold_hits", "metric_ssd_hits",
+                "metric_ssd_tick_path_reads", "metric_unexpired_evictions",
+                "metric_shed_requests", "metric_bg_reclaims",
+                "metric_sync_reclaims")}
+        info["ssd"] = eng.ssd.stats()
+        info["cold"] = eng.cold.stats()
+        assert info["probe_continuity_errors"] == 0
+        assert c["continuity_errors"] == 0 and c["shed"] == 0
+        assert c["promote_ticks"] > 0 and c["promote_dispatches_per_tick"] == 1.0
+        assert info["totals"]["ssd_tick_path_reads"] == 0
+        assert info["totals"]["shed_requests"] == 0
+        assert c["ssd_hits"] > 0 and c["cold_hits"] > 0
+        info["persistence"] = persistence_round_trip(
+            torch, dev, eng, root, make_engine, now + 3 + windows, launches,
+            widths)
+    finally:
+        eng.close()
+    info["launches_by_path"] = launches
+    info["launches_by_width"] = widths
+    total = {k: sum(p[k] for p in launches.values())
+             for k in launches["churn"]}
+    assert launches["churn"]["gather_rows"] > 0
+    assert launches["churn"]["scatter_rows"] > 0
+    assert launches["churn"]["fused_tick"] == windows
+    return info, total
+
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1655,12 +2140,15 @@ def main(argv=None) -> int:
     print("phase3 " + json.dumps(info), flush=True)
     mesh, mesh_launches = mesh_phase(torch, dev)
     print("phase4 " + json.dumps(mesh), flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        tiers, tier_launches = tier_phase(torch, dev, root)
+    print("phase5 " + json.dumps(tiers), flush=True)
     for name in launches:
-        launches[name] += mesh_launches[name]
+        launches[name] += mesh_launches[name] + tier_launches[name]
         assert launches[name] > 0, f"{name} was not launched on the main path"
-    # The ticks' launches by lane width over both phases' paths.
+    # The ticks' launches by lane width over the three phases' paths.
     widths = {}
-    for phase in (info, mesh):
+    for phase in (info, mesh, tiers):
         for per_path in phase["launches_by_width"].values():
             for name, counts in per_path.items():
                 for w, c in counts.items():

@@ -24,12 +24,20 @@ State moves in and out through the row kernels: columnar snapshots
 for deltas), owner-pushed GLOBAL installs, and the quota-lease columns
 (``lease_window``), three device columns beside the table.
 
-Not in this engine yet: background reclaim, the cold/SSD tiers and the
-Store.  Constructor options for them raise ``NotImplementedError``.
+The tiers, also through the row kernels: a write/read-through ``Store``
+(store.py: one gather of a window's touched slots feeds ``on_change``,
+misses read through ``Store.get`` into one scatter), a host cold tier
+and an SSD slab tier below it (tiering/: LRU victims are gathered before
+the evict scatter and demoted, misses promote back in one scatter a
+window), and reclaim on a background thread (``bg_reclaim``, on by
+default at capacity >= 2^18).  persistence/ drains ``export_columns``
+to disk.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import threading
 from typing import Dict, List, Optional, Sequence
 
@@ -50,6 +58,7 @@ from gubernator_tpu_torch.ops.snapshot import (
     rows_from_columns, snapshot_from_items)
 from gubernator_tpu_torch.ops.sortedtick import (
     fused_sorted_tick, fused_sorted_tick_plain)
+from gubernator_tpu_torch.tiering.coldstore import ColdStore
 from gubernator_tpu_torch.types import (
     Algorithm, Behavior, GlobalUpdate, RateLimitRequest, RateLimitResponse)
 from gubernator_tpu_torch.utils import timeutil
@@ -544,6 +553,27 @@ def select_reclaim_victims(
     return freed, live[np.argpartition(last_access[live], n - 1)[:n]]
 
 
+def on_stream(stream):
+    """A context that makes ``stream`` current (None on a CPU engine)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
+
+
+def run_once(fn):
+    """``fn`` wrapped to run at most once, whichever thread calls first;
+    a later caller waits until the first call has finished."""
+    lock = threading.Lock()
+    done = []
+
+    def once():
+        with lock:
+            if not done:
+                done.append(True)
+                fn()
+    return once
+
+
 EVICT_CHUNK = 1 << 16
 
 # Rows a state movement (export, load, install) gathers or scatters at a
@@ -571,14 +601,19 @@ class TickHandle:
     Idempotent; safe to call from another thread than the dispatcher."""
 
     __slots__ = ("_engine", "_resp", "_n", "_inv", "errors", "_limit_req",
-                 "_done", "_flock")
+                 "_refs", "_slots_req", "_done", "_flock")
 
-    def __init__(self, engine, resp, n, inv, errors, limit_req):
+    def __init__(self, engine, resp, n, inv, errors, limit_req, refs=None,
+                 slots_req=None):
         self._engine = engine
         self._resp = resp
         self._n = n
         self._inv = inv
         self.errors = errors
+        # A Store engine's request objects and request-order slots: the
+        # write-through at resolve reads them.
+        self._refs = refs
+        self._slots_req = slots_req
         # Copied: the caller may rewrite its columns before resolving.
         self._limit_req = np.array(limit_req[:n], np.int64, copy=True)
         self._done: Optional[np.ndarray] = None
@@ -594,6 +629,9 @@ class TickHandle:
             eng = self._engine
             with eng._lock:
                 eng._account_resolved(rm, self.errors)
+                if self._slots_req is not None:
+                    eng._write_through(self._refs, self._slots_req, self._n,
+                                       self.errors)
             self._resp = None
             self._done = rm
 
@@ -661,6 +699,7 @@ class BatchFront:
     dispatches one window of at most ``max_batch`` rows."""
 
     max_batch: int
+    store = None
 
     def submit_cols(self, cols: ReqColumns,
                     now: Optional[int] = None) -> SubmittedBatch:
@@ -691,7 +730,8 @@ class BatchFront:
     def submit(self, requests: Sequence[RateLimitRequest],
                now: Optional[int] = None) -> SubmittedBatch:
         """Dispatch an object-level batch without waiting for the device."""
-        return self.submit_cols(ReqColumns.from_requests(requests), now)
+        return self.submit_cols(ReqColumns.from_requests(
+            requests, keep_refs=self.store is not None), now)
 
     def process(self, requests: Sequence[RateLimitRequest],
                 now: Optional[int] = None) -> List[RateLimitResponse]:
@@ -704,7 +744,13 @@ class BatchFront:
 class TickEngine(BatchFront):
     """Owns the device table and applies request windows tick by tick.
 
-    Thread-safe: one lock covers slot resolution, packing and dispatch."""
+    Thread-safe: one lock covers slot resolution, packing and dispatch.
+
+    ``store``: a write/read-through Store (store.py).  ``cold_capacity``:
+    entries of the host cold tier LRU victims demote into (0: eviction
+    destroys a row).  ``ssd``: an ``SsdStore`` below the cold tier (needs
+    one).  ``bg_reclaim``: reclaim on a background thread when free slots
+    run low (default: on at capacity >= 2^18)."""
 
     def __init__(
         self,
@@ -716,18 +762,20 @@ class TickEngine(BatchFront):
         cold_capacity: int = 0,
         ssd=None,
     ):
-        for name, unsupported in (
-            ("store", store is not None),
-            ("cold_capacity", cold_capacity > 0),
-            ("ssd", ssd is not None),
-            ("bg_reclaim", bool(bg_reclaim)),
-        ):
-            if unsupported:
-                raise NotImplementedError(
-                    f"TickEngine({name}=...) is not ported to the torch "
-                    "engine yet")
         self.capacity = int(capacity)
         self.max_batch = int(max_batch)
+        self.store = store
+        # The cold tier's write-behind sink is the Store, or the SSD tier
+        # when there is one (the Store keeps its read/write-through role).
+        self.cold = (ColdStore(int(cold_capacity), store=store)
+                     if cold_capacity > 0 else None)
+        self.ssd = ssd
+        if ssd is not None:
+            if self.cold is None:
+                raise ValueError(
+                    "SSD tier requires a cold tier (cold_capacity > 0): "
+                    "the SSD store only ever holds cold-tier overflow")
+            self.cold.store = ssd
         self.device = resolve_device(device)
         self.table = zeros_table(self.capacity, self.device)
         # Width ladder: one narrow width for typical service batches plus
@@ -746,11 +794,54 @@ class TickEngine(BatchFront):
         self._pending: set = set()
         self._tick_count = 0
         self._lock = threading.RLock()
+        # The CUDA stream the serving path last dispatched on (noted
+        # under the lock by _locked): the background reclaimer launches
+        # there too.
+        self._stream = None
+        # Background reclaim: when free slots dip under the low watermark
+        # and a window had misses, a thread selects victims outside the
+        # lock (_reclaim_background); the sync reclaim in _build_cols
+        # still runs when a window does not fit.
+        self._bg_reclaim = (bg_reclaim if bg_reclaim is not None
+                            else self.capacity >= (1 << 18))
+        self._reclaim_low = min(
+            self.capacity // 8, max(2 * self.max_batch, self.capacity // 64))
+        self._reclaim_evt = threading.Event()
+        self._reclaim_closed = False
+        self._reclaim_thread: Optional[threading.Thread] = None
+        # Demote readbacks the reclaimer dispatched but has not landed in
+        # the cold tier yet: their keys are in no tier until they land,
+        # so a window with misses, an export or a load lands them first.
+        self._demotes: List = []
+        # The largest request time a tick has seen: background reclaim
+        # judges expiry against it, not the wall clock.
+        self._last_now = 0
         self.metric_hits = 0
         self.metric_misses = 0
         self.metric_over_limit = 0
         self.metric_unexpired_evictions = 0
         self.metric_shed_requests = 0
+        # Tiering: cold hits on the miss path, slots promoted, promote
+        # scatters and the ticks that needed one (one scatter a window:
+        # their ratio is 1.0), demote readback gathers, and reclaim rounds
+        # that had LRU victims (the only place readbacks happen).
+        self.metric_cold_hits = 0
+        self.metric_promotions = 0
+        self.metric_promote_dispatches = 0
+        self.metric_promote_ticks = 0
+        self.metric_demote_readbacks = 0
+        self.metric_evict_reclaims = 0
+        # Reclaim rounds by where they ran: in a window, load or install
+        # that did not fit (sync), or on the background thread.
+        self.metric_sync_reclaims = 0
+        self.metric_bg_reclaims = 0
+        # The SSD tier: hits, take_batch calls (at most one a window), the
+        # windows that took one, and lookups made while a tick was being
+        # dispatched (0 by construction).
+        self.metric_ssd_hits = 0
+        self.metric_ssd_lookups = 0
+        self.metric_ssd_miss_ticks = 0
+        self.metric_ssd_tick_path_reads = 0
         # Duplicate windows by route (ops/tick.py, ops/sortedtick.py):
         # grouped, layered and chained windows, and the rank rounds the
         # chained tick's plain version ran (CPU tables only).
@@ -772,14 +863,24 @@ class TickEngine(BatchFront):
         self.last_export_stats: dict = {}
         self.last_load_stats: dict = {}
 
+    @contextlib.contextmanager
+    def _locked(self):
+        """The engine lock, noting the caller's current CUDA stream."""
+        with self._lock:
+            if self.device.type == "cuda":
+                self._stream = torch.cuda.current_stream(self.device)
+            yield
+
     # ------------------------------------------------------------------
     # Reclaim
     # ------------------------------------------------------------------
     def _reclaim(self, now: int, want: Optional[int] = None) -> None:
         """Free TTL-dead slots; fall back to LRU eviction
         (lrucache.go:115-149).  The dead test reads the candidates' rows
-        through the gather kernel; LRU victims are zeroed on the device
-        through the scatter kernel."""
+        through the gather kernel; LRU victims are read back (and demoted
+        into the cold tier) before they are zeroed on the device through
+        the scatter kernel."""
+        self.metric_sync_reclaims += 1
         mapped = self.slots.mapped_mask()
         if self._pending:
             mapped[np.fromiter(self._pending, np.int64)] = False
@@ -791,11 +892,170 @@ class TickEngine(BatchFront):
             want or max(1, self.capacity // 16),
         )
         self.slots.release_batch(freed)
-        if len(victims) == 0:
+        if len(victims):
+            self.metric_unexpired_evictions += len(victims)
+            finish = self._demote_dispatch(victims, now)
+            self.slots.release_batch(victims)
+            evict_chunked(self.table, victims)
+            finish()
+        if self.cold is not None:
+            self.cold.expire(now)
+
+    def _demote_dispatch(self, victims: np.ndarray, now: int):
+        """Readback-then-evict, dispatch half: queue the gather of the
+        victims' rows *before* the caller's evict scatter and capture
+        their keys before the slot map releases them.  Returns a closure
+        that reads the rows back (waiting for the card), demotes the live
+        ones (``in_use`` and ``expire_at >= now``) into the cold tier and
+        calls ``Store.remove`` for rows that leave every tier.  The
+        gather and the evict run on one stream, so stream order makes the
+        gather see the rows before they are zeroed."""
+        self.metric_evict_reclaims += 1
+        if self.cold is None and self.store is None:
+            return lambda: None
+        keys = self.slots.keys_batch(victims)
+        if self.cold is None:
+            def finish_remove():
+                for k in keys:
+                    if k:
+                        self.store.remove(k.decode())
+            return finish_remove
+        pending = []
+        for a in range(0, len(victims), STATE_CHUNK):
+            part = np.ascontiguousarray(victims[a:a + STATE_CHUNK], np.int64)
+            self.metric_demote_readbacks += 1
+            pending.append(rowtable.gather_rows(
+                self.table, torch.from_numpy(part).to(self.device)))
+
+        def finish():
+            rows = np.concatenate([p.cpu().numpy() for p in pending])
+            live = ((rows[:, WORD["in_use"]] != 0)
+                    & (rows[:, WORD["expire_at"]] >= now))
+            sel = np.flatnonzero(live)
+            if len(sel):
+                self.cold.put_columns([keys[j] for j in sel],
+                                      columns_from_rows(rows[sel]), now)
+            if self.store is not None:
+                for j in np.flatnonzero(~live):
+                    if keys[j]:
+                        self.store.remove(keys[j].decode())
+
+        return finish
+
+    # ------------------------------------------------------------------
+    # Background reclaim
+    # ------------------------------------------------------------------
+    def _maybe_trigger_reclaim(self) -> None:
+        """Wake the reclaimer when free slots dip under the watermark.
+        Called under the lock from ``_build_cols`` only when the window had
+        misses: a full table under pure-hit traffic does not evict (the
+        reference evicts on insert pressure only, lrucache.go:88-103)."""
+        if not self._bg_reclaim or self._reclaim_closed:
             return
-        self.metric_unexpired_evictions += len(victims)
-        self.slots.release_batch(victims)
-        evict_chunked(self.table, victims)
+        if self.capacity - len(self.slots) >= self._reclaim_low:
+            return
+        if self._reclaim_thread is None:
+            self._reclaim_thread = threading.Thread(
+                target=self._reclaim_loop, daemon=True, name="guber-reclaim")
+            self._reclaim_thread.start()
+        self._reclaim_evt.set()
+
+    def _reclaim_loop(self) -> None:
+        while True:
+            self._reclaim_evt.wait()
+            self._reclaim_evt.clear()
+            if self._reclaim_closed:
+                return
+            try:
+                self._reclaim_background()
+            except Exception:
+                logging.getLogger("gubernator.engine").exception(
+                    "background reclaim failed")
+
+    def _reclaim_background(self) -> None:
+        """One reclaim round with the costly work outside the lock.
+
+        1 (lock): note ``snap``, the tick count, and dispatch the dead test
+          of the mapped slots (a device bool tensor) against ``_last_now``.
+        2 (no lock): read the mask back (waits for the card).
+        3 (lock): snapshot mapped, pending and ``_last_access``.
+        4 (no lock): TTL-then-LRU victim selection.
+        5 (lock): drop every candidate touched after ``snap`` (a later
+          window stamps a higher tick), release the rest, dispatch the
+          demote gather and then the evict scatter; the demote read and
+          the cold-tier insert run after the lock is released.
+
+        The table is updated in place, so the device order matters: every
+        launch of a round goes on the stream the serving path last
+        dispatched on (noted under the lock), and stream order puts the
+        dead test after the windows ticked before ``snap``, the demote
+        gather before the evict scatter, and the evict before the tick of
+        any later window that reuses a released slot."""
+        with self._lock:
+            free = self.capacity - len(self.slots)
+            want = min(self.capacity // 16, 2 * self._reclaim_low - free)
+            if want <= 0 or self._last_now == 0:
+                return
+            self.metric_bg_reclaims += 1
+            snap = self._tick_count
+            stream = self._stream
+            cand = np.flatnonzero(self.slots.mapped_mask())
+            with on_stream(stream):
+                dead_dev = rowtable.dead_dispatch(self.table, cand,
+                                                  self._last_now)
+        with on_stream(stream):
+            dead_c = rowtable.dead_read(dead_dev)
+        scanned = np.zeros(self.capacity, bool)
+        scanned[cand] = True
+        dead = np.zeros(self.capacity, bool)
+        dead[cand] = dead_c
+        with self._lock:
+            mapped = self.slots.mapped_mask() & scanned
+            if self._pending:
+                mapped[np.fromiter(self._pending, np.int64)] = False
+            la = self._last_access.copy()
+        freed, victims = select_reclaim_victims(mapped, dead, la, snap, want)
+        finish = None
+        with self._lock:
+            stream = self._stream
+            freed = freed[self._last_access[freed] <= snap]
+            victims = victims[self._last_access[victims] <= snap]
+            self.slots.release_batch(freed)
+            if len(victims):
+                self.metric_unexpired_evictions += len(victims)
+                with on_stream(stream):
+                    finish = run_once(self._demote_dispatch(
+                        victims, self._last_now))
+                    self._demotes.append(finish)
+                    self.slots.release_batch(victims)
+                    evict_chunked(self.table, victims)
+        if finish is not None:
+            with on_stream(stream):
+                finish()
+            with self._lock:
+                if finish in self._demotes:
+                    self._demotes.remove(finish)
+        if self.cold is not None:
+            self.cold.expire(self._last_now)
+
+    def _land_demotes(self) -> None:
+        """Land the reclaimer's pending demotes (the caller holds the lock):
+        a key it evicted is in no tier until its readback lands in the
+        cold tier, so a lookup, an export or a load must not run before."""
+        for finish in self._demotes:
+            finish()
+        self._demotes.clear()
+
+    def close(self) -> None:
+        """Stop the background reclaimer and drain and close the SSD
+        tier.  Idempotent."""
+        self._reclaim_closed = True
+        self._reclaim_evt.set()
+        t = self._reclaim_thread
+        if t is not None:
+            t.join(timeout=5)
+        if self.ssd is not None:
+            self.ssd.close()
 
     # ------------------------------------------------------------------
     # Host-side request preparation
@@ -883,6 +1143,19 @@ class TickEngine(BatchFront):
         n_miss = int(miss.sum())
         self.metric_hits += len(miss) - n_miss
         self.metric_misses += n_miss
+        if n_miss:
+            self._land_demotes()
+            self._maybe_trigger_reclaim()
+        if self.cold is not None and n_miss:
+            miss = self._promote_misses(cols, sel, slots, known, miss, now)
+        if self.store is not None and miss.any():
+            if cols.refs is None:
+                raise ValueError(
+                    "Store read-through needs request objects; build the "
+                    "batch with ReqColumns.from_requests(..., "
+                    "keep_refs=True)")
+            rt_sel = np.arange(n, dtype=np.int64) if sel is None else sel
+            self._read_through(cols.refs, rt_sel, slots, known, miss)
 
         ix = slice(0, n) if sel is None else sel
         pack_cols_req32(m, cols, slots, known, now, ix)
@@ -890,6 +1163,79 @@ class TickEngine(BatchFront):
         # padding; sorted neighbours reveal duplicate slots.
         inv, has_dups = sort_packed_by_slot(m, n, self.capacity)
         return slab, n, errors, inv, has_dups
+
+    def _promote_misses(self, cols: ReqColumns, sel, slots: np.ndarray,
+                        known: np.ndarray, miss: np.ndarray,
+                        now: int) -> np.ndarray:
+        """Take this window's misses out of the cold tier (and, for what
+        misses there, out of the SSD tier in one ``take_batch``) and
+        install the hits through one scatter before the tick: promotion is
+        a move, and the promoted requests tick as known slots, so a bucket
+        keeps its consumed budget.  Returns the updated miss mask.  A key
+        that repeats in the window misses once (the slot map marks its
+        later rows known), so the scatter's slots are distinct."""
+        midx = np.flatnonzero(miss)
+        src = midx if sel is None else np.asarray(sel)[midx]
+        keys = [cols.key_bytes(int(j)) for j in src]
+        pos, ccols = self.cold.take(keys, now)
+        self.metric_cold_hits += len(pos)
+        if self.ssd is not None and len(pos) < len(midx):
+            cold_hit = np.zeros(len(midx), bool)
+            cold_hit[pos] = True
+            rem = np.flatnonzero(~cold_hit)
+            spos, scols = self.ssd.take_batch([keys[int(j)] for j in rem], now)
+            self.metric_ssd_lookups += 1
+            self.metric_ssd_miss_ticks += 1
+            if len(spos):
+                self.metric_ssd_hits += len(spos)
+                srows = rem[spos]
+                if len(pos):
+                    pos = np.concatenate([pos, srows])
+                    ccols = {f: np.concatenate([ccols[f], scols[f]])
+                             for f in scols}
+                else:
+                    pos, ccols = srows, scols
+        if len(pos) == 0:
+            return miss
+        hit_rows = midx[pos]
+        known[hit_rows] = 1
+        hit_slots = slots[hit_rows]
+        # The scatter lands the rows before the tick: no longer pending.
+        self._pending.difference_update(hit_slots.tolist())
+        self._dirty[hit_slots] = True
+        self._write_rows(hit_slots,
+                         rows_from_columns(ccols, np.arange(len(pos))))
+        self.metric_promote_dispatches += 1
+        self.metric_promote_ticks += 1
+        self.metric_promotions += len(hit_rows)
+        return known == 0
+
+    def _read_through(self, requests, sel: np.ndarray, slots: np.ndarray,
+                      known: np.ndarray, miss: np.ndarray) -> None:
+        """``Store.get`` for the window's misses (algorithms.go:45-51):
+        the items found land through one scatter before the tick, and
+        their requests tick as known slots."""
+        restored: Dict[int, dict] = {}
+        for j in np.flatnonzero(miss):
+            slot = int(slots[j])
+            if slot in restored:
+                known[j] = 1
+                continue
+            item = self.store.get(requests[sel[j]])
+            if item is None:
+                continue
+            restored[slot] = item
+            known[j] = 1
+            self._pending.discard(slot)
+        if restored:
+            items = list(restored.values())
+            cols = {f: np.asarray(
+                [it.get(f, 0) if f in ZOO_SNAP_FIELDS else it[f]
+                 for it in items],
+                np.float64 if f == "remaining_f" else np.int64)
+                for f in ITEM_FIELDS}
+            self._write_rows(np.fromiter(restored, np.int64, len(restored)),
+                             rows_from_columns(cols, np.arange(len(items))))
 
     # ------------------------------------------------------------------
     # The tick
@@ -899,20 +1245,36 @@ class TickEngine(BatchFront):
         """Build and dispatch one tick (≤ max_batch rows); returns a handle
         whose ``result()`` waits for the device.  The request upload is
         asynchronous, so packing the next window overlaps this one's
-        kernel."""
-        with self._lock:
+        kernel.  With a Store the handle is resolved before this returns:
+        the write-through gather must see exactly this window's state."""
+        with self._locked():
             now = now if now is not None else timeutil.now_ms()
+            self._last_now = max(self._last_now, now)
             self._tick_count += 1
             slab, n, errors, inv, has_dups = self._build_cols(cols, now)
             self._mark_dirty(slab.numpy(), n)
+            # _build_cols is the only place the SSD tier is read; a lookup
+            # made while the tick is dispatched would show here.
+            ssd_reads0 = (self.ssd.metric_lookup_calls
+                          if self.ssd is not None else 0)
             if has_dups:
                 resp, uploaded = self._tick_duplicates(slab, n, now)
             else:
                 resp = fused_tick(self.table, self._upload(slab), now)
                 uploaded = True
+            if self.ssd is not None:
+                self.metric_ssd_tick_path_reads += (
+                    self.ssd.metric_lookup_calls - ssd_reads0)
             self._pending.clear()
-            handle = TickHandle(self, resp, n, inv, errors, cols.limit)
+            slots_req = None
+            if self.store is not None:
+                slots_req = slab.numpy()[REQ32_INDEX["slot"], :n][inv].astype(
+                    np.int64)
+            handle = TickHandle(self, resp, n, inv, errors, cols.limit,
+                                cols.refs, slots_req)
             self._staging.retire(handle if uploaded else None)
+            if self.store is not None:
+                handle.result()
             return handle
 
     def _upload(self, slab: torch.Tensor) -> torch.Tensor:
@@ -972,6 +1334,39 @@ class TickEngine(BatchFront):
         """Bookkeeping of a resolved window (the caller holds the lock)."""
         self.metric_over_limit += masked_over_limit(resp_mat, errors)
 
+    def _write_through(self, requests, slots: np.ndarray, n: int,
+                       errors: Dict[int, str]) -> None:
+        """``Store.on_change`` with each touched slot's state after the
+        tick (algorithms.go:149-153), once per distinct slot, in request
+        order; a slot the tick cleared (RESET_REMAINING) maps to
+        ``Store.remove`` (algorithms.go:78-90).  The rows come through one
+        gather.  ``slots`` is in request order."""
+        lanes = np.arange(n, dtype=np.int64)
+        if errors:
+            lanes = np.setdiff1d(lanes, np.fromiter(errors, np.int64))
+        if len(lanes) == 0:
+            return
+        _, first = np.unique(slots[lanes], return_index=True)
+        lanes = lanes[np.sort(first)]
+        tgt = np.ascontiguousarray(slots[lanes])
+        rows = rowtable.gather_rows(
+            self.table, torch.from_numpy(tgt).to(self.device)).cpu().numpy()
+        keys = self.slots.keys_batch(tgt)
+        cols = columns_from_rows(rows)
+        in_use = rows[:, WORD["in_use"]] != 0
+        for j, i in enumerate(lanes.tolist()):
+            if not keys[j]:
+                continue
+            key = keys[j].decode()
+            if not in_use[j]:
+                self.store.remove(key)
+                continue
+            item = {"key": key}
+            for f in ITEM_FIELDS:
+                v = cols[f][j]
+                item[f] = float(v) if f == "remaining_f" else int(v)
+            self.store.on_change(requests[i], item)
+
     # ------------------------------------------------------------------
     # State movement: installs, leases, snapshots
     # ------------------------------------------------------------------
@@ -990,6 +1385,7 @@ class TickEngine(BatchFront):
         assigned when new, with one reclaim when the table is full; -1
         where it stays full.  The slots are stamped with this tick, so the
         reclaim spares them."""
+        self._land_demotes()
         slots, known = self.slots.resolve_blob(blob, offsets)
         full = slots < 0
         self._last_access[slots[~full]] = self._tick_count
@@ -1017,7 +1413,7 @@ class TickEngine(BatchFront):
         rows are live when this returns."""
         if not updates:
             return
-        with self._lock:
+        with self._locked():
             now = now if now is not None else timeutil.now_ms()
             # A new logical tick: the previous tick's slots must not stay
             # protected from reclaim.
@@ -1063,7 +1459,7 @@ class TickEngine(BatchFront):
         n = len(keys)
         if n == 0:
             return 0
-        with self._lock:
+        with self._locked():
             slots = self.slots.lookup_blob(*pack_blob(list(keys)))
             live = np.flatnonzero(slots >= 0)
             cols = np.stack([
@@ -1096,7 +1492,7 @@ class TickEngine(BatchFront):
         """The lease columns of a batch of keys: (budget, expire_ms,
         generation) as int64 / int64 / int32 arrays, zeros for keys
         without a slot.  For diagnostics and tests."""
-        with self._lock:
+        with self._locked():
             slots = self.slots.lookup_blob(*pack_blob(list(keys)))
             live = slots >= 0
             out = np.zeros((3, len(keys)), np.int64)
@@ -1120,7 +1516,8 @@ class TickEngine(BatchFront):
         ``load_columns``; every export clears the dirty set.
         ``last_export_stats`` says what crossed: ``rows`` gathered,
         ``d2h_bytes``, ``items`` exported."""
-        with self._lock:
+        with self._locked():
+            self._land_demotes()
             mask = self.slots.mapped_mask()
             if dirty_only:
                 mask &= self._dirty
@@ -1151,7 +1548,30 @@ class TickEngine(BatchFront):
             self.last_export_stats = {
                 "rows": len(mapped), "d2h_bytes": nbytes, "items": len(live),
                 "partial": dirty_only}
+            return self._export_with_cold(snap, dirty_only)
+
+    def _export_with_cold(self, snap: dict, dirty_only: bool) -> dict:
+        """Append the cold tier's (dirty) entries to a snapshot: demoted
+        state is cached state too.  Hot and cold hold disjoint keys
+        (promotion is a move), so this is a concatenation; cold rows hold
+        no lease, so their lease columns are zeros."""
+        if self.cold is None:
             return snap
+        ckeys, ccols = self.cold.export_columns(dirty_only)
+        if not ckeys:
+            return snap
+        blob2, offs2 = pack_blob(ckeys)
+        off1 = np.asarray(snap["key_offsets"], np.int64)
+        snap["key_blob"] = bytes(snap["key_blob"]) + blob2
+        snap["key_offsets"] = np.concatenate([off1, offs2[1:] + off1[-1]])
+        for f in ITEM_FIELDS:
+            snap[f] = np.concatenate([np.asarray(snap[f]), ccols[f]])
+        for f in LEASE_SNAP_FIELDS:
+            snap[f] = np.concatenate([np.asarray(snap[f]),
+                                      np.zeros(len(ckeys), np.int64)])
+        self.last_export_stats["items"] += len(ckeys)
+        self.last_export_stats["cold_items"] = len(ckeys)
+        return snap
 
     def export_items(self) -> List[dict]:
         """The live state as Loader-contract item dicts."""
@@ -1166,9 +1586,11 @@ class TickEngine(BatchFront):
         kernel, STATE_CHUNK at a time.  Loaded slots are marked dirty.
         ``last_load_stats`` says what crossed: ``rows`` written and
         ``h2d_bytes`` uploaded (slots, rows and lease columns)."""
-        with self._lock:
+        with self._locked():
             now = now if now is not None else timeutil.now_ms()
+            self._last_now = max(self._last_now, now)
             self._tick_count += 1  # as install_globals: unblock reclaim
+            self._land_demotes()
             offsets = np.asarray(snap["key_offsets"], np.int64)
             n = len(offsets) - 1
             if n == 0:
@@ -1191,6 +1613,13 @@ class TickEngine(BatchFront):
             if shortfall > 0:
                 self._reclaim(now, want=shortfall)
             slots = self.slots.assign_blob(blob, offsets)
+            over = np.flatnonzero(slots < 0)
+            if self.cold is not None and len(over):
+                # A full table's overflow lands in the cold tier instead
+                # of being dropped; traffic promotes it back.
+                self.cold.put_columns(
+                    [bytes(blob[offsets[j]:offsets[j + 1]]) for j in over],
+                    {f: cols[f][over] for f in ITEM_FIELDS}, now)
             sel = np.flatnonzero(slots >= 0)  # a full table drops the tail
             if len(sel) == 0:
                 return
@@ -1223,3 +1652,11 @@ class TickEngine(BatchFront):
     def cache_size(self) -> int:
         """Keys mapped to a slot."""
         return len(self.slots)
+
+    def cold_size(self) -> int:
+        """Entries the cold tier holds (0 without one)."""
+        return 0 if self.cold is None else len(self.cold)
+
+    def hot_occupancy(self) -> float:
+        """Share of the table's slots mapped to a key."""
+        return len(self.slots) / self.capacity if self.capacity else 0.0

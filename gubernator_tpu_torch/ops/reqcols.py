@@ -10,7 +10,7 @@ type; :meth:`ReqColumns.from_requests` bridges.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -32,6 +32,10 @@ class ReqColumns:
     (``name + "_" + unique_key``): offsets are (n+1,) int64 with
     ``key j = blob[offsets[j]:offsets[j+1]]``, the slot map's batch-resolve
     format.
+
+    ``refs`` optionally carries the originating request objects for the
+    Store's read- and write-through hooks, which take a
+    ``RateLimitRequest``; the tick path never reads it.
     """
 
     key_blob: "bytes | np.ndarray | memoryview"
@@ -43,9 +47,15 @@ class ReqColumns:
     behavior: np.ndarray
     created_at: np.ndarray    # CREATED_UNSET where the server stamps now
     burst: np.ndarray
+    refs: Optional[Sequence[RateLimitRequest]] = None
 
     def __len__(self) -> int:
         return len(self.hits)
+
+    def key_bytes(self, j: int) -> bytes:
+        """Key ``j`` as bytes."""
+        o = self.key_offsets
+        return bytes(self.key_blob[o[j]:o[j + 1]])
 
     @classmethod
     def empty(cls) -> "ReqColumns":
@@ -55,8 +65,10 @@ class ReqColumns:
         )
 
     @classmethod
-    def from_requests(cls, requests: Sequence[RateLimitRequest]) -> "ReqColumns":
-        """Bridge from the dataclass API (one attribute pass)."""
+    def from_requests(cls, requests: Sequence[RateLimitRequest],
+                      keep_refs: bool = False) -> "ReqColumns":
+        """Bridge from the dataclass API (one attribute pass); with
+        ``keep_refs`` the batch keeps the request objects (``refs``)."""
         if len(requests) == 0:
             return cls.empty()
         blob, offsets = pack_blob([r.hash_key().encode() for r in requests])
@@ -73,6 +85,7 @@ class ReqColumns:
         return cls(
             blob, offsets, a(hits), a(limit), a(duration),
             a(algo), a(behav), a(created), a(burst),
+            refs=requests if keep_refs else None,
         )
 
     def slice_chunk(self, s: int, e: int) -> "ReqColumns":
@@ -84,6 +97,7 @@ class ReqColumns:
             self.hits[s:e], self.limit[s:e], self.duration[s:e],
             self.algorithm[s:e], self.behavior[s:e],
             self.created_at[s:e], self.burst[s:e],
+            refs=None if self.refs is None else self.refs[s:e],
         )
 
 

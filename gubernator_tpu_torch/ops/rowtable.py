@@ -126,11 +126,14 @@ def row_evict(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     return scatter_rows(table, slots, zeros)
 
 
-def dead_mask(table: torch.Tensor, slots: np.ndarray, now: int) -> np.ndarray:
-    """Host bool mask over ``slots``: True where the device row is dead
-    (``in_use == 0`` or ``expire_at < now``).  The rows come through
-    :func:`gather_rows` in chunks of SCAN_CHUNK; the test is plain torch
-    on the gathered rows, and the mask crosses to the host once."""
+def dead_dispatch(table: torch.Tensor, slots: np.ndarray,
+                  now: int) -> torch.Tensor:
+    """Queue the dead test of ``slots``: a bool tensor on the table's
+    device, True where the row is dead (``in_use == 0`` or ``expire_at <
+    now``).  The rows come through :func:`gather_rows` in chunks of
+    SCAN_CHUNK and the test is plain torch on the gathered rows; nothing
+    waits for the card, so a caller can dispatch under a lock and read
+    the mask (:func:`dead_read`) outside it."""
     parts = []
     for start in range(0, len(slots), SCAN_CHUNK):
         part = torch.from_numpy(
@@ -140,8 +143,20 @@ def dead_mask(table: torch.Tensor, slots: np.ndarray, now: int) -> np.ndarray:
         parts.append((rows[:, WORD["in_use"]] == 0)
                      | (rows[:, WORD["expire_at"]] < now))
     if not parts:
-        return np.zeros(0, bool)
-    return torch.cat(parts).cpu().numpy()
+        return torch.zeros(0, dtype=torch.bool, device=table.device)
+    return torch.cat(parts)
+
+
+def dead_read(mask: torch.Tensor) -> np.ndarray:
+    """The host copy of a :func:`dead_dispatch` mask (waits for the
+    card)."""
+    return mask.cpu().numpy()
+
+
+def dead_mask(table: torch.Tensor, slots: np.ndarray, now: int) -> np.ndarray:
+    """Host bool mask over ``slots``: :func:`dead_dispatch` and
+    :func:`dead_read` in one call."""
+    return dead_read(dead_dispatch(table, slots, now))
 
 
 def host_columns(table: torch.Tensor) -> Dict[str, np.ndarray]:
@@ -153,6 +168,7 @@ def host_columns(table: torch.Tensor) -> Dict[str, np.ndarray]:
 
 __all__ = [
     "ROW_W", "SCAN_CHUNK", "gather_rows", "gather_rows_plain",
-    "scatter_rows", "scatter_rows_plain", "row_evict", "dead_mask",
+    "scatter_rows", "scatter_rows_plain", "row_evict", "dead_dispatch",
+    "dead_read", "dead_mask",
     "host_columns",
 ]

@@ -11,7 +11,9 @@ their shard, the chained duplicate tick on Zipf windows, one-segment
 windows and EDGE windows at 1-4096 lanes, the engine on a tiny table that
 fills and reclaims (with herd windows on the grouped plan and random
 windows on the chained tick), its state exported and loaded, layered
-windows on a 2^14-slot table, and the mesh engine on four tiny shards.  They import nothing of JAX, so
+windows on a 2^14-slot table, the mesh engine on four tiny shards, the
+tiered engine (Store, cold and SSD tiers) against the same engine on the
+CPU, and background reclaim under concurrent ticks.  They import nothing of JAX, so
 they run where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -530,3 +532,24 @@ def test_mesh_engine_on_the_card_matches_the_cpu_engine(dev):
     assert launches.pop("fused_sorted_tick") == 0
     assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)
+
+
+def test_tiered_engine_on_the_card_matches_the_cpu_engine(dev, tmp_path):
+    """A Store, a cold tier and an SSD tier under windows of uniform draws
+    (every algorithm): responses, export, tier counts and the Store's
+    contents equal the CPU engine's bit for bit."""
+    info = cs.tier_compare(torch, dev, str(tmp_path), capacity=512,
+                           width=256, cold_capacity=256, windows=12,
+                           keys=4096)
+    assert info["cold_hits"] > 0 and info["ssd_hits"] > 0
+    assert info["promote_dispatches"] == info["promote_ticks"]
+
+
+def test_background_reclaim_on_the_card_keeps_every_live_key(dev):
+    """The reclaimer's dead test, demote gather and evict scatter run on
+    the serving thread's stream while windows keep ticking: every answer
+    is its key's exact count (no live key's state lost or shared)."""
+    info = cs.bg_continuity(torch, dev, capacity=4096, width=512,
+                            working_set=3 * 4096, windows=120)
+    assert info["bg_rounds"] > 0 and info["evictions"] > 0
+    assert info["continuity_errors"] == 0 and info["shed"] == 0

@@ -202,13 +202,44 @@ def test_process_and_pipelined_submits_match_jax():
         np.testing.assert_array_equal(got, want)
 
 
-def test_unsupported_options_raise():
-    for kw in (dict(store=object()), dict(cold_capacity=8),
-               dict(ssd=object()), dict(bg_reclaim=True)):
-        with pytest.raises(NotImplementedError):
-            TickEngine(capacity=16, max_batch=8, device="cpu", **kw)
-    assert TickEngine(capacity=16, max_batch=8, device="cpu",
-                      bg_reclaim=False).process([]) == []
+@pytest.mark.parametrize("option", ["store", "cold_capacity", "ssd",
+                                    "bg_reclaim"])
+def test_tier_options_build_engines_that_serve(tmp_path, option):
+    """Each of the tier options builds an engine that serves: a table of 16
+    slots takes 40 keys over three windows (the third reclaims) and a
+    query of the first, evicted key answers from its tier."""
+    from gubernator_tpu_torch.store import MockStore
+    from gubernator_tpu_torch.tiering import SsdStore
+
+    kw = {"store": dict(store=MockStore()),
+          "cold_capacity": dict(cold_capacity=64),
+          "ssd": dict(cold_capacity=4,
+                      ssd=SsdStore(str(tmp_path / "ssd"))),
+          "bg_reclaim": dict(bg_reclaim=True)}[option]
+    eng = TickEngine(capacity=16, max_batch=16, device="cpu", **kw)
+    try:
+        for w in range(3):
+            rs = eng.process([RateLimitRequest(
+                name="o", unique_key=f"k{w * 16 + i}", hits=2, limit=5,
+                duration=60_000) for i in range(16 if w < 2 else 8)],
+                now=NOW + w)
+            assert all(r.error == "" and r.remaining == 3 for r in rs)
+        assert eng.metric_unexpired_evictions > 0
+        q = eng.process([RateLimitRequest(name="o", unique_key="k0", hits=0,
+                                          limit=5, duration=60_000)],
+                        now=NOW + 3)[0]
+        # The tiers keep k0's two hits; without one it starts afresh (a
+        # Store is told to remove an evicted key).
+        tiered = option in ("cold_capacity", "ssd")
+        assert q.remaining == (3 if tiered else 5)
+        if option == "store":
+            assert eng.store.called["Get()"] >= 40
+            assert eng.store.called["Remove()"] > 0
+        if option == "ssd":
+            eng.ssd.flush()
+            assert eng.ssd.metric_demotions > 0
+    finally:
+        eng.close()
 
 
 def test_python_slot_map_engine_matches_native():

@@ -56,7 +56,14 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "gubernator_tpu_torch.ops.sortedtick",
             "gubernator_tpu_torch.ops.snapshot",
             "gubernator_tpu_torch.parallel.partition",
-            "gubernator_tpu_torch.parallel.mesh_engine"} <= set(mods)
+            "gubernator_tpu_torch.parallel.mesh_engine",
+            "gubernator_tpu_torch.store",
+            "gubernator_tpu_torch.tiering.coldstore",
+            "gubernator_tpu_torch.tiering.ssd",
+            "gubernator_tpu_torch.persistence.snapshot",
+            "gubernator_tpu_torch.persistence.writer",
+            "gubernator_tpu_torch.persistence.transition",
+            "gubernator_tpu_torch.resilience.supervisor"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
