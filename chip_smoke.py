@@ -23,18 +23,24 @@ Phases, one output line each:
    shard, and on their slices and edge windows as B.1; the chained
    duplicate tick (B.5) on 32768-lane windows of Zipf(1.2) slots (the
    phase-3 fallback window's skew), on their slices, on a 4096-lane
-   window of one segment and on a window of EDGE lanes.  CUDA-event times
+   window of one segment, on 1024-lane one-segment windows of token,
+   leaky or zoo requests only, on a window of EDGE lanes and at its chunk
+   shapes (segments of CHUNK - 1 to 2 CHUNK + 1 lanes, a segment that
+   switches algorithm and flags, inert segments, padding, a column
+   slice).  CUDA-event times
    (median of 25) of each kernel, its plain version and, for
    gather/scatter, ``index_select`` / ``index_copy_`` as a yardstick; B.1
    at every power of two from 1 to 32768 lanes, B.4 at 1, 64, 4096 and
    32768 and B.3 at 512, 4096 and 8192 heads (``by_width``), B.1 on each
    single-algorithm window and B.3 on each single-class window, rotating
    over windows that touch more than twice the L2 (``working_set_mb``);
-   B.5 on its windows and on the one-segment window, whose time over its
-   lanes is one link of a segment's chain (``longest_chain_ms``: the
-   longest segment's links at that rate, a chain length measured in this
-   kernel, not a bound).  ``--against CHECKOUT`` times that checkout's tick kernels in turns with
-   these (``against_ms``);
+   B.5 on its windows and on the one-segment windows, whose time over
+   their lanes is one link of a segment's chain (``link_us`` by class;
+   ``longest_chain_ms``: the longest segment's links at the mixed rate, a
+   chain length measured in this kernel, not a bound), with its build's
+   chunk, shared memory and ``ptxas`` registers and spills.
+   ``--against CHECKOUT`` times that checkout's tick kernels, B.5
+   included, in turns with these (``against_ms``);
 3. the engine at full size: ``TickEngine(capacity=10_000_000,
    max_batch=32768)`` serves windows that are first held against a
    ``device="cpu"`` engine on the same route (a unique window, a random
@@ -371,6 +377,99 @@ def sorted_window(engine_mod, rng, cap: int, lanes: int, state: dict,
     return _pack(engine_mod, cap, lanes, slots, req)
 
 
+def _short_runs(rng, n: int) -> list:
+    """Run lengths of 1-3 lanes adding up to n."""
+    out = []
+    while n > 0:
+        out.append(min(n, int(rng.integers(1, 4))))
+        n -= out[-1]
+    return out
+
+
+def chain_window(engine_mod, rng, cap: int, kind: str, width: int,
+                 state: dict, chunk: int):
+    """A slot-sorted window at the chained tick's chunk ``chunk`` (its
+    build's: ``csrc/sorted_tick.cuh``): ``(m, cols)``, the
+    window ``m[:, cols]``.  Runs of 1-3 lanes surround the case's long
+    runs; random requests over all algorithms and flags, five of them
+    EDGE lanes (their slots' stored state set in ``state``); a run of 8
+    lanes or more shares one algorithm, limit, duration and burst.
+    ``kind``:
+
+    * ``run``: two segments of ``width`` lanes, the second headed at the
+      last lane of a long block's range (a multiple of chunk + 1, minus
+      one);
+    * ``switch``: a segment of ``width`` lanes whose requests switch
+      algorithm (token, leaky, sliding window, GCRA, concurrency, token),
+      RESET_REMAINING and DRAIN_OVER_LIMIT mid-run;
+    * ``inert``: a segment of ``width`` inert lanes (valid == 0), then one
+      of chunk + 9 lanes whose first chunk + 3 are inert;
+    * ``padded``: a segment of ``width`` lanes, then chunk + 10 lanes
+      of padding;
+    * ``slice``: a segment of ``width`` lanes in a column slice of a wider
+      matrix (ld_m > B) from column 7, mid 16-B vector."""
+    R = engine_mod.REQ32_INDEX
+    if kind == "run":
+        head = 37 + width
+        gap = 5 + (chunk - head - 5) % (chunk + 1)
+        runs = (_short_runs(rng, 37) + [width] + _short_runs(rng, gap)
+                + [width] + _short_runs(rng, 9))
+    elif kind == "switch":
+        runs = _short_runs(rng, 11) + [width] + _short_runs(rng, 20)
+    elif kind == "inert":
+        runs = (_short_runs(rng, 5) + [width, chunk + 9]
+                + _short_runs(rng, 13))
+    elif kind == "padded":
+        runs = _short_runs(rng, 21) + [width]
+    else:
+        runs = _short_runs(rng, 30) + [width] + _short_runs(rng, 6)
+    n = sum(runs)
+    slots = np.repeat(np.sort(rng.choice(cap, len(runs), replace=False)),
+                      runs)
+    req = random_requests(rng, n)
+    for k, edge in zip(rng.choice(n, 5, replace=False), EDGE):
+        _set_edge(req, state, k, slots[k], edge)
+    # The requests of a run of 8 or more lanes share one algorithm, limit,
+    # duration and burst, are created within 200 ms of now and live for
+    # 30 s or more, few of them RESET_REMAINING, so that each lane's answer
+    # depends on the lanes before it on its slot.
+    at = 0
+    for r in runs:
+        if r >= 8:
+            run = slice(at, at + r)
+            req["algorithm"][run] = rng.integers(0, 5)
+            req["limit"][run] = rng.choice([10, 1000])
+            req["duration"][run] = rng.choice([30_000, 3_600_000])
+            req["burst"][run] = rng.choice([0, 20])
+            req["hits"][run] = rng.choice([0, 1, 2, 3], r)
+            req["created_at"][run] = NOW - rng.choice([0, 0, 0, 200], r)
+            req["behavior"][run] = (np.where(rng.random(r) < 0.03, 8, 0)
+                                    | np.where(rng.random(r) < 0.2, 32, 0))
+            req["known"][run] = True
+        at += r
+    start = int(np.argmax(np.repeat(np.array(runs) == width, runs)))
+    if kind == "switch":
+        i = np.arange(width)
+        run = slice(start, start + width)
+        req["algorithm"][run] = np.array([0, 1, 2, 3, 4, 0])[i * 6 // width]
+        req["behavior"][run] = np.where(i % 97 == 50, 8, 0) | np.where(
+            (i > width // 4) & (i < 3 * width // 4), 32, 0)
+        req["limit"][run] = 10
+        req["hits"][run] = rng.choice([0, 1, 2, 3, 5], width)
+        req["known"][run] = i > 0
+    pad = chunk + 10 if kind == "padded" else 16
+    m = _pack(engine_mod, cap, n + pad, slots, req)
+    if kind == "inert":
+        m[R["valid"], start:start + width] = 0
+        m[R["valid"], start + width:start + width + chunk + 3] = 0
+    if kind == "slice":
+        wide = np.zeros((m.shape[0], m.shape[1] + 7 + 29), np.int32)
+        wide[R["slot"]] = cap
+        wide[:, 7:7 + m.shape[1]] = m
+        return wide, slice(7, 7 + m.shape[1])
+    return m, slice(0, m.shape[1])
+
+
 def longest_segment(engine_mod, m, cap: int) -> int:
     """The most live lanes of one slot in window ``m``."""
     R = engine_mod.REQ32_INDEX
@@ -534,6 +633,7 @@ def build_against(path: str) -> dict:
         "fused_tick": [vp, i64, vp, i64, vp, i64, i64, i64, vp],
         "fused_merged_tick": [vp, i64, vp, i64, vp, vp, i64, i64, vp],
         "fused_ragged_tick": [vp, i64, i64, vp, vp, i64, vp, i64, i64, i64, vp],
+        "fused_sorted_tick": [vp, i64, vp, i64, vp, i64, i64, i64, vp],
     }
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     jobs = {}
@@ -793,31 +893,55 @@ def ragged_entry(torch, dev, rng, lanes: int, table_slots: int,
     return e
 
 
-# Lanes of the one-segment window phase 2 times the chained duplicate
+# Lanes of the one-segment windows phase 2 times the chained duplicate
 # tick on: its time over these lanes is one link of a segment's chain.
 CHAIN_LANES = 4096
+# One-segment windows of one class each, for the link of each path (zoo:
+# sliding window, GCRA or concurrency at random), of CLASS_LANES lanes:
+# their check (rank rounds on the card) takes milliseconds a lane.
+CHAIN_CLASSES = ("token", "leaky", "zoo")
+CLASS_LANES = 1024
 # The chained tick's column slices held against its plain version.
 SORTED_EDGE_WIDTHS = (1, 8, 9, 63, 64, 65, 255, 256, 257, 4096)
 
 
-def sorted_entry(torch, dev, rng, state, lanes: int, rotate: int):
+# The chained tick's chunk shapes, ``(kind, chunks, lanes)``: a
+# ``chain_window`` of that kind whose long run has chunks * chunk + lanes
+# lanes for the build's chunk.  Segments around one chunk (one thread or a
+# long block) and two (two chunks, two and a lane), a long segment that
+# switches algorithm and flags, inert long segments, a long segment
+# before padding, a column slice.
+CHAIN_SHAPES = (("run", 1, -1), ("run", 1, 0), ("run", 1, 1), ("run", 2, 0),
+                ("run", 2, 1), ("switch", 2, 1), ("inert", 1, 5),
+                ("padded", 1, 7), ("slice", 1, 1))
+
+
+def sorted_entry(torch, dev, rng, state, lanes: int, rotate: int,
+                 against=None):
     """Kernel B.5, the chained duplicate tick, on ``state``'s random table
-    (the windows' EDGE lanes' stored state in place): held against its plain version (rank rounds of the
-    fused tick's plain version, on the card) bit for bit on a Zipf(1.2)
-    window of ``lanes`` lanes (the phase-3 fallback window's skew), on
-    its column slices at SORTED_EDGE_WIDTHS (ld_m > B), on a window of
-    one segment of CHAIN_LANES lanes and on a window of EDGE lanes; timed
-    on the Zipf windows, rotating over ``rotate`` of them, and on the
-    one-segment window; the plain version is timed by the check's one
-    call on the first Zipf window.  ``longest_chain_ms`` is the Zipf
-    window's longest segment times one link of the one-segment window's
-    chain: what the kernel's own chain costs at that length, not a
-    bound."""
+    (the windows' EDGE lanes' stored state in place): held against its
+    plain version (rank rounds of the fused tick's plain version, on the
+    card) bit for bit on a Zipf(1.2) window of ``lanes`` lanes (the
+    phase-3 fallback window's skew), on its column slices at
+    SORTED_EDGE_WIDTHS (ld_m > B), on a window of one segment of
+    CHAIN_LANES lanes, on one-segment windows of CLASS_LANES lanes of each
+    of CHAIN_CLASSES, on a window of EDGE lanes and at the kernel's chunk
+    shapes (CHAIN_SHAPES); timed on the
+    Zipf windows, rotating over ``rotate`` of them, and on the one-segment
+    windows (``link_us``: a window's time over its lanes, one link of a
+    segment's chain); the plain version is timed by the check's one call
+    on the first Zipf window.  ``longest_chain_ms`` is the Zipf window's
+    longest segment at the mixed one-segment window's link: what the
+    kernel's own chain costs at that length, not a bound.  ``against``
+    (build_against) times another checkout's B.5 in turns with this one
+    on the same windows."""
+    from gubernator_tpu_torch import _build
     from gubernator_tpu_torch.carry import table_from_columns
     from gubernator_tpu_torch.ops import engine as E
     from gubernator_tpu_torch.ops.sortedtick import (
-        fused_sorted_tick, fused_sorted_tick_plain)
+        fused_sorted_tick, fused_sorted_tick_plain, kernel_config)
 
+    cfg = kernel_config()
     cap = len(state["algorithm"])
     mats = [sorted_window(E, rng, cap, lanes, state) for _ in range(rotate)]
     chain = sorted_window(E, rng, cap, CHAIN_LANES, state, one_slot=True)
@@ -826,14 +950,31 @@ def sorted_entry(torch, dev, rng, state, lanes: int, rotate: int):
     for k in range(257):
         _set_edge(req, state, k, eslots[k], EDGE[k % len(EDGE)])
     edges = _pack(E, cap, 257, eslots, req)
+    A = E.REQ32_INDEX["algorithm"]
+    singles = {}
+    for kind in CHAIN_CLASSES:
+        m = chain[:, :CLASS_LANES].copy()
+        m[A] = (rng.integers(2, 5, CLASS_LANES) if kind == "zoo"
+                else ALGORITHMS.index(kind))
+        singles[kind] = m
+    shapes = []
+    for kind, chunks, extra in CHAIN_SHAPES:
+        width = chunks * cfg["chunk"] + extra
+        shapes.append((f"{kind} shape {width}", chain_window(
+            E, rng, cap, kind, width, state, cfg["chunk"])))
     table = table_from_columns(state, cap, dev)
     wins = [torch.from_numpy(m).to(dev) for m in mats]
     chain_d = torch.from_numpy(chain).to(dev)
+    singles_d = {k: torch.from_numpy(m).to(dev) for k, m in singles.items()}
     cases = [(f"slice {w}", wins[0][:, :w]) for w in SORTED_EDGE_WIDTHS
              if w < lanes]
     cases += [(f"zipf window {lanes}", wins[0]),
               (f"one segment {CHAIN_LANES}", chain_d),
               ("EDGE window 257", torch.from_numpy(edges).to(dev))]
+    cases += [(f"{k} segment {CLASS_LANES}", m)
+              for k, m in singles_d.items()]
+    cases += [(what, torch.from_numpy(m).to(dev)[:, cols])
+              for what, (m, cols) in shapes]
     err = 0
     plain_ms = []
     for what, m in cases:
@@ -844,10 +985,25 @@ def sorted_entry(torch, dev, rng, state, lanes: int, rotate: int):
     work = table.clone()
     resps = [torch.empty((6, lanes), dtype=torch.int32, device=dev)
              for _ in wins]
-    ms = time_ms(torch, [lambda x=x, r=r: fused_sorted_tick(work, x, NOW,
-                                                             out=r)
-                         for x, r in zip(wins, resps)])
-    chain_ms = time_ms(torch, lambda: fused_sorted_tick(work, chain_d, NOW))
+
+    def timed(ws, rs):
+        theirs = None if against is None else [
+            lambda x=x, r=r: against["fused_sorted_tick"](
+                work.data_ptr(), cap, x.data_ptr(), x.stride(0),
+                r.data_ptr(), r.stride(0), x.shape[1], NOW, _stream(torch))
+            for x, r in zip(ws, rs)]
+        return ab_times(torch, [lambda x=x, r=r: fused_sorted_tick(
+            work, x, NOW, out=r) for x, r in zip(ws, rs)], theirs)
+
+    zipf = timed(wins, resps)
+    chain_out = [torch.empty((6, CHAIN_LANES), dtype=torch.int32,
+                             device=dev)]
+    class_out = [torch.empty((6, CLASS_LANES), dtype=torch.int32,
+                             device=dev)]
+    one = {"mixed": timed([chain_d], chain_out)}
+    one.update({k: timed([m], class_out) for k, m in singles_d.items()})
+    one_lanes = {k: m.shape[1] for k, m in singles_d.items()}
+    one_lanes["mixed"] = CHAIN_LANES
     R = E.REQ32_INDEX
     sl = mats[0][R["slot"]]
     live = (mats[0][R["valid"]] != 0) & (sl >= 0) & (sl < cap)
@@ -855,16 +1011,29 @@ def sorted_entry(torch, dev, rng, state, lanes: int, rotate: int):
     longest = longest_segment(E, mats[0], cap)
     e = _entry(
         "fused_sorted_tick", "gubernator_tpu_torch/csrc/fused_sorted_tick.cu",
-        "gubernator_tpu/ops/tick32.py:357", err, ms, plain_ms[0], None,
+        "gubernator_tpu/ops/tick32.py:357", err, zipf["ms"], plain_ms[0],
+        None,
         distinct * 256 + int(live.sum()) * (76 + 24)
         + int((~live).sum()) * (8 + 24),
         int(live.sum()) * FUSED_TICK_INT32_OPS_PER_LANE)
+    e.update({k: v for k, v in zipf.items() if k != "ms"})
     e["lanes"] = lanes
     e["distinct_slots"] = distinct
     e["longest_segment"] = longest
     e["chain_lanes"] = CHAIN_LANES
-    e["chain_ms"] = chain_ms
-    e["longest_chain_ms"] = longest * chain_ms / CHAIN_LANES
+    e["chain_ms"] = one["mixed"]["ms"]
+    e["one_segment"] = one
+    e["one_segment_lanes"] = one_lanes
+    e["link_us"] = {k: v["ms"] * 1e3 / one_lanes[k] for k, v in one.items()}
+    if against is not None:
+        e["against_link_us"] = {
+            k: [t * 1e3 / one_lanes[k] for t in v["against_ms"]]
+            for k, v in one.items()}
+    e["longest_chain_ms"] = longest * e["chain_ms"] / CHAIN_LANES
+    e["config"] = cfg
+    with open(_build.library_path("fused_sorted_tick") + ".log") as fh:
+        e["ptxas"] = [ln.strip() for ln in fh
+                      if "registers" in ln or "spill" in ln or "smem" in ln]
     e["checked"] = [what for what, _ in cases]
     return e
 
@@ -952,7 +1121,8 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
     # Its own generator: the other kernels' windows stay those of
     # earlier runs.
     out["fused_sorted_tick"] = sorted_entry(
-        torch, dev, np.random.default_rng(SEED + 2), state, lanes, rotate)
+        torch, dev, np.random.default_rng(SEED + 2), state, lanes, rotate,
+        against)
     out["fused_ragged_tick"] = ragged_entry(torch, dev, rng, lanes,
                                             table_slots, rotate, against)
     out["gather_rows"] = check_gather(slot_sets(lanes))

@@ -13,7 +13,9 @@
 // arithmetic and tile layout on a machine without a GPU; the kernels
 // themselves are held against the plain versions on the card by
 // chip_smoke.py.  The chained duplicate tick (fused_sorted_tick.cu) runs
-// its lane code (sorted_tick.cuh) lane after lane.
+// its blocks (sorted_tick.cuh) one after another: each long block's walk
+// chunk by chunk (stage, run, prepare, apply, respond), then each lane
+// block's inert lanes and short segments.
 
 #include <stdint.h>
 
@@ -128,15 +130,77 @@ extern "C" int gt_fused_merged_tick_host(int64_t* table, int64_t capacity,
                         gt::MergedOut{count, journal});
 }
 
-// The chained duplicate tick's lanes, one after another: each segment's
-// head runs its slot's requests in window order.
+namespace {
+
+// A long segment headed at lane h, the kernel's long block step after
+// step: staging (the chunk's words at the kernel's staging offsets), the
+// run of the head's slot in the chunk, prepare, apply, respond.
+void walk_host(gt::WalkSmem& S, int64_t* table, const int32_t* m32,
+               int64_t ld_m, int32_t* resp, int64_t ld_r, int64_t lanes,
+               int64_t now, int64_t h) {
+  using namespace gt;
+  const int32_t slot = slot_at(m32, ld_m, h);
+  int64_t* row = table + (int64_t)slot * ROW_W;
+  const int slot_sh = stage_shift(m32, ld_m, R_SLOT, h);
+  int64_t s[ROW_W];
+  bool loaded = false;
+  for (int c = 0;; ++c) {
+    const int64_t base = h + (int64_t)c * CHUNK;
+    const int cnt = chunk_lanes(lanes, base);
+    int32_t* st = &S.stage[c & 1][0][0];
+    for (int k = 0; k < REQ32_ROWS; ++k) {
+      const int sh = stage_shift(m32, ld_m, k, base);
+      for (int i = 0; i < cnt; ++i) {
+        st[k * STAGE_W + sh + i] = m32[k * ld_m + base + i];
+      }
+    }
+    const int n = chunk_run(st, slot_sh, slot, cnt, 0, 1);
+    for (int i = 0; i < n; ++i) walk_prepare(S, st, m32, ld_m, base, i, now);
+    walk_apply(S, n, now, row, s, loaded);
+    walk_respond(S, 0, 1, n, resp, ld_r, base);
+    if (!walk_goes_on(n, base, lanes)) break;
+  }
+  if (loaded) store_ticked_row(row, s);
+}
+
+}  // namespace
+
+// The chained duplicate tick's blocks one after another: the long blocks
+// (each walks the long segment headed in its range of lanes), then the
+// lane blocks (prepare, inert lanes answer zeros, each short head applies
+// its segment).
 extern "C" int gt_fused_sorted_tick_host(int64_t* table, int64_t capacity,
                                          const int32_t* m32, int64_t ld_m,
                                          int32_t* resp, int64_t ld_r,
                                          int64_t lanes, int64_t now) {
-  for (int64_t j = 0; j < lanes; ++j) {
-    gt::sorted_lane(table, capacity, m32, ld_m, resp, ld_r, lanes, now, j);
+  using namespace gt;
+  auto S = std::make_unique<SortedSmem>();
+  for (int64_t k = 0; k < long_blocks(lanes); ++k) {
+    const int64_t h = long_head(m32, ld_m, capacity, lanes, k, 0, 1);
+    if (h >= 0) {
+      walk_host(S->walk, table, m32, ld_m, resp, ld_r, lanes, now, h);
+    }
   }
+  for (int64_t b = 0; b * SORTED_THREADS < lanes; ++b) {
+    const LaneBlock L = lane_block_at(m32, ld_m, lanes, b);
+    for (int x = 0; x < L.span; ++x) {
+      lane_prepare(S->lane, L, m32, ld_m, x, now);
+    }
+    for (int x = 0; x < L.own; ++x) {
+      if (lane_head(capacity, m32, ld_m, resp, ld_r, lanes, L.j0 + x)) {
+        short_chain(S->lane, x, L.span, table, resp, ld_r, L.j0, now);
+      }
+    }
+  }
+  return 0;
+}
+
+// The host build's chunk, block size and shared memory bytes
+// (gt_fused_sorted_tick_config's).
+extern "C" int gt_fused_sorted_tick_config_host(int64_t* out) {
+  out[0] = gt::CHUNK;
+  out[1] = gt::SORTED_THREADS;
+  out[2] = (int64_t)sizeof(gt::SortedSmem);
   return 0;
 }
 

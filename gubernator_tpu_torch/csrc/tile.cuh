@@ -19,8 +19,8 @@
 //    padding of every class, so each warp of step 3 runs one class's path.
 // 3. Transition.  Thread t takes the lane at position t and runs its
 //    policy's `tick` on the staged row and request: transition_class (and
-//    for the merged tick the duplicate fold), the new row over the staged
-//    one, the lane's output into shared memory.
+//    for the merged tick the duplicate fold) in place on the staged row,
+//    the lane's output into shared memory.
 // 4. Write back.  The block stores the live rows in place, eight threads
 //    a 128-B row (16-B stores), and its policy writes the outputs in lane
 //    order (`Out::write`), both coalesced.
@@ -166,9 +166,7 @@ struct RespOut {
   }
   GT_HD void tick(Smem& S, int64_t now, int64_t* s, const Req& r,
                   int p) const {
-    int64_t o[ROW_W];
-    Resp q = transition_class(algo_class(r.algorithm), now, s, r, o);
-    for (int w = 0; w < ROW_W; ++w) s[w] = o[w];
+    Resp q = transition_class(algo_class(r.algorithm), now, r, s);
     store_resp(S.resp, TILE, p, q, true);
   }
   GT_HD void write(const Smem& S, int t, int step, int64_t base,
@@ -182,10 +180,10 @@ struct RespOut {
                     int64_t now) const {
     Resp q{};
     if (row >= 0) {
-      int64_t s[ROW_W], o[ROW_W];
+      int64_t s[ROW_W];
       load_row(table + row * ROW_W, s);
-      q = transition_class(algo_class(r.algorithm), now, s, r, o);
-      store_row(table + row * ROW_W, o);
+      q = transition_class(algo_class(r.algorithm), now, r, s);
+      store_row(table + row * ROW_W, s);
     }
     store_resp(resp, ld_r, j, q, row >= 0);
   }
@@ -216,10 +214,8 @@ struct MergedOut {
   }
   GT_HD void tick(Smem& S, int64_t now, int64_t* s, const Req& r,
                   int p) const {
-    int64_t o[ROW_W];
-    Resp q = transition_class(algo_class(r.algorithm), now, s, r, o);
-    MergedHead mh = merged_fold(now, o, r, S.count[p]);
-    for (int w = 0; w < ROW_W; ++w) s[w] = o[w];
+    Resp q = transition_class(algo_class(r.algorithm), now, r, s);
+    MergedHead mh = merged_fold(now, s, r, S.count[p]);
     int32_t jw[MERGED24_W];
     merged24_words(jw, q, mh, r, true);
     GT_UNROLL
@@ -242,11 +238,11 @@ struct MergedOut {
     Resp q{};
     MergedHead mh{};
     if (row >= 0) {
-      int64_t s[ROW_W], o[ROW_W];
+      int64_t s[ROW_W];
       load_row(table + row * ROW_W, s);
-      q = transition_class(algo_class(r.algorithm), now, s, r, o);
-      mh = merged_fold(now, o, r, count[j]);
-      store_row(table + row * ROW_W, o);
+      q = transition_class(algo_class(r.algorithm), now, r, s);
+      mh = merged_fold(now, s, r, count[j]);
+      store_row(table + row * ROW_W, s);
     }
     int32_t jw[MERGED24_W];
     merged24_words(jw, q, mh, r, row >= 0);

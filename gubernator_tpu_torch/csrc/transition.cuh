@@ -13,11 +13,16 @@
 // * int64 add/sub/mul go through uint64_t (two's-complement wrap, as XLA
 //   and torch give; signed overflow is undefined in C++);
 // * float64 -> int64 is trunc_i64: toward zero, saturating, NaN -> 0 (what
-//   XLA gives the reference), with __double2ll_rz only on in-range values;
+//   XLA gives the reference);
 // * `//` and `%` are floor operations (jnp and torch semantics), used only
 //   on the clamped a >= 0, b > 0 domain by the zoo formulas;
 // * float64 operations are the same sequence of correctly rounded IEEE
 //   operations, built with --fmad=false (no fused multiply-add).
+//
+// The transition is split in two (prepare, apply; see below): the terms
+// that depend on the request alone, and the rest, which reads the stored
+// row.  transition_class composes them for the tile ticks; the chained
+// tick prepares a segment's lanes in parallel ahead of its chain.
 //
 // The header compiles as CUDA (the kernels) and as host C++ (the test-only
 // host build in fused_tick_host.cc, which the CPU tests hold against the
@@ -93,12 +98,20 @@ GT_HD int64_t floor_mod(int64_t a, int64_t b) {
 }
 
 GT_HD int64_t trunc_i64(double x) {
+#if defined(__CUDA_ARCH__)
+  // The guards as selects beside the conversion, not branches: a leaky
+  // lane's chain runs five of these.  The conversion alone differs from
+  // the reference at an edge (tests/test_torch_cuda.py
+  // test_float_to_int_edges_match_plain).
+  const int64_t v = __double2ll_rz(x);
+  return x != x                        ? 0
+       : x >= 9223372036854775808.0    ? I64_MAX
+       : x < -9223372036854775808.0    ? I64_MIN
+                                       : v;
+#else
   if (x != x) return 0;
   if (x >= 9223372036854775808.0) return I64_MAX;
   if (x < -9223372036854775808.0) return I64_MIN;
-#if defined(__CUDA_ARCH__)
-  return __double2ll_rz(x);
-#else
   return (int64_t)x;
 #endif
 }
@@ -131,115 +144,6 @@ struct Resp {
   int64_t status, remaining, reset_time, over_limit;
 };
 
-// Zoo result: the state words a zoo transition decides, and its response.
-struct Zoo {
-  int64_t remaining, created_at, status, expire_at, tat, prev_count;
-  Resp resp;
-};
-
-GT_HD Zoo sliding_window(const int64_t* s, const Req& r, bool exists,
-                         bool reset_b, bool drain_b) {
-  bool ex = exists && !reset_b && s[W_ALGORITHM] == SLIDING;
-  int64_t t = imax(r.created_at, 0);
-  int64_t dur = imax(r.duration, 1);
-  int64_t aligned = wsub(t, floor_mod(t, dur));
-  int64_t ws0 = ex ? s[W_CREATED_AT] : aligned;
-  int64_t cur0 = ex ? imax(s[W_REMAINING], 0) : 0;
-  int64_t prev0 = ex ? imax(s[W_PREV_COUNT], 0) : 0;
-  int64_t delta = imax(wsub(t, ws0), 0);
-  int64_t k = floor_div(delta, dur);
-  int64_t prev1 = k == 0 ? prev0 : (k == 1 ? cur0 : 0);
-  int64_t cur1 = k == 0 ? cur0 : 0;
-  int64_t ws1 = k == 0 ? ws0 : aligned;
-  int64_t frac = imin(imax(wsub(dur, wsub(t, ws1)), 0), dur);
-  int64_t wprev = floor_div(wmul(prev1, frac), dur);
-  int64_t used = wadd(wprev, cur1);
-  int64_t avail = imax(wsub(r.limit, used), 0);
-  int64_t h = r.hits;
-  bool h_pos = h > 0, h_neg = h < 0, h_query = h == 0;
-  bool fits = h <= avail;
-  bool admit = h_pos && fits, over = h_pos && !fits;
-  int64_t cur2 = admit ? wadd(cur1, h)
-               : (over && drain_b) ? wadd(cur1, avail)
-               : h_neg ? imax(wadd(cur1, h), 0)
-               : cur1;
-  Zoo z;
-  z.remaining = cur2;
-  z.created_at = ws1;
-  z.status = (over || (h_query && avail == 0)) ? OVER : UNDER;
-  z.expire_at = (!h_query || !ex) ? wadd(t, wadd(dur, dur)) : s[W_EXPIRE_AT];
-  z.tat = 0;
-  z.prev_count = prev1;
-  z.resp.status = z.status;
-  z.resp.remaining = imax(wsub(r.limit, wadd(wprev, cur2)), 0);
-  z.resp.reset_time = wadd(ws1, dur);
-  z.resp.over_limit = over;
-  return z;
-}
-
-GT_HD Zoo gcra(const int64_t* s, const Req& r, bool exists, bool reset_b) {
-  bool ex = exists && !reset_b && s[W_ALGORITHM] == GCRA;
-  int64_t t = r.created_at;
-  int64_t safe_limit = r.limit <= 0 ? 1 : r.limit;
-  int64_t T = floor_div(imax(r.duration, 0), safe_limit);
-  int64_t burst_eff = r.burst > 0 ? r.burst : r.limit;
-  int64_t tau = wmul(wsub(burst_eff, 1), T);
-  int64_t tat0 = ex ? s[W_TAT] : t;
-  int64_t tat1 = imax(tat0, t);
-  int64_t h = r.hits;
-  bool h_pos = h > 0, h_neg = h < 0, h_query = h == 0;
-  int64_t need = wadd(tat1, wmul(wsub(h, 1), T));
-  int64_t horizon = wadd(t, tau);
-  bool conform = need <= horizon;
-  bool admit = h_pos && conform, over = h_pos && !conform;
-  int64_t stepped = wadd(tat1, wmul(h, T));
-  int64_t tat2 = admit ? stepped : (h_neg ? imax(stepped, t) : tat1);
-  int64_t slack = wsub(horizon, tat2);
-  int64_t rem_div = wadd(floor_div(imax(slack, 0), imax(T, 1)), 1);
-  int64_t rem = slack < 0 ? 0 : (T == 0 ? burst_eff : imin(rem_div, burst_eff));
-  rem = imax(rem, 0);
-  Zoo z;
-  z.remaining = rem;
-  z.created_at = ex ? s[W_CREATED_AT] : t;
-  z.status = (over || (h_query && rem == 0)) ? OVER : UNDER;
-  z.expire_at = (!h_query || !ex) ? imax(wadd(t, r.duration), tat2)
-                                  : s[W_EXPIRE_AT];
-  z.tat = tat2;
-  z.prev_count = 0;
-  z.resp.status = z.status;
-  z.resp.remaining = rem;
-  z.resp.reset_time = imax(wsub(tat2, tau), t);
-  z.resp.over_limit = over;
-  return z;
-}
-
-GT_HD Zoo concurrency(const int64_t* s, const Req& r, bool exists,
-                      bool reset_b) {
-  bool ex = exists && !reset_b && s[W_ALGORITHM] == CONC;
-  int64_t t = r.created_at;
-  int64_t rebased = wadd(s[W_REMAINING], wsub(r.limit, s[W_LIMIT]));
-  int64_t rem0 = imax(ex ? rebased : r.limit, 0);
-  int64_t h = r.hits;
-  bool h_pos = h > 0, h_neg = h < 0, h_query = h == 0;
-  bool fits = h <= rem0;
-  bool admit = h_pos && fits, over = h_pos && !fits;
-  int64_t rem1 = admit ? wsub(rem0, h)
-               : h_neg ? imax(imin(wsub(rem0, h), r.limit), 0)
-               : rem0;
-  Zoo z;
-  z.remaining = rem1;
-  z.created_at = ex ? s[W_CREATED_AT] : t;
-  z.status = (over || (h_query && rem1 == 0)) ? OVER : UNDER;
-  z.expire_at = (!h_query || !ex) ? wadd(t, r.duration) : s[W_EXPIRE_AT];
-  z.tat = 0;
-  z.prev_count = 0;
-  z.resp.status = z.status;
-  z.resp.remaining = rem1;
-  z.resp.reset_time = z.expire_at;
-  z.resp.over_limit = over;
-  return z;
-}
-
 // Lane classes: one per transition path, picked by the request's
 // algorithm the way the reference dispatches it (unknown values resolve to
 // the sliding window, negative ones to the leaky bucket).  The tile
@@ -256,46 +160,279 @@ GT_HD int algo_class(int32_t algorithm) {
        : C_SLIDING;
 }
 
-// What every class reads first: the behavior flags and whether the slot
-// holds a live item.
-struct Lane {
-  bool reset_b, drain_b, greg_b, exists;
+// ---- the transition, split in two ----
+//
+// prepare() computes what a lane's transition takes from its request
+// alone; apply() the rest, which reads the stored row, and rewrites the
+// row in place (only the words its path changes; words 13-15 are the
+// caller's).  transition_class() below is the two run back to back, so
+// every kernel runs the same expressions: those of the reference's
+// bucket_transition and the zoo, in their order, the request-only ones
+// hoisted.  The chained tick (sorted_tick.cuh) prepares a run of lanes in
+// parallel and leaves only apply() on a segment's chain.
+
+// Request-only terms of each path (comments name the reference's values).
+struct TokenTerms {
+  int64_t greg_exp;
+  int64_t created_dur;  // created_at + duration: a renewed expiry
+  int64_t new_expire;   // tn_expire: a new item's expiry
+  int64_t new_rem;      // tn_rem
+};
+struct LeakyTerms {
+  double burst_f, rate_div, h_f;  // burst, rate (1.0 for 0.0), hits
+  double new_remf;                // ln_remf
+  int64_t rate_i;                 // trunc(rate)
+  int64_t duration_eff;           // the stored duration (Gregorian aware)
+  int64_t expire;                 // created_at + duration_eff
+  int64_t new_rem, new_reset;     // ln_resp_rem and its reset time
+};
+struct SlidingTerms {
+  int64_t t, dur, aligned;  // max(created, 0), max(duration, 1), window
+  int64_t expire;           // t + 2 * dur
+};
+struct GcraTerms {
+  int64_t T, burst_eff, tau, hm1T, hT, horizon;  // (h - 1) T, h T, t + tau
+  int64_t T_div;   // max(T, 1)
+  int64_t expire;  // t + duration
+};
+struct ConcTerms {
+  int64_t expire;  // t + duration
 };
 
-GT_HD Lane lane_flags(int64_t now, const int64_t* s, const Req& r) {
-  Lane f;
-  f.reset_b = (r.behavior & RESET_REMAINING) != 0;
-  f.drain_b = (r.behavior & DRAIN_OVER_LIMIT) != 0;
-  f.greg_b = (r.behavior & DURATION_IS_GREGORIAN) != 0;
-  f.exists = r.known != 0 && s[W_IN_USE] != 0 && now <= s[W_EXPIRE_AT];
-  return f;
+struct Prep {
+  // The request's own fields that apply() reads; a leaky lane's burst is
+  // its effective burst (the limit for 0).
+  int64_t hits, limit, duration, created_at, burst;
+  int32_t algorithm;
+  int8_t cls;
+  bool reset_b, drain_b, greg_b, known, new_over;
+  union {
+    TokenTerms tok;
+    LeakyTerms leaky;
+    SlidingTerms sw;
+    GcraTerms gcra;
+    ConcTerms conc;
+  } u;
+};
+
+// The request-only half, per class: the fields every path reads, then
+// each path's terms.
+GT_HD Prep prepare_fields(int cls, const Req& r) {
+  Prep p;
+  p.cls = (int8_t)cls;
+  p.algorithm = r.algorithm;
+  p.hits = r.hits;
+  p.limit = r.limit;
+  p.duration = r.duration;
+  p.created_at = r.created_at;
+  p.burst = r.burst;
+  p.reset_b = (r.behavior & RESET_REMAINING) != 0;
+  p.drain_b = (r.behavior & DRAIN_OVER_LIMIT) != 0;
+  p.greg_b = (r.behavior & DURATION_IS_GREGORIAN) != 0;
+  p.known = r.known != 0;
+  p.new_over = false;
+  return p;
+}
+
+GT_HD void token_prepare(const Req& r, Prep& p) {
+  TokenTerms& k = p.u.tok;
+  const int64_t h = r.hits, limit = r.limit;
+  k.greg_exp = r.greg_exp;
+  k.created_dur = wadd(r.created_at, r.duration);
+  k.new_expire = p.greg_b ? r.greg_exp : wadd(r.created_at, r.duration);
+  p.new_over = h > limit;
+  k.new_rem = p.new_over ? limit : wsub(limit, h);
+}
+
+GT_HD void leaky_prepare(int64_t now, const Req& r, Prep& p) {
+  LeakyTerms& k = p.u.leaky;
+  const int64_t h = r.hits, limit = r.limit, r_dur = r.duration;
+  double safe_limit_f = (double)(limit == 0 ? 1 : limit);
+  int64_t burst = r.burst == 0 ? limit : r.burst;
+  p.burst = burst;
+  k.burst_f = (double)burst;
+  double rate = (double)(p.greg_b ? r.greg_dur : r_dur) / safe_limit_f;
+  k.rate_div = rate == 0.0 ? 1.0 : rate;
+  k.duration_eff = p.greg_b ? wsub(r.greg_exp, now) : r_dur;
+  k.expire = wadd(r.created_at, k.duration_eff);
+  k.rate_i = trunc_i64(rate);
+  k.h_f = (double)h;
+  int64_t ln_rate_i = trunc_i64((double)r_dur / safe_limit_f);
+  p.new_over = h > burst;
+  k.new_remf = p.new_over ? 0.0 : (double)wsub(burst, h);
+  k.new_rem = p.new_over ? 0 : wsub(burst, h);
+  k.new_reset =
+      wadd(r.created_at, wmul(wsub(limit, k.new_rem), ln_rate_i));
+}
+
+GT_HD void gcra_prepare(const Req& r, Prep& p) {
+  GcraTerms& k = p.u.gcra;
+  const int64_t limit = r.limit;
+  int64_t safe_limit = limit <= 0 ? 1 : limit;
+  k.T = floor_div(imax(r.duration, 0), safe_limit);
+  k.burst_eff = r.burst > 0 ? r.burst : limit;
+  k.tau = wmul(wsub(k.burst_eff, 1), k.T);
+  k.hm1T = wmul(wsub(r.hits, 1), k.T);
+  k.hT = wmul(r.hits, k.T);
+  k.horizon = wadd(r.created_at, k.tau);
+  k.T_div = imax(k.T, 1);
+  k.expire = wadd(r.created_at, r.duration);
+}
+
+GT_HD void conc_prepare(const Req& r, Prep& p) {
+  p.u.conc.expire = wadd(r.created_at, r.duration);
+}
+
+GT_HD void sliding_prepare(const Req& r, Prep& p) {
+  SlidingTerms& k = p.u.sw;
+  k.t = imax(r.created_at, 0);
+  k.dur = imax(r.duration, 1);
+  k.aligned = wsub(k.t, floor_mod(k.t, k.dur));
+  k.expire = wadd(k.t, wadd(k.dur, k.dur));
+}
+
+// The request-only half of the transition of a lane of class `cls`
+// (== algo_class(r.algorithm)).
+GT_HD Prep prepare(int cls, int64_t now, const Req& r) {
+  Prep p = prepare_fields(cls, r);
+  if (cls == C_TOKEN) {
+    token_prepare(r, p);
+  } else if (cls == C_LEAKY) {
+    leaky_prepare(now, r, p);
+  } else if (cls == C_GCRA) {
+    gcra_prepare(r, p);
+  } else if (cls == C_CONC) {
+    conc_prepare(r, p);
+  } else {
+    sliding_prepare(r, p);
+  }
+  return p;
+}
+
+// Zoo result: the state words a zoo transition decides, and its response.
+struct Zoo {
+  int64_t remaining, created_at, status, expire_at, tat, prev_count;
+  Resp resp;
+};
+
+GT_HD Zoo sliding_window(const int64_t* s, const Prep& p, bool exists) {
+  const SlidingTerms& k = p.u.sw;
+  bool ex = exists && !p.reset_b && s[W_ALGORITHM] == SLIDING;
+  int64_t t = k.t, dur = k.dur;
+  int64_t ws0 = ex ? s[W_CREATED_AT] : k.aligned;
+  int64_t cur0 = ex ? imax(s[W_REMAINING], 0) : 0;
+  int64_t prev0 = ex ? imax(s[W_PREV_COUNT], 0) : 0;
+  int64_t delta = imax(wsub(t, ws0), 0);
+  int64_t kw = floor_div(delta, dur);
+  int64_t prev1 = kw == 0 ? prev0 : (kw == 1 ? cur0 : 0);
+  int64_t cur1 = kw == 0 ? cur0 : 0;
+  int64_t ws1 = kw == 0 ? ws0 : k.aligned;
+  int64_t frac = imin(imax(wsub(dur, wsub(t, ws1)), 0), dur);
+  int64_t wprev = floor_div(wmul(prev1, frac), dur);
+  int64_t used = wadd(wprev, cur1);
+  int64_t avail = imax(wsub(p.limit, used), 0);
+  int64_t h = p.hits;
+  bool h_pos = h > 0, h_neg = h < 0, h_query = h == 0;
+  bool fits = h <= avail;
+  bool admit = h_pos && fits, over = h_pos && !fits;
+  int64_t cur2 = admit ? wadd(cur1, h)
+               : (over && p.drain_b) ? wadd(cur1, avail)
+               : h_neg ? imax(wadd(cur1, h), 0)
+               : cur1;
+  Zoo z;
+  z.remaining = cur2;
+  z.created_at = ws1;
+  z.status = (over || (h_query && avail == 0)) ? OVER : UNDER;
+  z.expire_at = (!h_query || !ex) ? k.expire : s[W_EXPIRE_AT];
+  z.tat = 0;
+  z.prev_count = prev1;
+  z.resp.status = z.status;
+  z.resp.remaining = imax(wsub(p.limit, wadd(wprev, cur2)), 0);
+  z.resp.reset_time = wadd(ws1, dur);
+  z.resp.over_limit = over;
+  return z;
+}
+
+GT_HD Zoo gcra(const int64_t* s, const Prep& p, bool exists) {
+  const GcraTerms& k = p.u.gcra;
+  bool ex = exists && !p.reset_b && s[W_ALGORITHM] == GCRA;
+  int64_t t = p.created_at;
+  int64_t T = k.T, burst_eff = k.burst_eff;
+  int64_t tat0 = ex ? s[W_TAT] : t;
+  int64_t tat1 = imax(tat0, t);
+  int64_t h = p.hits;
+  bool h_pos = h > 0, h_neg = h < 0, h_query = h == 0;
+  int64_t need = wadd(tat1, k.hm1T);
+  bool conform = need <= k.horizon;
+  bool admit = h_pos && conform, over = h_pos && !conform;
+  int64_t stepped = wadd(tat1, k.hT);
+  int64_t tat2 = admit ? stepped : (h_neg ? imax(stepped, t) : tat1);
+  int64_t slack = wsub(k.horizon, tat2);
+  int64_t rem_div = wadd(floor_div(imax(slack, 0), k.T_div), 1);
+  int64_t rem = slack < 0 ? 0 : (T == 0 ? burst_eff : imin(rem_div, burst_eff));
+  rem = imax(rem, 0);
+  Zoo z;
+  z.remaining = rem;
+  z.created_at = ex ? s[W_CREATED_AT] : t;
+  z.status = (over || (h_query && rem == 0)) ? OVER : UNDER;
+  z.expire_at = (!h_query || !ex) ? imax(k.expire, tat2) : s[W_EXPIRE_AT];
+  z.tat = tat2;
+  z.prev_count = 0;
+  z.resp.status = z.status;
+  z.resp.remaining = rem;
+  z.resp.reset_time = imax(wsub(tat2, k.tau), t);
+  z.resp.over_limit = over;
+  return z;
+}
+
+GT_HD Zoo concurrency(const int64_t* s, const Prep& p, bool exists) {
+  bool ex = exists && !p.reset_b && s[W_ALGORITHM] == CONC;
+  int64_t t = p.created_at;
+  int64_t rebased = wadd(s[W_REMAINING], wsub(p.limit, s[W_LIMIT]));
+  int64_t rem0 = imax(ex ? rebased : p.limit, 0);
+  int64_t h = p.hits;
+  bool h_pos = h > 0, h_neg = h < 0, h_query = h == 0;
+  bool fits = h <= rem0;
+  bool admit = h_pos && fits, over = h_pos && !fits;
+  int64_t rem1 = admit ? wsub(rem0, h)
+               : h_neg ? imax(imin(wsub(rem0, h), p.limit), 0)
+               : rem0;
+  Zoo z;
+  z.remaining = rem1;
+  z.created_at = ex ? s[W_CREATED_AT] : t;
+  z.status = (over || (h_query && rem1 == 0)) ? OVER : UNDER;
+  z.expire_at = (!h_query || !ex) ? p.u.conc.expire : s[W_EXPIRE_AT];
+  z.tat = 0;
+  z.prev_count = 0;
+  z.resp.status = z.status;
+  z.resp.remaining = rem1;
+  z.resp.reset_time = z.expire_at;
+  z.resp.over_limit = over;
+  return z;
 }
 
 // ---- token bucket (algorithms.go:37-257) ----
-GT_HD Resp token_transition(const int64_t* s, const Req& r, const Lane& f,
-                            int64_t* o) {
-  bool algo_match = s[W_ALGORITHM] == (int64_t)r.algorithm;
-  int64_t h = r.hits, limit = r.limit, r_dur = r.duration,
-          r_created = r.created_at;
-  double s_remf = bits_to_f64(s[W_REMAINING_F]);
-  bool tok_reset = f.exists && f.reset_b;
-  bool tok_exist = f.exists && !f.reset_b && algo_match;
-  o[W_ALGORITHM] = TOKEN;
-  o[W_LIMIT] = limit;
-  o[W_TAT] = 0;
-  o[W_PREV_COUNT] = 0;
+// Every apply step reads the row before it writes any word of it.
+GT_HD Resp token_apply(const Prep& p, bool exists, int64_t* s) {
+  const TokenTerms& k = p.u.tok;
+  bool algo_match = s[W_ALGORITHM] == (int64_t)p.algorithm;
+  int64_t h = p.hits, limit = p.limit, r_dur = p.duration,
+          r_created = p.created_at;
+  bool tok_reset = exists && p.reset_b;
+  bool tok_exist = exists && !p.reset_b && algo_match;
   Resp resp;
   if (tok_reset) {
     // RESET_REMAINING on an existing item removes it (:78-90).
-    o[W_REMAINING] = 0;
-    o[W_REMAINING_F] = f64_to_bits(s_remf * 0.0);
-    o[W_DURATION] = 0;
-    o[W_CREATED_AT] = 0;
-    o[W_UPDATED_AT] = 0;
-    o[W_BURST] = 0;
-    o[W_STATUS] = 0;
-    o[W_EXPIRE_AT] = 0;
-    o[W_IN_USE] = 0;
+    double s_remf = bits_to_f64(s[W_REMAINING_F]);
+    s[W_REMAINING] = 0;
+    s[W_REMAINING_F] = f64_to_bits(s_remf * 0.0);
+    s[W_DURATION] = 0;
+    s[W_CREATED_AT] = 0;
+    s[W_UPDATED_AT] = 0;
+    s[W_BURST] = 0;
+    s[W_STATUS] = 0;
+    s[W_EXPIRE_AT] = 0;
+    s[W_IN_USE] = 0;
     resp.status = UNDER;
     resp.remaining = limit;
     resp.reset_time = 0;
@@ -308,9 +445,9 @@ GT_HD Resp token_transition(const int64_t* s, const Req& r, const Lane& f,
     int64_t rl_rem_base = t_rem0;
     bool dur_changed = s[W_DURATION] != r_dur;
     int64_t expire_cand =
-        f.greg_b ? r.greg_exp : wadd(s[W_CREATED_AT], r_dur);
+        p.greg_b ? k.greg_exp : wadd(s[W_CREATED_AT], r_dur);
     bool renew = expire_cand <= r_created;
-    int64_t expire_new = renew ? wadd(r_created, r_dur) : expire_cand;
+    int64_t expire_new = renew ? k.created_dur : expire_cand;
     int64_t t_created = (dur_changed && renew) ? r_created : s[W_CREATED_AT];
     int64_t t_rem1 = (dur_changed && renew) ? limit : t_rem0;
     int64_t t_expire = dur_changed ? expire_new : s[W_EXPIRE_AT];
@@ -319,168 +456,182 @@ GT_HD Resp token_transition(const int64_t* s, const Req& r, const Lane& f,
     bool t_exact = !t_query && !t_at_zero && t_rem1 == h;
     bool t_over = !t_query && !t_at_zero && !t_exact && h > t_rem1;
     bool t_dec = !t_query && !t_at_zero && !t_exact && !t_over;
-    o[W_REMAINING] = t_exact ? 0
-                   : t_over ? (f.drain_b ? 0 : t_rem1)
+    s[W_REMAINING] = t_exact ? 0
+                   : t_over ? (p.drain_b ? 0 : t_rem1)
                    : t_dec ? wsub(t_rem1, h) : t_rem1;
-    o[W_REMAINING_F] = f64_to_bits(s_remf);
-    o[W_DURATION] = r_dur;
-    o[W_CREATED_AT] = t_created;
-    o[W_UPDATED_AT] = s[W_UPDATED_AT];
-    o[W_BURST] = s[W_BURST];
-    o[W_STATUS] = t_at_zero ? OVER : s[W_STATUS];
-    o[W_EXPIRE_AT] = t_expire;
-    o[W_IN_USE] = 1;
+    s[W_DURATION] = r_dur;
+    s[W_CREATED_AT] = t_created;
+    s[W_STATUS] = t_at_zero ? OVER : rl_status;
+    s[W_EXPIRE_AT] = t_expire;
+    s[W_IN_USE] = 1;
     resp.status = (t_at_zero || t_over) ? OVER : rl_status;
     resp.remaining = t_exact ? 0
-                   : t_over ? (f.drain_b ? 0 : rl_rem_base)
+                   : t_over ? (p.drain_b ? 0 : rl_rem_base)
                    : t_dec ? wsub(t_rem1, h) : rl_rem_base;
     resp.reset_time = t_expire;
     resp.over_limit = t_at_zero || t_over;
   } else {
-    int64_t tn_expire = f.greg_b ? r.greg_exp : wadd(r_created, r_dur);
-    bool tn_over = h > limit;
-    int64_t tn_rem = tn_over ? limit : wsub(limit, h);
-    o[W_REMAINING] = tn_rem;
-    o[W_REMAINING_F] = f64_to_bits(s_remf);
-    o[W_DURATION] = r_dur;
-    o[W_CREATED_AT] = r_created;
-    o[W_UPDATED_AT] = s[W_UPDATED_AT];
-    o[W_BURST] = s[W_BURST];
-    o[W_STATUS] = UNDER;
-    o[W_EXPIRE_AT] = tn_expire;
-    o[W_IN_USE] = 1;
-    resp.status = tn_over ? OVER : UNDER;
-    resp.remaining = tn_rem;
-    resp.reset_time = tn_expire;
-    resp.over_limit = tn_over;
+    s[W_REMAINING] = k.new_rem;
+    s[W_DURATION] = r_dur;
+    s[W_CREATED_AT] = r_created;
+    s[W_STATUS] = UNDER;
+    s[W_EXPIRE_AT] = k.new_expire;
+    s[W_IN_USE] = 1;
+    resp.status = p.new_over ? OVER : UNDER;
+    resp.remaining = k.new_rem;
+    resp.reset_time = k.new_expire;
+    resp.over_limit = p.new_over;
   }
+  s[W_ALGORITHM] = TOKEN;
+  s[W_LIMIT] = limit;
+  s[W_TAT] = 0;
+  s[W_PREV_COUNT] = 0;
   return resp;
 }
 
 // ---- leaky bucket (algorithms.go:260-493) ----
-GT_HD Resp leaky_transition(int64_t now, const int64_t* s, const Req& r,
-                            const Lane& f, int64_t* o) {
-  bool algo_match = s[W_ALGORITHM] == (int64_t)r.algorithm;
-  int64_t h = r.hits, limit = r.limit, r_dur = r.duration,
-          r_created = r.created_at;
-  double safe_limit_f = (double)(limit == 0 ? 1 : limit);
-  int64_t burst = r.burst == 0 ? limit : r.burst;
-  bool leak_exist = f.exists && algo_match;
-  o[W_ALGORITHM] = LEAKY;
-  o[W_LIMIT] = limit;
-  o[W_REMAINING] = s[W_REMAINING];
-  o[W_BURST] = burst;
-  o[W_IN_USE] = 1;
-  o[W_TAT] = 0;
-  o[W_PREV_COUNT] = 0;
+GT_HD Resp leaky_apply(const Prep& p, bool exists, int64_t* s) {
+  const LeakyTerms& k = p.u.leaky;
+  bool algo_match = s[W_ALGORITHM] == (int64_t)p.algorithm;
+  int64_t h = p.hits, limit = p.limit, burst = p.burst,
+          r_created = p.created_at;
+  bool leak_exist = exists && algo_match;
   Resp resp;
   if (leak_exist) {
     double s_remf = bits_to_f64(s[W_REMAINING_F]);
-    double burst_f = (double)burst;
-    double b_rem0 = f.reset_b ? burst_f : s_remf;
+    double burst_f = k.burst_f;
+    double b_rem0 = p.reset_b ? burst_f : s_remf;
     bool burst_changed = s[W_BURST] != burst;
     double b_rem1 =
         (burst_changed && burst > trunc_i64(b_rem0)) ? burst_f : b_rem0;
-    double rate = (double)(f.greg_b ? r.greg_dur : r_dur) / safe_limit_f;
-    int64_t duration_eff = f.greg_b ? wsub(r.greg_exp, now) : r_dur;
     int64_t elapsed = wsub(r_created, s[W_UPDATED_AT]);
-    double leak = (double)elapsed / (rate == 0.0 ? 1.0 : rate);
-    bool leaked = trunc_i64(leak) > 0;
+    // No elapsed time leaks nothing: 0 / rate is a zero of either sign
+    // (rate_div is finite and never 0), which truncates to 0.
+    double leak = 0.0;
+    bool leaked = false;
+    if (elapsed != 0) {
+      leak = (double)elapsed / k.rate_div;
+      leaked = trunc_i64(leak) > 0;
+    }
     double b_rem2 = leaked ? b_rem1 + leak : b_rem1;
     int64_t b_upd = leaked ? r_created : s[W_UPDATED_AT];
     double b_rem3 = trunc_i64(b_rem2) > burst ? burst_f : b_rem2;
     int64_t rem_i = trunc_i64(b_rem3);
-    int64_t rate_i = trunc_i64(rate);
-    double h_f = (double)h;
+    double h_f = k.h_f;
     bool l_at_zero = rem_i == 0 && h > 0;
     bool l_exact = !l_at_zero && rem_i == h;
     bool l_over = !l_at_zero && !l_exact && h > rem_i;
     bool l_query = !l_at_zero && !l_exact && !l_over && h == 0;
     bool l_dec = !l_at_zero && !l_exact && !l_over && !l_query;
     double le_remf = l_exact ? 0.0
-                   : l_over ? (f.drain_b ? 0.0 : b_rem3)
+                   : l_over ? (p.drain_b ? 0.0 : b_rem3)
                    : l_dec ? b_rem3 - h_f : b_rem3;
     int64_t le_resp_rem = l_exact ? 0
-                        : l_over ? (f.drain_b ? 0 : rem_i)
+                        : l_over ? (p.drain_b ? 0 : rem_i)
                         : l_dec ? trunc_i64(b_rem3 - h_f) : rem_i;
     int64_t le_reset_rem = l_over ? rem_i : le_resp_rem;
-    o[W_REMAINING_F] = f64_to_bits(le_remf);
-    o[W_DURATION] = r_dur;
-    o[W_CREATED_AT] = s[W_CREATED_AT];
-    o[W_UPDATED_AT] = b_upd;
-    o[W_STATUS] = s[W_STATUS];
-    o[W_EXPIRE_AT] = h != 0 ? wadd(r_created, duration_eff) : s[W_EXPIRE_AT];
+    int64_t expire = h != 0 ? k.expire : s[W_EXPIRE_AT];
+    s[W_REMAINING_F] = f64_to_bits(le_remf);
+    s[W_DURATION] = p.duration;
+    s[W_UPDATED_AT] = b_upd;
+    s[W_EXPIRE_AT] = expire;
     resp.status = (l_at_zero || l_over) ? OVER : UNDER;
     resp.remaining = le_resp_rem;
     resp.reset_time =
-        wadd(r_created, wmul(wsub(limit, le_reset_rem), rate_i));
+        wadd(r_created, wmul(wsub(limit, le_reset_rem), k.rate_i));
     resp.over_limit = l_at_zero || l_over;
   } else {
-    int64_t ln_rate_i = trunc_i64((double)r_dur / safe_limit_f);
-    int64_t ln_duration = f.greg_b ? wsub(r.greg_exp, now) : r_dur;
-    bool ln_over = h > burst;
-    double ln_remf = ln_over ? 0.0 : (double)wsub(burst, h);
-    int64_t ln_resp_rem = ln_over ? 0 : wsub(burst, h);
-    o[W_REMAINING_F] = f64_to_bits(ln_remf);
-    o[W_DURATION] = ln_duration;
-    o[W_CREATED_AT] = s[W_CREATED_AT];
-    o[W_UPDATED_AT] = r_created;
-    o[W_STATUS] = UNDER;
-    o[W_EXPIRE_AT] = wadd(r_created, ln_duration);
-    resp.status = ln_over ? OVER : UNDER;
-    resp.remaining = ln_resp_rem;
-    resp.reset_time =
-        wadd(r_created, wmul(wsub(limit, ln_resp_rem), ln_rate_i));
-    resp.over_limit = ln_over;
+    s[W_REMAINING_F] = f64_to_bits(k.new_remf);
+    s[W_DURATION] = k.duration_eff;
+    s[W_UPDATED_AT] = r_created;
+    s[W_STATUS] = UNDER;
+    s[W_EXPIRE_AT] = k.expire;
+    resp.status = p.new_over ? OVER : UNDER;
+    resp.remaining = k.new_rem;
+    resp.reset_time = k.new_reset;
+    resp.over_limit = p.new_over;
   }
+  s[W_ALGORITHM] = LEAKY;
+  s[W_LIMIT] = limit;
+  s[W_BURST] = burst;
+  s[W_IN_USE] = 1;
+  s[W_TAT] = 0;
+  s[W_PREV_COUNT] = 0;
   return resp;
 }
 
 // ---- algorithm zoo: the row a zoo transition stores ----
-GT_HD Resp zoo_store(const Zoo& z, const Req& r, int64_t* o) {
-  o[W_ALGORITHM] = r.algorithm;
-  o[W_LIMIT] = r.limit;
-  o[W_REMAINING] = z.remaining;
-  o[W_REMAINING_F] = 0;  // +0.0
-  o[W_DURATION] = r.duration;
-  o[W_CREATED_AT] = z.created_at;
-  o[W_UPDATED_AT] = r.created_at;
-  o[W_BURST] = r.burst;
-  o[W_STATUS] = z.status;
-  o[W_EXPIRE_AT] = z.expire_at;
-  o[W_IN_USE] = 1;
-  o[W_TAT] = z.tat;
-  o[W_PREV_COUNT] = z.prev_count;
+GT_HD Resp zoo_store(const Zoo& z, const Prep& p, int64_t* s) {
+  s[W_ALGORITHM] = p.algorithm;
+  s[W_LIMIT] = p.limit;
+  s[W_REMAINING] = z.remaining;
+  s[W_REMAINING_F] = 0;  // +0.0
+  s[W_DURATION] = p.duration;
+  s[W_CREATED_AT] = z.created_at;
+  s[W_UPDATED_AT] = p.created_at;
+  s[W_BURST] = p.burst;
+  s[W_STATUS] = z.status;
+  s[W_EXPIRE_AT] = z.expire_at;
+  s[W_IN_USE] = 1;
+  s[W_TAT] = z.tat;
+  s[W_PREV_COUNT] = z.prev_count;
   return z.resp;
 }
 
-// One live lane of class `cls` (== algo_class(r.algorithm)): `s` is the
-// gathered row (read), `o` the row to store.  Each class computes only its
-// own quantities.
-GT_HD Resp transition_class(int cls, int64_t now, const int64_t* s,
-                            const Req& r, int64_t* o) {
-  Lane f = lane_flags(now, s, r);
-  Resp resp;
-  switch (cls) {
-    case C_TOKEN:
-      resp = token_transition(s, r, f, o);
-      break;
-    case C_LEAKY:
-      resp = leaky_transition(now, s, r, f, o);
-      break;
-    case C_GCRA:
-      resp = zoo_store(gcra(s, r, f.exists, f.reset_b), r, o);
-      break;
-    case C_CONC:
-      resp = zoo_store(concurrency(s, r, f.exists, f.reset_b), r, o);
-      break;
-    default:
-      resp = zoo_store(sliding_window(s, r, f.exists, f.reset_b, f.drain_b),
-                       r, o);
-      break;
+GT_HD Resp gcra_apply(const Prep& p, bool exists, int64_t* s) {
+  return zoo_store(gcra(s, p, exists), p, s);
+}
+GT_HD Resp conc_apply(const Prep& p, bool exists, int64_t* s) {
+  return zoo_store(concurrency(s, p, exists), p, s);
+}
+GT_HD Resp sliding_apply(const Prep& p, bool exists, int64_t* s) {
+  return zoo_store(sliding_window(s, p, exists), p, s);
+}
+
+// Whether row `s` holds a live item the lane may use.
+GT_HD bool row_exists(int64_t now, const Prep& p, const int64_t* s) {
+  return p.known && s[W_IN_USE] != 0 && now <= s[W_EXPIRE_AT];
+}
+
+// The state-dependent half: one live lane's transition of row `s` (words
+// 0-12, rewritten in place) with its prepared terms `p`.  (Tests of the
+// class, not a switch: the card would index a jump table in constant
+// memory on the chain.)
+GT_HD Resp apply(int64_t now, const Prep& p, int64_t* s) {
+  const bool exists = row_exists(now, p, s);
+  if (p.cls == C_TOKEN) return token_apply(p, exists, s);
+  if (p.cls == C_LEAKY) return leaky_apply(p, exists, s);
+  if (p.cls == C_GCRA) return gcra_apply(p, exists, s);
+  if (p.cls == C_CONC) return conc_apply(p, exists, s);
+  return sliding_apply(p, exists, s);
+}
+
+// One live lane of class `cls` (== algo_class(r.algorithm)) on the row
+// `s` (16 words), in place: words 0-12 as the transition leaves them,
+// words 13-15 zero.  Each class's prepare and apply, dispatched once, so
+// a path keeps only its own terms in registers.
+GT_HD Resp transition_class(int cls, int64_t now, const Req& r, int64_t* s) {
+  for (int w = W_PREV_COUNT + 1; w < ROW_W; ++w) s[w] = 0;
+  Prep p = prepare_fields(cls, r);
+  const bool exists = row_exists(now, p, s);
+  if (cls == C_TOKEN) {
+    token_prepare(r, p);
+    return token_apply(p, exists, s);
   }
-  for (int w = W_PREV_COUNT + 1; w < ROW_W; ++w) o[w] = 0;
-  return resp;
+  if (cls == C_LEAKY) {
+    leaky_prepare(now, r, p);
+    return leaky_apply(p, exists, s);
+  }
+  if (cls == C_GCRA) {
+    gcra_prepare(r, p);
+    return gcra_apply(p, exists, s);
+  }
+  if (cls == C_CONC) {
+    conc_prepare(r, p);
+    return conc_apply(p, exists, s);
+  }
+  sliding_prepare(r, p);
+  return sliding_apply(p, exists, s);
 }
 
 // ---- closed-form duplicate fold (kernel B.3) ----
@@ -593,26 +744,32 @@ GT_HD void merged24_words(int32_t* w, const Resp& p, const MergedHead& m,
   w[22] = r.behavior;
 }
 
-GT_HD int64_t join_pair(const int32_t* m, int64_t ld, int row, int64_t j) {
-  return ((int64_t)m[(row + 1) * ld + j] << 32) |
-         (int64_t)(uint32_t)m[row * ld + j];
+// A request from its 19 REQ32 words, `word(k)` giving row k's: narrow
+// fields one word each, wide fields a (lo, hi) pair of words.
+template <class Word>
+GT_HD Req req_from(Word word) {
+  auto pair = [&](int row) {
+    return ((int64_t)word(row + 1) << 32) | (int64_t)(uint32_t)word(row);
+  };
+  Req r;
+  r.slot = word(R_SLOT);
+  r.known = word(R_KNOWN);
+  r.algorithm = word(R_ALGORITHM);
+  r.behavior = word(R_BEHAVIOR);
+  r.valid = word(R_VALID);
+  r.hits = pair(R_HITS);
+  r.limit = pair(R_LIMIT);
+  r.duration = pair(R_DURATION);
+  r.created_at = pair(R_CREATED_AT);
+  r.burst = pair(R_BURST);
+  r.greg_exp = pair(R_GREG_EXP);
+  r.greg_dur = pair(R_GREG_DUR);
+  return r;
 }
 
+// Lane j of a (19, *) REQ32 matrix of leading dimension ld.
 GT_HD Req load_req(const int32_t* m, int64_t ld, int64_t j) {
-  Req r;
-  r.slot = m[R_SLOT * ld + j];
-  r.known = m[R_KNOWN * ld + j];
-  r.algorithm = m[R_ALGORITHM * ld + j];
-  r.behavior = m[R_BEHAVIOR * ld + j];
-  r.valid = m[R_VALID * ld + j];
-  r.hits = join_pair(m, ld, R_HITS, j);
-  r.limit = join_pair(m, ld, R_LIMIT, j);
-  r.duration = join_pair(m, ld, R_DURATION, j);
-  r.created_at = join_pair(m, ld, R_CREATED_AT, j);
-  r.burst = join_pair(m, ld, R_BURST, j);
-  r.greg_exp = join_pair(m, ld, R_GREG_EXP, j);
-  r.greg_dur = join_pair(m, ld, R_GREG_DUR, j);
-  return r;
+  return req_from([=](int k) { return m[k * ld + j]; });
 }
 
 // Compact response columns: status, over_limit, remaining lo/hi,

@@ -4,7 +4,13 @@
 ``csrc/fused_sorted_tick.cu`` (kernel B.5), the counterpart of the TPU
 package's ``tick32.make_sorted_tick32_rows_fn`` program, which the JAX
 engine runs for duplicate windows that neither the grouped nor the layered
-plan takes.  :func:`fused_sorted_tick_plain` is its plain PyTorch version:
+plan takes.  One launch a window, two kinds of block
+(``csrc/sorted_tick.cuh``): a segment (the lanes of one slot) of at most
+one chunk (the build's, :func:`kernel_config`) runs in one thread; a
+longer one gets a block that walks it a chunk at a time, the request-only
+half of each transition computed for the chunk's lanes in parallel and
+the rest, which reads the row, applied lane after lane by one thread.
+The kernel needs no scratch.  :func:`fused_sorted_tick_plain` is its plain PyTorch version:
 rank rounds of :func:`~.fusedtick.fused_tick_plain` (round k holds the
 k-th request of every slot, so each round is a unique-slot window and
 round k + 1 reads the rows round k wrote), run for CPU tensors only.
@@ -41,7 +47,22 @@ def _lib() -> ctypes.CDLL:
     lib.gt_fused_sorted_tick.restype = ctypes.c_int
     lib.gt_fused_sorted_tick.argtypes = [vp, i64, vp, i64, vp, i64, i64, i64,
                                          vp]
+    lib.gt_fused_sorted_tick_config.restype = ctypes.c_int
+    lib.gt_fused_sorted_tick_config.argtypes = [vp]
     return lib
+
+
+CONFIG_KEYS = ("chunk", "threads", "smem_bytes")
+
+
+def kernel_config() -> dict:
+    """The built kernel's chunk (the most lanes of a segment that one
+    thread runs, and the lanes a longer segment's block stages at a time),
+    threads a block and dynamic shared memory bytes a block (builds the
+    kernel: needs ``nvcc``)."""
+    out = (ctypes.c_int64 * len(CONFIG_KEYS))()
+    _lib().gt_fused_sorted_tick_config(out)
+    return dict(zip(CONFIG_KEYS, out))
 
 
 def rank_rounds(slots: np.ndarray, capacity: int):

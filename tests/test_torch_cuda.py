@@ -8,9 +8,11 @@ of one journal, the merged tick at its tile shapes and at the fold's
 32-bit division edges, rows narrower than 16 words, out-of-range and
 guard-row slots, ragged windows with empty shards, inert lanes and slots outside
 their shard, the chained duplicate tick on Zipf windows, one-segment
-windows and EDGE windows at 1-4096 lanes, the engine on a tiny table that
+windows and EDGE windows at 1-4096 lanes and at its threshold and chunk
+shapes (CHAIN_CASES), the engine on a tiny table that
 fills and reclaims (with herd windows on the grouped plan and random
-windows on the chained tick), its state exported and loaded, layered
+windows on the chained tick, and random Zipf windows with long segments),
+its state exported and loaded, layered
 windows on a 2^14-slot table, the mesh engine on four tiny shards, the
 tiered engine (Store, cold and SSD tiers) against the same engine on the
 CPU, and background reclaim under concurrent ticks.  They import nothing of JAX, so
@@ -34,7 +36,7 @@ from gubernator_tpu_torch.ops.fusedtick import (
 from gubernator_tpu_torch.ops.raggedtick import (
     fused_ragged_tick, fused_ragged_tick_plain)
 from gubernator_tpu_torch.ops.sortedtick import (
-    fused_sorted_tick, fused_sorted_tick_plain)
+    fused_sorted_tick, fused_sorted_tick_plain, kernel_config)
 from gubernator_tpu_torch.types import GlobalUpdate, RateLimitResponse
 from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
 
@@ -190,6 +192,77 @@ def sorted_case(kind: str, width: int, seed: int, cap: int = 1024):
     return state, m
 
 
+# The chained tick's chunk shapes (csrc/sorted_tick.cuh,
+# chip_smoke.CHAIN_SHAPES), each width as (chunks, lanes): chunks times
+# the build's chunk plus lanes.  A segment of each length around one chunk
+# (one thread or a long block) and two (two chunks, two and a lane),
+# twice in a window, the second head at the last lane of a long block's
+# range; a long segment whose lanes switch algorithm, RESET_REMAINING and
+# DRAIN_OVER_LIMIT mid-run; a long segment of inert lanes only and one
+# whose first chunk is inert; a long segment followed by a long run of
+# padding; and a column slice (ld_m > B) that starts mid 16-B vector.
+CHAIN_CASES = [(kind, (chunks, extra))
+               for kind, chunks, extra in cs.CHAIN_SHAPES]
+SORTED_CASES = ([(k, w) for k in SORTED_KINDS for w in SORTED_WIDTHS]
+                + CHAIN_CASES)
+SORTED_IDS = [f"{k}-{w}" if isinstance(w, int)
+              else f"{k}-{w[0]}chunk{w[1]:+d}" for k, w in SORTED_CASES]
+
+
+def case_lanes(width, chunk: int) -> int:
+    """A SORTED_CASES width in lanes, for a build of chunk ``chunk``."""
+    return width if isinstance(width, int) else width[0] * chunk + width[1]
+
+
+def sorted_window_case(kind: str, width, chunk: int, cap: int = 1024):
+    """``(state, m, cols)``: a SORTED_CASES case for a build of chunk
+    ``chunk``, the window ``m[:, cols]``, seeded by its width in lanes (a
+    CHAIN_CASES case is chip_smoke.chain_window on random stored state of
+    ``cap`` slots)."""
+    lanes = case_lanes(width, chunk)
+    if kind in SORTED_KINDS:
+        state, m = sorted_case(kind, lanes, lanes, cap)
+        return state, m, slice(0, lanes)
+    rng = np.random.default_rng(lanes)
+    state = cs.random_state(rng, cap)
+    m, cols = cs.chain_window(E, rng, cap, kind, lanes, state, chunk)
+    return state, m, cols
+
+
+# float64 -> int64 at the conversion's edges (csrc/transition.cuh
+# trunc_i64: on the card, its guards as selects beside one conversion):
+# NaN, the infinities, 2^63 and the largest double below it, -2^63 and the
+# next double below it, and fractions of either sign.
+TRUNC_EDGES = (float("nan"), float("inf"), -float("inf"), 2.0**63,
+               2.0**63 - 1024, -2.0**63, -2.0**63 - 2048, 1e300, -1e300,
+               0.5, -0.5, -0.0, 9.75, -9.75, 2.0**53 + 2)
+
+
+def trunc_case(cap: int = 1024):
+    """``(state, m)``: leaky queries (hits 0) on slots 0.. whose stored
+    remaining_f is each of TRUNC_EDGES, the item alive, the burst int64's
+    largest and no time elapsed, so each answer's remaining is the
+    truncation of the stored value; then the same lanes with one hit."""
+    rng = np.random.default_rng(19)
+    state = cs.random_state(rng, cap)
+    n = len(TRUNC_EDGES)
+    big = 2**63 - 1
+    lanes = slice(0, 2 * n)
+    state["algorithm"][lanes] = 1
+    state["remaining_f"][lanes] = TRUNC_EDGES * 2
+    state["burst"][lanes] = big
+    state["updated_at"][lanes] = cs.NOW
+    state["expire_at"][lanes] = cs.NOW + 60_000
+    state["in_use"][lanes] = True
+    req = cs.random_requests(rng, 2 * n)
+    req.update(algorithm=np.ones(2 * n, np.int64), known=np.ones(2 * n, bool),
+               behavior=np.zeros(2 * n, np.int64),
+               hits=np.repeat([0, 1], n), limit=np.full(2 * n, 10),
+               duration=np.full(2 * n, 30_000), burst=np.full(2 * n, big),
+               created_at=np.full(2 * n, cs.NOW))
+    return state, cs._pack(E, cap, 2 * n, np.arange(2 * n), req)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -259,12 +332,12 @@ def test_fused_ragged_tick_tile_shapes_match_plain(dev, kind, width):
     assert torch.equal(t_k, t_p)
 
 
-@pytest.mark.parametrize("width", SORTED_WIDTHS)
-@pytest.mark.parametrize("kind", SORTED_KINDS)
+@pytest.mark.parametrize("kind,width", SORTED_CASES, ids=SORTED_IDS)
 def test_fused_sorted_tick_matches_plain(dev, kind, width):
-    state, m = sorted_case(kind, width, seed=width)
+    state, m, cols = sorted_window_case(kind, width,
+                                        kernel_config()["chunk"])
     table = table_from_columns(state, 1024, dev)
-    mt = torch.from_numpy(m).to(dev)
+    mt = torch.from_numpy(m).to(dev)[:, cols]
     t_k, t_p = table.clone(), table.clone()
     gt.reset_kernel_launches()
     r_k = fused_sorted_tick(t_k, mt, cs.NOW)
@@ -272,10 +345,24 @@ def test_fused_sorted_tick_matches_plain(dev, kind, width):
     launches = gt.kernel_launches()
     assert launches.pop("fused_sorted_tick") == 1
     assert not any(launches.values())
-    r_p = fused_sorted_tick_plain(t_p, mt, cs.NOW, torch.empty_like(r_k))
+    r_p = fused_sorted_tick_plain(t_p, mt.contiguous(), cs.NOW,
+                                  torch.empty_like(r_k))
     assert torch.equal(r_k, r_p)
     assert torch.equal(t_k, t_p)
     assert (t_k[1024] == 0).all()
+
+
+def test_float_to_int_edges_match_plain(dev):
+    state, m = trunc_case()
+    table = table_from_columns(state, 1024, dev)
+    mt = torch.from_numpy(m).to(dev)
+    for kernel, plain in ((fused_tick, fused_tick_plain),
+                          (fused_sorted_tick, fused_sorted_tick_plain)):
+        t_k, t_p = table.clone(), table.clone()
+        r_k = kernel(t_k, mt, cs.NOW)
+        r_p = plain(t_p, mt, cs.NOW, torch.empty_like(r_k))
+        assert torch.equal(r_k, r_p)
+        assert torch.equal(t_k, t_p)
 
 
 def test_tick_launches_counted_by_width(dev):
@@ -408,6 +495,31 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
     assert launches.pop("fused_ragged_tick") == 0
     assert launches["fused_sorted_tick"] == eng.metric_sorted_ticks
     assert all(v > 0 for v in launches.values())
+    assert torch.equal(eng.table.cpu(), ref.table)
+
+
+def test_engine_random_zipf_windows_on_the_card_match_the_cpu_engine(dev):
+    """Random Zipf(1.2) windows (neither plan takes them) whose hottest key
+    has more than a chunk of requests: one chained launch each on the card,
+    long segments included, against rank rounds on the CPU engine."""
+    gt.reset_kernel_launches()
+    rng = np.random.default_rng(15)
+    eng = E.TickEngine(capacity=1024, max_batch=2048, device=dev)
+    ref = E.TickEngine(capacity=1024, max_batch=2048, device="cpu")
+    now = cs.NOW
+    longest = 0
+    for step in range(3):
+        now += 1_000
+        ids = (rng.zipf(1.2, 2048) - 1) % 900
+        longest = max(longest, int(np.bincount(ids).max()))
+        cols = cs.window_columns(reqcols, rng, b"z", ids, now)
+        got, gerr = eng.process_columns(cols, now)
+        want, werr = ref.process_columns(cols, now)
+        assert gerr == werr
+        np.testing.assert_array_equal(got, want)
+    assert longest > kernel_config()["chunk"]
+    assert eng.metric_sorted_ticks == ref.metric_sorted_ticks == 3
+    assert gt.kernel_launches()["fused_sorted_tick"] == 3
     assert torch.equal(eng.table.cpu(), ref.table)
 
 

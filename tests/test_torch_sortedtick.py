@@ -11,10 +11,13 @@
   and the inexact-leak sequence of ROADMAP C.1, where the JAX engine's
   parts programs answer otherwise.  Responses and the whole logical
   table must be exact.
-* The CUDA kernel's lane code (``csrc/sorted_tick.cuh``), compiled for the
+* The CUDA kernel's blocks (``csrc/sorted_tick.cuh``), compiled for the
   host, against the plain version bit for bit at 1-4096 lanes: Zipf
   windows, windows of one segment as long as the window, EDGE windows,
-  inert lanes inside a segment.  The kernel itself runs only on the card
+  inert lanes inside a segment; and at the kernel's chunk shapes
+  (``tests/test_torch_cuda.py`` CHAIN_CASES: segments around one and two
+  chunks of lanes, a long segment that switches algorithm and flags,
+  inert long segments, padding after a long segment, a column slice).  The kernel itself runs only on the card
   (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -33,10 +36,11 @@ from gubernator_tpu_torch import _build
 from gubernator_tpu_torch.carry import columns_from_table, table_from_columns
 from gubernator_tpu_torch.ops.buckets import STATE_FIELDS, zeros_table
 from gubernator_tpu_torch.ops.sortedtick import (
-    fused_sorted_tick, fused_sorted_tick_plain)
+    CONFIG_KEYS, fused_sorted_tick, fused_sorted_tick_plain)
 from gubernator_tpu_torch.types import Algorithm
 from tests.test_torch_common import NOW, gen_lanes, pack_m32
-from tests.test_torch_cuda import SORTED_KINDS, SORTED_WIDTHS, sorted_case
+from tests.test_torch_cuda import (
+    SORTED_CASES, SORTED_IDS, SORTED_KINDS, case_lanes, sorted_window_case)
 from tests.test_torch_fusedtick import assert_tables_equal, jax_logical
 
 CAP = 1 << 10
@@ -134,25 +138,42 @@ def _host_lib():
     lib.gt_fused_sorted_tick_host.restype = ctypes.c_int
     lib.gt_fused_sorted_tick_host.argtypes = [vp, i64, vp, i64, vp, i64, i64,
                                               i64]
+    lib.gt_fused_sorted_tick_config_host.restype = ctypes.c_int
+    lib.gt_fused_sorted_tick_config_host.argtypes = [vp]
     return lib
 
 
-@pytest.mark.parametrize("width", SORTED_WIDTHS)
-@pytest.mark.parametrize("kind", SORTED_KINDS)
+def host_chunk() -> int:
+    """The host build's chunk (csrc/sorted_tick.cuh CHUNK)."""
+    out = (ctypes.c_int64 * len(CONFIG_KEYS))()
+    assert _host_lib().gt_fused_sorted_tick_config_host(out) == 0
+    return dict(zip(CONFIG_KEYS, out))["chunk"]
+
+
+@pytest.mark.parametrize("kind,width", SORTED_CASES, ids=SORTED_IDS)
 def test_sorted_lane_code_on_host_matches_plain(kind, width):
-    state, m = sorted_case(kind, width, seed=width)
+    """The host build of the kernel's blocks (long blocks walking chunks,
+    lane blocks' short segments) against rank rounds, bit for bit; the
+    window is ``m[:, cols]``, a column slice for the "slice" case."""
+    chunk = host_chunk()
+    state, m, cols = sorted_window_case(kind, width, chunk)
     t_plain = table_from_columns(state, 1024, "cpu")
     t_host = t_plain.clone()
-    mt = torch.from_numpy(m)
+    mt = torch.from_numpy(m)[:, cols]
+    lanes = mt.shape[1]
     rounds = fused_sorted_tick_plain.rounds
     r_plain = fused_sorted_tick_plain(
-        t_plain, mt, NOW, torch.empty((6, width), dtype=torch.int32))
-    r_host = torch.full((6, width), -7, dtype=torch.int32)
+        t_plain, mt.contiguous(), NOW,
+        torch.empty((6, lanes), dtype=torch.int32))
+    r_host = torch.full((6, lanes), -7, dtype=torch.int32)
     rc = _host_lib().gt_fused_sorted_tick_host(
         t_host.data_ptr(), 1024, mt.data_ptr(), mt.stride(0),
-        r_host.data_ptr(), r_host.stride(0), width, NOW)
+        r_host.data_ptr(), r_host.stride(0), lanes, NOW)
     assert rc == 0
     assert torch.equal(r_host, r_plain)
     assert torch.equal(t_host, t_plain)
     if kind == "one":
         assert fused_sorted_tick_plain.rounds - rounds == width
+    if kind not in SORTED_KINDS:
+        assert (fused_sorted_tick_plain.rounds - rounds
+                >= case_lanes(width, chunk))
