@@ -87,9 +87,27 @@ Phases, one output line each:
    Phase 2 also times gather and scatter at the shapes the tiers launch
    (``at_tier_shapes``).
 
-Phases 3-5 also report each path's tick launches by lane width
-(``launches_by_width``, power-of-two buckets), summed over them on the
-``launch_widths`` line.  Then the kernel table as one JSON line, the card
+6. serving, in process (the reference's ``serve_loopback_10m`` rung):
+   one ``V1Instance`` over a ``TickEngine`` prefilled with 10M keys
+   (mixed token and leaky, sized with background reclaim's headroom so
+   every key stays resident) with 4096-wide ticks and 48 ingest slabs;
+   sixteen 1000-request payloads framed by the port's wire codec, parsed
+   into arena slabs, ticked through the tick loop and encoded back.
+   Traffic A (uniform keys) and B (Zipf(1.2)): 150 serial round trips
+   (p50 / p99 ms), then 32 concurrent callers x 96 batches x 4 segments
+   (decisions/s of the middle segments, ``h2d_overlap_ratio``); a
+   flight-recorder segment (stage p50 / p99); 4096 probed keys, the 64
+   hottest among them, hold their exact counts around traffic B;
+   ``serve_cpu_ms_per_batch``; a 2^16-slot instance on the card against
+   one on the CPU over 64 serial raw batches (all five algorithms, RESET
+   rows, Zipf keys, explicit created_at, GLOBAL items as objects), byte
+   for byte; and ``spawn_daemon`` over gRPC and HTTP against an
+   in-process instance.
+
+Phase 2 also times one launch of an empty kernel (``empty_launch_ms``,
+``csrc/empty.cu``).  Phases 3-6 also report each path's tick launches by
+lane width (``launches_by_width``, power-of-two buckets), summed over them
+on the ``launch_widths`` line.  Then the kernel table as one JSON line, the card
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device the script exits non-zero before
 printing a result.
@@ -1174,7 +1192,22 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
         out[name].setdefault("at_tier_shapes", {})[shape] = {
             "rows": n, **{k: e[k] for k in ("ms", "plain_ms", "library_ms",
                                             "bound_ms", "max_abs_err")}}
+    out["empty_launch_ms"] = empty_launch_ms(torch, dev)
     return out
+
+
+def empty_launch_ms(torch, dev) -> float:
+    """One launch of an empty kernel (``csrc/empty.cu``), timed as the
+    kernels are: what a launch alone costs, to read small launches by."""
+    import ctypes
+
+    from gubernator_tpu_torch import _build
+
+    lib = _build.load("empty")
+    lib.gt_empty_launch.argtypes = [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return time_ms(torch, lambda: _build.check(
+        lib.gt_empty_launch(stream), "empty_launch"))
 
 
 @contextlib.contextmanager
@@ -2268,6 +2301,429 @@ def tier_phase(torch, dev, root: str, capacity=10_000_000, width=32768,
 
 
 
+# ----------------------------------------------------------------------
+# Phase 6: serving (the bench.py serve_loopback_10m rung, in process)
+# ----------------------------------------------------------------------
+SERVE_BATCH = 1000          # types.MAX_BATCH_SIZE: one GetRateLimits call
+SERVE_LIMIT = 1_000_000
+SERVE_DURATION = 3_600_000
+SERVE_PAYLOADS = 16
+GLOBAL_BIT = 2
+
+
+def serve_columns(reqcols, name: bytes, ids, hits=1, algorithm=0,
+                  limit=SERVE_LIMIT, duration=SERVE_DURATION,
+                  behavior=0, burst=0, created_at=None):
+    """Requests on keys ``name_<8 digits>`` as a wire client builds them
+    (``name_len`` set, so ``fastwire.encode_req`` can frame them); each
+    field a scalar or a column."""
+    ids = np.asarray(ids, np.int64)
+    n = len(ids)
+    blob, offsets = key_blob(name + b"_", ids)
+
+    def col(v):
+        return np.broadcast_to(np.asarray(v, np.int64), (n,)).copy()
+
+    created = (np.full(n, reqcols.CREATED_UNSET, np.int64)
+               if created_at is None else col(created_at))
+    return reqcols.ReqColumns(
+        blob, offsets, col(hits), col(limit), col(duration), col(algorithm),
+        col(behavior), created, col(burst), name_len=col(len(name)))
+
+
+def mixed_serve_batch(reqcols, rng, n: int, keys: int, now: int):
+    """A batch of the bit-for-bit check: Zipf(1.2) keys, all five
+    algorithms, RESET and DRAIN rows, explicit created_at."""
+    ids = np.minimum(rng.zipf(1.2, n) - 1, keys - 1)
+    pairs = np.array([(30_000, 10), (60_000, 1000), (1_000, 4), (1_000, 3),
+                      (900, 7), (3_600_000, 1000), (5_000, 5)], np.int64)
+    dl = pairs[rng.integers(0, len(pairs), n)]
+    behavior = rng.choice([0, 0, 0, 8, 32], n)
+    return serve_columns(
+        reqcols, b"mix", ids, hits=rng.choice([0, 1, 1, 2, 5, -1], n),
+        algorithm=ids % 5, limit=dl[:, 1], duration=dl[:, 0],
+        behavior=behavior, burst=rng.choice([0, 0, 20], n),
+        created_at=now - rng.integers(0, 3_000, n))
+
+
+def serve_phase(torch, dev, keys=10_000_000, window=4096, serial=150,
+                callers=32, batches=96, segments=4, probe=4096, hot=64,
+                small=1 << 16, small_batches=64, small_width=200):
+    """The port's serving path on the card, in process: one ``V1Instance``
+    over a prefilled ``keys``-key ``TickEngine`` with ``window``-wide
+    ticks and 48 ingest slabs; 1000-request wire batches parsed by the
+    native codec into arena slabs, ticked through the tick loop, written
+    back by the codec.  Traffic A (uniform keys) and B (Zipf(1.2)): serial
+    round trips and ``callers`` concurrent callers; a flight-recorder
+    segment; each key's count checked around traffic B; a small card
+    instance against a CPU one, bit for bit; and the daemon over gRPC
+    and HTTP where those packages are installed.  Returns ``(info,
+    launches summed over the phase's paths)``."""
+    import asyncio
+
+    return asyncio.run(_serve(torch, dev, keys, window, serial, callers,
+                              batches, segments, probe, hot, small,
+                              small_batches, small_width))
+
+
+async def _serve(torch, dev, keys, window, serial, callers, batches,
+                 segments, probe, hot, small, small_batches, small_width):
+    import asyncio
+
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.ops.engine import TickEngine, resolve_ticks
+    from gubernator_tpu_torch.service.instance import (
+        InstanceConfig, V1Instance)
+    from gubernator_tpu_torch.transport import fastwire
+    from gubernator_tpu_torch.utils import flightrec
+
+    rng = np.random.default_rng(SEED + 7)
+    info, launches, widths = {}, {}, {}
+
+    def path(name):
+        return counted(torch, launches, name, widths)
+
+    # The table: every key the traffic sends, mixed token and leaky
+    # (the rung's prefill), one-hour buckets of a million.  Background
+    # reclaim (on by default at this size) keeps capacity // 64 slots
+    # free, evicting live keys to do so: the table is sized with that
+    # headroom above the keys, as a deployment would size it, so every
+    # key stays resident and no window reclaims.
+    capacity = keys + max(keys // 63, 2 * window) + 64
+    eng = TickEngine(capacity=capacity, max_batch=window, device=dev)
+    info["capacity"] = capacity
+    t0 = time.perf_counter()
+    with path("serve_prefill"):
+        pending = []
+        for s in range(0, keys, window):
+            ids = np.arange(s, min(s + window, keys))
+            pending.append((eng.submit_cols(serve_columns(
+                reqcols, b"bench", ids, algorithm=ids & 1)), len(ids)))
+            if len(pending) == 16 or s + window >= keys:
+                resolve_ticks([h for b, _ in pending for h in b.handles()])
+                for b, n in pending:
+                    mat, errs = b.matrix()
+                    assert not errs and (mat[2] == SERVE_LIMIT - 1).all()
+                pending = []
+    info["prefill_s"] = time.perf_counter() - t0
+    assert len(eng.slots) == keys
+
+    prev = os.environ.get("GUBER_INGEST_ARENA_SLABS")
+    os.environ["GUBER_INGEST_ARENA_SLABS"] = "48"
+    try:
+        inst = await V1Instance.create(
+            InstanceConfig(cache_size=capacity, tpu_max_batch=window),
+            engine=eng)
+    finally:
+        if prev is None:
+            os.environ.pop("GUBER_INGEST_ARENA_SLABS", None)
+        else:
+            os.environ["GUBER_INGEST_ARENA_SLABS"] = prev
+    arena = inst.ingest_arena
+    sent = {}
+
+    async def serve(raw, tag):
+        """One round trip through the V1 servicer's fast path: decode into
+        an arena slab, the instance's columns path, encode, and the
+        client's decode of the answer."""
+        fr = flightrec.get()
+        t1 = time.perf_counter()
+        cols, errors, special = fastwire.parse_req(raw, arena)
+        if fr is not None:
+            fr.edge("decode", time.perf_counter() - t1)
+        assert not errors and not special
+        mat, errs = await inst.get_rate_limits_columns(cols)
+        assert not errs and not mat[0].any()  # all under the limit
+        t2 = time.perf_counter()
+        out = fastwire.encode_resp(mat)
+        if fr is not None:
+            fr.edge("encode", time.perf_counter() - t2)
+        back, _ = fastwire.parse_resp(out)
+        assert back.shape == (4, SERVE_BATCH)
+        sent[tag] = sent.get(tag, 0) + 1
+        return out
+
+    def payloads(draw):
+        ids = [draw() for _ in range(SERVE_PAYLOADS)]
+        raws = [fastwire.encode_req(serve_columns(reqcols, b"bench", i))
+                for i in ids]
+        return ids, raws
+
+    async def traffic(name, raws, recorder=False):
+        out = {}
+        for j in range(3):  # warm
+            await serve(raws[j], (name, j))
+        lat = []
+        for i in range(serial):
+            t1 = time.perf_counter()
+            await serve(raws[i % len(raws)], (name, i % len(raws)))
+            lat.append((time.perf_counter() - t1) * 1e3)
+        out["serial_p50_ms"] = float(np.percentile(lat, 50))
+        out["serial_p99_ms"] = float(np.percentile(lat, 99))
+        out["serial_max_ms"] = float(max(lat))
+        sem = asyncio.Semaphore(callers)
+
+        async def one(i):
+            async with sem:
+                await serve(raws[i % len(raws)], (name, i % len(raws)))
+
+        async def segment():
+            s0 = time.perf_counter()
+            await asyncio.gather(*(one(i) for i in range(batches)))
+            return batches * SERVE_BATCH / (time.perf_counter() - s0)
+
+        await asyncio.gather(*(one(i) for i in range(callers)))  # warm
+        w0, o0 = eng.metric_h2d_windows, eng.metric_h2d_overlapped
+        rates = [await segment() for _ in range(segments)]
+        core = sorted(rates)[1:-1]  # middle segments
+        out["decisions_per_s"] = float(np.median(core))
+        out["segments_decisions_per_s"] = rates
+        w = eng.metric_h2d_windows - w0
+        out["windows"] = w
+        out["h2d_overlap_ratio"] = (
+            (eng.metric_h2d_overlapped - o0) / max(1, w))
+        if recorder:
+            rec = flightrec.FlightRecorder(windows=512)
+            flightrec.install(rec)
+            try:
+                await asyncio.gather(*(one(i) for i in range(callers)))
+                out["recorded_decisions_per_s"] = await segment()
+                out["stage_ms"] = {
+                    s: p for s, p in rec.stage_percentiles().items()
+                    if p["p99_ms"] > 0}
+            finally:
+                flightrec.uninstall()
+        return out
+
+    async def probe_remaining(ids):
+        rem = np.empty(len(ids), np.int64)
+        for s in range(0, len(ids), SERVE_BATCH):
+            mat, errs = await inst.get_rate_limits_columns(serve_columns(
+                reqcols, b"bench", ids[s:s + SERVE_BATCH], hits=0))
+            assert not errs
+            rem[s:s + SERVE_BATCH] = mat[2]
+        return rem
+
+    a_ids, a_raws = payloads(lambda: rng.integers(0, keys, SERVE_BATCH))
+    with path("serve_uniform"):
+        info["uniform"] = await traffic("A", a_raws, recorder=True)
+
+    b_ids, b_raws = payloads(
+        lambda: np.minimum(rng.zipf(1.2, SERVE_BATCH) - 1, keys - 1))
+    # Probed keys: the hottest, keys the Zipf payloads send, random keys.
+    sent_b = np.unique(np.concatenate(b_ids))
+    rest = np.setdiff1d(sent_b, np.arange(hot))
+    probe_ids = np.concatenate([
+        np.arange(hot),
+        rng.choice(rest, min(len(rest), (probe - hot) // 2), replace=False)])
+    fill = np.setdiff1d(rng.integers(0, keys, probe), probe_ids)
+    probe_ids = np.concatenate([probe_ids, fill[:probe - len(probe_ids)]])
+    with path("serve_zipf"):
+        before = await probe_remaining(probe_ids)
+        info["zipf"] = await traffic("B", b_raws)
+        after = await probe_remaining(probe_ids)
+    pos = {int(k): i for i, k in enumerate(probe_ids)}
+    want = np.zeros(len(probe_ids), np.int64)
+    for j, ids in enumerate(b_ids):
+        times = sent.get(("B", j), 0)
+        for k in ids:
+            i = pos.get(int(k))
+            if i is not None:
+                want[i] += times
+    info["exact"] = {
+        "probed_keys": int(len(probe_ids)),
+        "probed_hits": int(want.sum()),
+        "hottest_key_hits": int(want[0]),
+        "mismatches": int(np.count_nonzero(before - after != want)),
+    }
+    assert info["exact"]["mismatches"] == 0, info["exact"]
+    # Codec and arena CPU of one batch (the device does not run).
+    zero = np.zeros((5, SERVE_BATCH), np.int64)
+    zero[1], zero[2] = SERVE_LIMIT, SERVE_LIMIT - 1
+    zero[3] = NOW + SERVE_DURATION
+    best = 1e9
+    for _ in range(7):
+        c0 = time.perf_counter()
+        cols, _, _ = fastwire.parse_req(a_raws[0], arena)
+        fastwire.encode_resp(zero)
+        best = min(best, time.perf_counter() - c0)
+        cols.release()
+    info["serve_cpu_ms_per_batch"] = best * 1e3
+    info["reclaims"] = eng.metric_bg_reclaims + eng.metric_sync_reclaims
+    assert info["reclaims"] == 0 and len(eng.slots) == keys
+    info["arena"] = {"slabs": arena.n_slabs, "leases": arena.metric_leases,
+                     "misses": arena.metric_misses,
+                     "fallbacks": arena.metric_fallbacks,
+                     "in_use_after": arena.in_use()}
+    await inst.close()
+    assert arena.in_use() == 0
+    del eng, inst
+
+    with path("serve_bitwise"):
+        info["bitwise"] = await bitwise_instances(
+            torch, small, window, small_batches, small_width)
+    with path("serve_daemon"):
+        info["daemon"] = await daemon_check(small, window, small_width)
+    info["launches_by_path"] = launches
+    info["launches_by_width"] = widths
+    total = {}
+    for per in launches.values():
+        for name, c in per.items():
+            total[name] = total.get(name, 0) + c
+    assert total["fused_tick"] > 0, "no fused_tick launch in phase 6"
+    return info, total
+
+
+async def _answer_raw(inst, raw):
+    """An instance's answer to raw request bytes, as the servicer's fast
+    path writes it."""
+    from gubernator_tpu_torch.transport import fastwire
+
+    cols, errors, special = fastwire.parse_req(raw)
+    assert not errors and not special
+    mat, errs = await inst.get_rate_limits_columns(cols)
+    assert not errs
+    return fastwire.encode_resp(mat)
+
+
+@contextlib.contextmanager
+def pinned_clock(start: int):
+    """The port's wall clock (``timeutil.now_ms``), moved only by hand:
+    two instances fed the same batches tick at the same ``now``."""
+    from gubernator_tpu_torch.utils import timeutil
+
+    clock = [start]
+    real = timeutil.now_ms
+    timeutil.now_ms = lambda: clock[0]
+    try:
+        yield clock
+    finally:
+        timeutil.now_ms = real
+
+
+def global_requests(types, k: int, n: int = 16):
+    return [types.RateLimitRequest(
+        name="glob", unique_key=f"g{k}_{i % 5}", hits=i % 3, limit=50,
+        duration=3_600_000, algorithm=i % 2, behavior=GLOBAL_BIT)
+        for i in range(n)]
+
+
+async def bitwise_instances(torch, capacity, window, batches, width):
+    """A ``capacity``-slot instance on the card and one on the CPU answer
+    the same serial raw batches with the same bytes (and the same
+    GLOBAL object answers)."""
+    from gubernator_tpu_torch import types
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.service.instance import (
+        InstanceConfig, V1Instance)
+    from gubernator_tpu_torch.transport import fastwire
+
+    rng = np.random.default_rng(SEED + 8)
+    checked = 0
+    with pinned_clock(NOW) as clock:
+        card = await V1Instance.create(InstanceConfig(
+            cache_size=capacity, tpu_max_batch=window))
+        cpu = await V1Instance.create(InstanceConfig(
+            cache_size=capacity, tpu_max_batch=window, tpu_platform="cpu"))
+        try:
+            for k in range(batches):
+                clock[0] = NOW + 1_000 * k
+                raw = fastwire.encode_req(mixed_serve_batch(
+                    reqcols, rng, width, 4096, clock[0]))
+                a = await _answer_raw(card, raw)
+                b = await _answer_raw(cpu, raw)
+                assert a == b, f"batch {k}: card and CPU bytes differ"
+                checked += width
+                if k % 8 == 7:
+                    ga = await card.get_rate_limits(
+                        global_requests(types, k))
+                    gb = await cpu.get_rate_limits(
+                        global_requests(types, k))
+                    assert [vars(r) for r in ga] == [vars(r) for r in gb]
+                    checked += len(ga)
+            routes = {f: getattr(card.engine, f"metric_{f}_ticks")
+                      for f in ("grouped", "layered", "sorted")}
+        finally:
+            await card.close()
+            await cpu.close()
+    return {"batches": batches, "width": width, "items_equal": checked,
+            "card_duplicate_routes": routes}
+
+
+async def daemon_check(capacity, window, width):
+    """``spawn_daemon`` on 127.0.0.1:0 answers raw batches over gRPC and
+    one JSON batch over HTTP as an in-process CPU instance answers them;
+    a missing package is named, not caught."""
+    import importlib.util
+
+    missing = [m for m in ("grpc", "aiohttp", "google.protobuf")
+               if importlib.util.find_spec(m.split(".")[0]) is None]
+    if missing:
+        return {"skipped_missing": missing}
+    import asyncio
+    import urllib.request
+
+    from google.protobuf import json_format
+
+    from gubernator_tpu_torch import config, types
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.pb import gubernator_pb2 as pb
+    from gubernator_tpu_torch.service.instance import (
+        InstanceConfig, V1Instance)
+    from gubernator_tpu_torch.transport import convert, fastwire
+    from gubernator_tpu_torch.transport.daemon import spawn_daemon
+
+    rng = np.random.default_rng(SEED + 9)
+    out = {"grpc_batches": 0}
+    with pinned_clock(NOW) as clock:
+        d = await spawn_daemon(config.DaemonConfig(
+            grpc_listen_address="127.0.0.1:0",
+            http_listen_address="127.0.0.1:0",
+            config=config.Config(cache_size=capacity, tpu_max_batch=window)))
+        ref = await V1Instance.create(InstanceConfig(
+            cache_size=capacity, tpu_max_batch=window, tpu_platform="cpu"))
+        client = d.client()
+        try:
+            for k in range(4):
+                clock[0] = NOW + 1_000 * k
+                raw = fastwire.encode_req(mixed_serve_batch(
+                    reqcols, rng, width, 4096, clock[0]))
+                got = await client.get_rate_limits_raw(raw)
+                assert got == await _answer_raw(ref, raw), k
+                out["grpc_batches"] += 1
+            reqs = global_requests(types, 99, 8) + [
+                types.RateLimitRequest(name="http", unique_key=f"h{i}",
+                                       hits=1, limit=10, duration=60_000)
+                for i in range(4)]
+            body = json.dumps({"requests": [
+                json_format.MessageToDict(convert.req_to_pb(r),
+                                          preserving_proto_field_name=True)
+                for r in reqs]}).encode()
+
+            def post():
+                req = urllib.request.Request(
+                    f"http://{d.conf.http_listen_address}/v1/GetRateLimits",
+                    data=body, method="POST")
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    return json.loads(r.read())
+
+            got = await asyncio.to_thread(post)
+            want = json_format.MessageToDict(
+                pb.GetRateLimitsResp(responses=convert.resps_to_pb(
+                    await ref.get_rate_limits(reqs))),
+                preserving_proto_field_name=True,
+                always_print_fields_with_no_presence=True)
+            assert got == want
+            out["http_items"] = len(reqs)
+            health = await client.health_check()
+            out["health"] = [health.status, health.peer_count]
+        finally:
+            await client.close()
+            await d.close()
+            await ref.close()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2313,12 +2769,15 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         tiers, tier_launches = tier_phase(torch, dev, root)
     print("phase5 " + json.dumps(tiers), flush=True)
+    serve, serve_launches = serve_phase(torch, dev)
+    print("phase6 " + json.dumps(serve), flush=True)
     for name in launches:
-        launches[name] += mesh_launches[name] + tier_launches[name]
+        launches[name] += (mesh_launches[name] + tier_launches[name]
+                           + serve_launches[name])
         assert launches[name] > 0, f"{name} was not launched on the main path"
-    # The ticks' launches by lane width over the three phases' paths.
+    # The ticks' launches by lane width over the four phases' paths.
     widths = {}
-    for phase in (info, mesh, tiers):
+    for phase in (info, mesh, tiers, serve):
         for per_path in phase["launches_by_width"].values():
             for name, counts in per_path.items():
                 for w, c in counts.items():

@@ -14,8 +14,8 @@ processes that build the same library never load a half-written file.
   exactly that of the plain PyTorch versions: no contraction of a
   multiply and an add into one rounding.  ``-Xptxas -v`` reports each
   kernel's registers and spills into ``<library>.log``.
-* Host C++ (the slot map, and the test-only host build of the tick's lane
-  function): ``c++ -O2 -shared``.
+* Host C++ (the slot map, the wire codec, and the test-only host build
+  of the tick's lane function): ``c++ -O2 -shared``.
 """
 
 from __future__ import annotations
@@ -42,11 +42,13 @@ CXX_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
 # hashed into every library's name.
 LIBS = {
     "slotmap": ("cxx", ("slotmap.cc",)),
+    "wirecodec": ("cxx", ("wirecodec.cc",)),
     "fused_tick": ("nvcc", ("fused_tick.cu",)),
     "fused_merged_tick": ("nvcc", ("fused_merged_tick.cu",)),
     "fused_ragged_tick": ("nvcc", ("fused_ragged_tick.cu",)),
     "fused_sorted_tick": ("nvcc", ("fused_sorted_tick.cu",)),
     "rows": ("nvcc", ("rows.cu",)),
+    "empty": ("nvcc", ("empty.cu",)),
     "fused_tick_host": ("cxx", ("fused_tick_host.cc",)),
 }
 CUDA_LIBS = tuple(n for n, (kind, _) in LIBS.items() if kind == "nvcc")

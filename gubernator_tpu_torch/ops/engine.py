@@ -39,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -61,7 +62,7 @@ from gubernator_tpu_torch.ops.sortedtick import (
 from gubernator_tpu_torch.tiering.coldstore import ColdStore
 from gubernator_tpu_torch.types import (
     Algorithm, Behavior, GlobalUpdate, RateLimitRequest, RateLimitResponse)
-from gubernator_tpu_torch.utils import timeutil
+from gubernator_tpu_torch.utils import flightrec, timeutil
 
 
 def pad_pow2(n: int) -> int:
@@ -860,6 +861,12 @@ class TickEngine(BatchFront):
         self.metric_lease_dispatches = 0
         self.metric_lease_windows = 0
         self.metric_lease_ops = 0
+        # H2D overlap: a window counts as overlapped when its upload was
+        # issued while an earlier window was still unresolved, the
+        # pipelined steady state (h2d_overlap_ratio).
+        self._inflight = 0
+        self.metric_h2d_windows = 0
+        self.metric_h2d_overlapped = 0
         self.last_export_stats: dict = {}
         self.last_load_stats: dict = {}
 
@@ -1251,17 +1258,26 @@ class TickEngine(BatchFront):
             now = now if now is not None else timeutil.now_ms()
             self._last_now = max(self._last_now, now)
             self._tick_count += 1
+            # Flight-recorder stages: "pack" is slot resolve, packing and
+            # sort; "h2d" the upload and the kernel launches.
+            fr = flightrec.get()
+            t_pack = time.perf_counter() if fr is not None else 0.0
             slab, n, errors, inv, has_dups = self._build_cols(cols, now)
+            if fr is not None:
+                fr.note(fr.active(), "pack", time.perf_counter() - t_pack)
             self._mark_dirty(slab.numpy(), n)
             # _build_cols is the only place the SSD tier is read; a lookup
             # made while the tick is dispatched would show here.
             ssd_reads0 = (self.ssd.metric_lookup_calls
                           if self.ssd is not None else 0)
+            t_h2d = time.perf_counter() if fr is not None else 0.0
             if has_dups:
                 resp, uploaded = self._tick_duplicates(slab, n, now)
             else:
                 resp = fused_tick(self.table, self._upload(slab), now)
                 uploaded = True
+            if fr is not None:
+                fr.note(fr.active(), "h2d", time.perf_counter() - t_h2d)
             if self.ssd is not None:
                 self.metric_ssd_tick_path_reads += (
                     self.ssd.metric_lookup_calls - ssd_reads0)
@@ -1272,6 +1288,10 @@ class TickEngine(BatchFront):
                     np.int64)
             handle = TickHandle(self, resp, n, inv, errors, cols.limit,
                                 cols.refs, slots_req)
+            self.metric_h2d_windows += 1
+            if self._inflight > 0:
+                self.metric_h2d_overlapped += 1
+            self._inflight += 1
             self._staging.retire(handle if uploaded else None)
             if self.store is not None:
                 handle.result()
@@ -1331,7 +1351,9 @@ class TickEngine(BatchFront):
         return resp, True
 
     def _account_resolved(self, resp_mat: np.ndarray, errors) -> None:
-        """Bookkeeping of a resolved window (the caller holds the lock)."""
+        """Bookkeeping of a resolved window (the caller holds the lock):
+        later uploads stop counting it as in flight."""
+        self._inflight = max(0, self._inflight - 1)
         self.metric_over_limit += masked_over_limit(resp_mat, errors)
 
     def _write_through(self, requests, slots: np.ndarray, n: int,
@@ -1656,6 +1678,11 @@ class TickEngine(BatchFront):
     def cold_size(self) -> int:
         """Entries the cold tier holds (0 without one)."""
         return 0 if self.cold is None else len(self.cold)
+
+    def h2d_overlap_ratio(self) -> float:
+        """Share of windows whose upload was issued while an earlier
+        window was unresolved (0.0 serial, ~1.0 pipelined)."""
+        return self.metric_h2d_overlapped / max(1, self.metric_h2d_windows)
 
     def hot_occupancy(self) -> float:
         """Share of the table's slots mapped to a key."""

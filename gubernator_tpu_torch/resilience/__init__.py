@@ -1,8 +1,34 @@
-"""Crash-proof background loops (the port's copy of the JAX package's
-``resilience.supervisor``; the breakers, backoff and fault injection of
-that package belong to the service layer and are not ported yet)."""
+"""Crash-proof background loops and the peer path's knobs (the port's copy
+of the JAX package's ``resilience``): ``spawn_supervised`` and the
+``ResilienceConfig`` dataclass a ``Config`` carries.  The breakers,
+backoff and fault injection it configures belong to the cluster and are
+not ported yet."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
 
 from gubernator_tpu_torch.resilience.supervisor import (
     spawn_supervised, spawn_supervised_thread)
 
-__all__ = ["spawn_supervised", "spawn_supervised_thread"]
+
+@dataclass
+class ResilienceConfig:
+    """Knobs for the fault-tolerant peer path (reference
+    ``resilience/__init__.py:41``; env ``GUBER_BREAKER_*``,
+    ``GUBER_FORWARD_*``, ``GUBER_REDELIVERY_LIMIT``)."""
+
+    breaker_enabled: bool = True
+    breaker_failure_threshold: float = 0.5
+    breaker_min_requests: int = 5
+    breaker_window: float = 10.0
+    breaker_open_for: float = 2.0
+    breaker_open_cap: float = 30.0
+    breaker_half_open_probes: int = 1
+    forward_max_attempts: int = 5
+    forward_backoff_base: float = 0.005
+    forward_backoff_cap: float = 0.1
+    redelivery_limit: int = 10_000
+
+
+__all__ = ["ResilienceConfig", "spawn_supervised", "spawn_supervised_thread"]

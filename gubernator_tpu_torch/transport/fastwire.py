@@ -1,0 +1,214 @@
+"""Native wire codec bindings: serialized pb <-> columns, no message objects.
+
+The port's copy of the JAX package's ``transport/fastwire`` for the
+rate-limit frames.  The C++ codec (``csrc/wirecodec.cc``, built by
+``_build.py`` with ``c++`` at first use) parses ``GetRateLimitsReq``
+bytes straight into a :class:`~gubernator_tpu_torch.ops.reqcols.ReqColumns`
+and writes ``GetRateLimitsResp`` bytes straight from the engine's (5, n)
+response matrix.  A codec that fails to build raises; ``parse_req`` and
+``parse_resp`` return None only for malformed bytes.
+
+Request-side semantics match :func:`transport.convert.columns_from_pb`
+(empty name / key per-item errors, metadata or GLOBAL / MULTI_REGION ->
+``special``, ``created_at`` 0 or absent -> the server stamps now);
+response bytes are identical to protobuf's for items without an error or
+metadata.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from gubernator_tpu_torch import _build
+from gubernator_tpu_torch.algos import algorithm_error, invalid_algorithm_mask
+from gubernator_tpu_torch.native import as_char_p
+from gubernator_tpu_torch.ops.reqcols import (
+    CREATED_UNSET,
+    ColumnArena,
+    IngestOverloadError,
+    ReqColumns,
+)
+from gubernator_tpu_torch.types import Behavior
+
+_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+
+# out_flags bits (wirecodec.cc).
+_NAME_EMPTY = 1
+_KEY_EMPTY = 2
+_HAS_METADATA = 4
+_HAS_CREATED = 8
+
+# Behaviors that take the object path: GLOBAL and MULTI_REGION.
+_SPECIAL_BEHAVIOR = int(Behavior.GLOBAL) | int(Behavior.MULTI_REGION)
+
+_configured = False
+
+
+def load() -> ctypes.CDLL:
+    """The wire codec library with its C signatures set (built at first
+    use; a failed build raises with the compiler's output)."""
+    global _configured
+    lib = _build.load("wirecodec")
+    if _configured:
+        return lib
+    i64, cp = ctypes.c_int64, ctypes.c_char_p
+    lib.guber_wire_count.restype = i64
+    lib.guber_wire_count.argtypes = [cp, i64]
+    lib.guber_parse_req.restype = i64
+    lib.guber_parse_req.argtypes = [
+        cp, i64, _U8, i64, _I64, _I64,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _U8,
+    ]
+    lib.guber_parse_resp.restype = i64
+    lib.guber_parse_resp.argtypes = [cp, i64, _I64, _I64, _I64, _I64, _U8]
+    lib.guber_encode_req.restype = i64
+    lib.guber_encode_req.argtypes = [
+        cp, _I64, _I64,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _U8,
+        i64, _U8, i64,
+    ]
+    lib.guber_encode_resp.restype = i64
+    lib.guber_encode_resp.argtypes = [_I64, _I64, _I64, _I64, i64, _U8, i64]
+    _configured = True
+    return lib
+
+
+def parse_req(
+    data: bytes, arena: Optional[ColumnArena] = None,
+) -> Optional[Tuple[ReqColumns, Dict[int, str], bool]]:
+    """Serialized ``GetRateLimitsReq`` -> (cols, per-item errors, special),
+    or None for malformed bytes.
+
+    ``special`` is True when an item carries GLOBAL or MULTI_REGION or
+    metadata: those take the object path, which parses with protobuf
+    (the codec records only metadata's presence).  With ``arena`` the
+    decode lands in a leased slab and the columns, key blob included, are
+    views into it; the caller releases the lease (``cols.release()``)
+    once the engine has packed the batch.  Oversized batches skip the
+    arena; when every slab is busy the arena's per-window fallback budget
+    allows a plain allocation, past it :class:`IngestOverloadError`."""
+    lib = load()
+    ln = len(data)
+    n = lib.guber_wire_count(data, ln)
+    if n < 0:
+        return None
+    if n == 0:
+        return ReqColumns.empty(), {}, False
+    blob_cap = ln + n
+    lease = arena.lease(n, blob_cap) if arena is not None else None
+    if lease is not None:
+        ints, blob, flags_full = lease.ints, lease.blob, lease.flags
+    else:
+        if (arena is not None and arena.fits(n, blob_cap)
+                and not arena.try_fallback()):
+            raise IngestOverloadError(
+                "ingest arena exhausted and fallback budget spent")
+        blob = np.empty(blob_cap, np.uint8)
+        # One zeroed block for every int64 output: the codec writes only
+        # the fields present on the wire, and proto3 absents read 0.
+        ints = np.zeros((9, n + 1), np.int64)
+        flags_full = np.zeros(n, np.uint8)
+    off = ints[8, : n + 1]
+    name_len, hits, limit, duration, algorithm, behavior, burst, created = (
+        ints[i, :n] for i in range(8))
+    flags = flags_full[:n]
+    got = lib.guber_parse_req(
+        data, ln, blob, len(blob), off, name_len,
+        hits, limit, duration, algorithm, behavior, burst, created, flags,
+    )
+    if got != n:
+        if lease is not None:
+            lease.release()
+        return None
+    # created_at absent or 0: the server stamps now.
+    created[created == 0] = CREATED_UNSET
+    errors: Dict[int, str] = {}
+    bad_key = flags & (_NAME_EMPTY | _KEY_EMPTY)
+    for i in np.flatnonzero(bad_key):
+        errors[int(i)] = (
+            "field 'unique_key' cannot be empty" if flags[i] & _KEY_EMPTY
+            else "field 'namespace' cannot be empty")
+    for i in np.flatnonzero(invalid_algorithm_mask(algorithm)):
+        errors.setdefault(int(i), algorithm_error(algorithm[i]))
+    special = bool((flags & _HAS_METADATA).any()) or bool(
+        (behavior & _SPECIAL_BEHAVIOR).any())
+    cols = ReqColumns(
+        blob[: off[n]], off, hits, limit, duration,
+        algorithm, behavior, created, burst, name_len=name_len,
+        lease=lease,
+    )
+    return cols, errors, special
+
+
+def parse_resp(data: bytes) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Serialized ``GetRateLimitsResp`` / ``GetPeerRateLimitsResp`` ->
+    ((4, n) int64 status / limit / remaining / reset_time, (n,) bool mask
+    of items with an error string or metadata, which protobuf re-parses
+    for the strings); None for malformed bytes."""
+    lib = load()
+    ln = len(data)
+    n = lib.guber_wire_count(data, ln)
+    if n < 0:
+        return None
+    mat = np.zeros((4, max(n, 1)), np.int64)
+    special = np.zeros(max(n, 1), np.uint8)
+    if n:
+        got = lib.guber_parse_resp(
+            data, ln, mat[0], mat[1], mat[2], mat[3], special)
+        if got != n:
+            return None
+    return mat[:, :n], special[:n].astype(bool)
+
+
+def encode_req(cols: ReqColumns) -> bytes:
+    """Columns -> serialized ``GetRateLimitsReq`` bytes (the same outer
+    shape serves ``GetPeerRateLimitsReq``).  Needs ``cols.name_len`` to
+    split each key back into its name and unique key."""
+    n = len(cols)
+    if n == 0:
+        return b""
+    if cols.name_len is None:
+        raise ValueError("encode_req needs the columns' name_len")
+    lib = load()
+    has_created = (cols.created_at != CREATED_UNSET).astype(np.uint8)
+    off = np.ascontiguousarray(cols.key_offsets, np.int64)
+    name_len = np.ascontiguousarray(cols.name_len, np.int64)
+    c = lambda a: np.ascontiguousarray(a, np.int64)  # noqa: E731
+    cap = int(off[n]) + 16 * n + 128
+    while True:
+        out = np.empty(cap, np.uint8)
+        wrote = lib.guber_encode_req(
+            as_char_p(cols.key_blob), off, name_len,
+            c(cols.hits), c(cols.limit), c(cols.duration),
+            c(cols.algorithm), c(cols.behavior), c(cols.burst),
+            c(cols.created_at), has_created, n, out, cap,
+        )
+        if wrote >= 0:
+            return out[:wrote].tobytes()
+        if wrote == -1:
+            raise ValueError(
+                "encode_req: a key is shorter than its name_len + 1 (an "
+                "item with an empty name or key)")
+        cap = -wrote
+
+
+def encode_resp(mat: np.ndarray) -> bytes:
+    """(5, n) response matrix -> serialized ``GetRateLimitsResp`` bytes."""
+    n = mat.shape[1]
+    if n == 0:
+        return b""
+    lib = load()
+    rows = [np.ascontiguousarray(mat[r], np.int64) for r in range(4)]
+    # Worst case an item: 4 fields of (1 tag + 10 varint bytes) = 44 B of
+    # payload plus a 2-B header (payload < 128).
+    cap = 8 + 46 * n
+    out = np.empty(cap, np.uint8)
+    wrote = lib.guber_encode_resp(rows[0], rows[1], rows[2], rows[3],
+                                  n, out, cap)
+    if wrote < 0:
+        raise RuntimeError(f"encode_resp: codec returned {wrote}")
+    return out[:wrote].tobytes()

@@ -1,0 +1,81 @@
+"""gRPC service and client bindings of the V1 and PeersV1 services.
+
+The port's copy of the JAX package's hand-written bindings, for the
+methods a standalone node serves.  Method paths match the reference's
+generated code (``/pb.gubernator.V1/GetRateLimits`` etc., reference
+gubernator_grpc.pb.go / peers_grpc.pb.go), so reference clients and
+servers interoperate on the wire.
+"""
+
+from __future__ import annotations
+
+import grpc
+
+from gubernator_tpu_torch.pb import gubernator_pb2 as pb
+from gubernator_tpu_torch.pb import peers_pb2 as peers_pb
+
+V1_SERVICE = "pb.gubernator.V1"
+PEERS_SERVICE = "pb.gubernator.PeersV1"
+
+
+def _raw_or_message(m) -> bytes:
+    """Pass-through serializer: the fast path hands back wire bytes, the
+    object path a protobuf message."""
+    return m if isinstance(m, bytes) else m.SerializeToString()
+
+
+def v1_handler(servicer) -> grpc.GenericRpcHandler:
+    """Generic handler of the public V1 service.  ``GetRateLimits`` takes
+    the raw request bytes (the servicer runs the native codec)."""
+    return grpc.method_handlers_generic_handler(
+        V1_SERVICE,
+        {
+            "GetRateLimits": grpc.unary_unary_rpc_method_handler(
+                servicer.GetRateLimits,
+                request_deserializer=lambda b: b,
+                response_serializer=_raw_or_message,
+            ),
+            "HealthCheck": grpc.unary_unary_rpc_method_handler(
+                servicer.HealthCheck,
+                request_deserializer=pb.HealthCheckReq.FromString,
+                response_serializer=pb.HealthCheckResp.SerializeToString,
+            ),
+        },
+    )
+
+
+def peers_handler(servicer) -> grpc.GenericRpcHandler:
+    """Generic handler of the peer-to-peer PeersV1 service."""
+    return grpc.method_handlers_generic_handler(
+        PEERS_SERVICE,
+        {
+            "GetPeerRateLimits": grpc.unary_unary_rpc_method_handler(
+                servicer.GetPeerRateLimits,
+                request_deserializer=lambda b: b,
+                response_serializer=_raw_or_message,
+            ),
+            "UpdatePeerGlobals": grpc.unary_unary_rpc_method_handler(
+                servicer.UpdatePeerGlobals,
+                request_deserializer=peers_pb.UpdatePeerGlobalsReq.FromString,
+                response_serializer=(
+                    peers_pb.UpdatePeerGlobalsResp.SerializeToString),
+            ),
+        },
+    )
+
+
+class V1Stub:
+    """Client stub of the public service."""
+
+    def __init__(self, channel):
+        self.GetRateLimits = channel.unary_unary(
+            f"/{V1_SERVICE}/GetRateLimits",
+            request_serializer=pb.GetRateLimitsReq.SerializeToString,
+            response_deserializer=pb.GetRateLimitsResp.FromString,
+        )
+        self.HealthCheck = channel.unary_unary(
+            f"/{V1_SERVICE}/HealthCheck",
+            request_serializer=pb.HealthCheckReq.SerializeToString,
+            response_deserializer=pb.HealthCheckResp.FromString,
+        )
+

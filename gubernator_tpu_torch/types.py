@@ -3,8 +3,9 @@
 The port's own copy of the reference contract (``gubernator.proto:56-203``):
 ``Algorithm`` (token and leaky bucket plus the sliding-window, GCRA and
 concurrency extensions), ``Behavior`` bitflags, ``Status``, and the
-``RateLimitRequest`` / ``RateLimitResponse`` dataclasses, and the
-owner-pushed ``GlobalUpdate``.
+``RateLimitRequest`` / ``RateLimitResponse`` dataclasses, the
+owner-pushed ``GlobalUpdate``, and the service layer's ``PeerInfo`` and
+``HealthCheckResponse``.
 """
 
 from __future__ import annotations
@@ -59,6 +60,10 @@ GREGORIAN_MONTHS = 4
 GREGORIAN_YEARS = 5
 
 
+# Hard cap on items per GetRateLimits call (reference gubernator.go:39-40).
+MAX_BATCH_SIZE = 1000
+
+
 @dataclass
 class RateLimitRequest:
     """One rate-limit check (reference RateLimitReq, gubernator.proto:137-183)."""
@@ -73,6 +78,10 @@ class RateLimitRequest:
     burst: int = 0
     metadata: Dict[str, str] = field(default_factory=dict)
     created_at: Optional[int] = None  # epoch ms; stamped by server when None
+    # Absolute local-monotonic admission deadline (seconds), stamped at
+    # the serving edge.  Never serialized: the wire carries the relative
+    # budget in the ``guber-deadline-ms`` metadata key.
+    deadline: Optional[float] = None
 
     def hash_key(self) -> str:
         """The cluster-sharding key: ``name_uniquekey`` (reference client.go:39-41)."""
@@ -101,3 +110,35 @@ class GlobalUpdate:
     algorithm: int = Algorithm.TOKEN_BUCKET
     duration: int = 0
     created_at: int = 0
+
+
+@dataclass(frozen=True)
+class PeerInfo:
+    """One cluster member (reference config.go:161-175)."""
+
+    grpc_address: str = ""
+    http_address: str = ""
+    datacenter: str = ""
+    is_owner: bool = False  # set only on the local instance's own entry
+
+    def hash_key(self) -> str:
+        """Ring identity of the peer (reference HashKey() = GRPCAddress)."""
+        return self.grpc_address
+
+
+@dataclass
+class HealthCheckResponse:
+    status: str = "healthy"
+    message: str = ""
+    peer_count: int = 0
+
+
+def has_behavior(behavior: int, flag: int) -> bool:
+    """Bitflag test (reference gubernator.go:776-781): always False for
+    the zero-valued BATCHING flag."""
+    return bool(behavior & flag)
+
+
+def set_behavior(behavior: int, flag: int, on: bool) -> int:
+    """Bitflag set/clear (reference gubernator.go:783-788)."""
+    return (behavior | flag) if on else (behavior & ~flag)

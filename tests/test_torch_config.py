@@ -1,0 +1,150 @@
+"""The port's daemon configuration against the JAX package's.
+
+``setup_daemon_config`` of both packages reads the same ``environ`` dict:
+for every ported knob the resulting fields are equal, and invalid values
+raise in both.  A knob of a module the port does not have yet raises in
+the port, naming the knob, instead of being silently ignored.
+"""
+
+import dataclasses
+import re
+
+import pytest
+
+from gubernator_tpu import config as jconfig
+from gubernator_tpu_torch import config
+
+BASE = {"GUBER_INSTANCE_ID": "node-1"}
+
+# A valid, non-default value of every knob setup_daemon_config reads.
+PORTED = {
+    "GUBER_ADVERTISE_ADDRESS": {"GUBER_ADVERTISE_ADDRESS": "10.1.2.3:81"},
+    "GUBER_BATCH_LIMIT": {"GUBER_BATCH_LIMIT": "250"},
+    "GUBER_BATCH_LIMIT_default": {"GUBER_BATCH_LIMIT": "1000"},
+    "GUBER_BATCH_WAIT": {"GUBER_BATCH_WAIT": "2ms"},
+    "GUBER_CACHE_SIZE": {"GUBER_CACHE_SIZE": "4096"},
+    "GUBER_COLD_CACHE_SIZE": {"GUBER_COLD_CACHE_SIZE": "512"},
+    "GUBER_FORCE_GLOBAL": {"GUBER_FORCE_GLOBAL": "true"},
+    "GUBER_GRPC_ADDRESS": {"GUBER_GRPC_ADDRESS": "127.0.0.1:9990"},
+    "GUBER_GRPC_MAX_CONN_AGE_SEC": {"GUBER_GRPC_MAX_CONN_AGE_SEC": "30"},
+    "GUBER_HTTP_ADDRESS": {"GUBER_HTTP_ADDRESS": "127.0.0.1:9980"},
+    "GUBER_INSTANCE_ID": {"GUBER_INSTANCE_ID": "another"},
+    "GUBER_LOG_FORMAT": {"GUBER_LOG_FORMAT": "json"},
+    "GUBER_LOG_LEVEL": {"GUBER_LOG_LEVEL": "debug"},
+    "GUBER_PEER_DISCOVERY_TYPE": {"GUBER_PEER_DISCOVERY_TYPE": "none"},
+    "GUBER_SNAPSHOT_DELTAS_PER_BASE": {"GUBER_SNAPSHOT_DELTAS_PER_BASE": "9"},
+    "GUBER_SNAPSHOT_DIR": {"GUBER_SNAPSHOT_DIR": "snapshots"},
+    "GUBER_SNAPSHOT_INTERVAL": {"GUBER_SNAPSHOT_INTERVAL": "1500ms"},
+    "GUBER_SSD": {"GUBER_COLD_CACHE_SIZE": "64", "GUBER_SSD_DIR": "slabs",
+                  "GUBER_SSD_CAPACITY_BYTES": "1048576",
+                  "GUBER_SSD_COMPACT_RATIO": "0.25",
+                  "GUBER_SSD_QUEUE_DEPTH": "3"},
+    "GUBER_TPU_BG_RECLAIM": {"GUBER_TPU_BG_RECLAIM": "off"},
+    "GUBER_TPU_MAX_BATCH": {"GUBER_TPU_MAX_BATCH": "1024"},
+    "GUBER_TPU_MESH_SHARDS": {"GUBER_TPU_MESH_SHARDS": "4"},
+    "GUBER_TPU_PLATFORM": {"GUBER_TPU_PLATFORM": "cpu"},
+}
+
+# Values both packages refuse.
+INVALID = [
+    {"GUBER_TPU_BG_RECLAIM": "maybe"},
+    {"GUBER_COLD_CACHE_SIZE": "-1"},
+    {"GUBER_SSD_DIR": "slabs"},
+    {"GUBER_COLD_CACHE_SIZE": "8", "GUBER_SSD_DIR": "s",
+     "GUBER_TPU_MESH_SHARDS": "2"},
+    {"GUBER_COLD_CACHE_SIZE": "8", "GUBER_SSD_DIR": "s",
+     "GUBER_SSD_COMPACT_RATIO": "1.5"},
+    {"GUBER_COLD_CACHE_SIZE": "8", "GUBER_SSD_DIR": "s",
+     "GUBER_SSD_QUEUE_DEPTH": "0"},
+    {"GUBER_COLD_CACHE_SIZE": "8", "GUBER_SSD_DIR": "s",
+     "GUBER_SSD_CAPACITY_BYTES": "0"},
+    {"GUBER_SNAPSHOT_INTERVAL": "0"},
+    {"GUBER_SNAPSHOT_DELTAS_PER_BASE": "0"},
+    {"GUBER_CACHE_SIZE": "lots"},
+    {"GUBER_BATCH_WAIT": "soon"},
+]
+
+
+def same_fields(a, b):
+    """Every field of the port's dataclass equals the JAX one's."""
+    for f in dataclasses.fields(b):
+        if f.name in ("loader", "store"):
+            continue
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(vb):
+            same_fields(va, vb)
+        else:
+            assert va == vb, f.name
+
+
+def test_every_ported_knob_sets_the_fields_the_jax_config_sets():
+    for knob, values in PORTED.items():
+        env = {**BASE, **values}
+        a = jconfig.setup_daemon_config(environ=env)
+        b = config.setup_daemon_config(environ=env)
+        same_fields(a, b)
+    everything = {**BASE}
+    for values in PORTED.values():
+        everything.update(values)
+    everything["GUBER_TPU_MESH_SHARDS"] = "0"  # the SSD tier is single-card
+    same_fields(jconfig.setup_daemon_config(environ=everything),
+                config.setup_daemon_config(environ=everything))
+
+
+def test_config_file_loads_as_in_the_jax_package(tmp_path):
+    path = tmp_path / "node.conf"
+    path.write_text("# a comment\nGUBER_CACHE_SIZE = 2048\n\n"
+                    "GUBER_BATCH_WAIT=1ms\nGUBER_INSTANCE_ID=x\n")
+    env = {"GUBER_BATCH_WAIT": "3ms"}  # the environment wins
+    a = jconfig.setup_daemon_config(str(path), environ=env)
+    b = config.setup_daemon_config(str(path), environ=env)
+    same_fields(a, b)
+    assert b.config.cache_size == 2048 and b.config.behaviors.batch_wait == 0.003
+    bad = tmp_path / "bad.conf"
+    bad.write_text("GUBER_CACHE_SIZE\n")
+    with pytest.raises(ValueError):
+        config.setup_daemon_config(str(bad), environ={})
+
+
+def test_invalid_values_raise_in_both():
+    for env in INVALID:
+        env = {**BASE, **env}
+        with pytest.raises(ValueError):
+            jconfig.setup_daemon_config(environ=env)
+        with pytest.raises(ValueError):
+            config.setup_daemon_config(environ=env)
+
+
+def test_every_reference_knob_is_ported_or_refused():
+    ref = set(jconfig.ENV_REGISTRY)
+    assert set(config.ENV_REGISTRY) | set(config.UNPORTED) == ref
+    assert not set(config.ENV_REGISTRY) & set(config.UNPORTED)
+
+
+@pytest.mark.parametrize("what", sorted(set(config.UNPORTED.values())))
+def test_unported_knobs_raise_naming_themselves(what):
+    knobs = [k for k, v in config.UNPORTED.items() if v == what]
+    for knob in knobs:
+        with pytest.raises(ValueError,
+                           match=re.escape(knob) + ".*not ported"):
+            config.setup_daemon_config(environ={**BASE, knob: "1"})
+
+
+def test_discovery_other_than_none_raises():
+    for kind in ("dns", "etcd", "k8s", "member-list"):
+        env = {**BASE, "GUBER_PEER_DISCOVERY_TYPE": kind}
+        jconfig.setup_daemon_config(environ=env)  # the JAX package runs it
+        with pytest.raises(ValueError, match="not ported"):
+            config.setup_daemon_config(environ=env)
+
+
+def test_env_knob_reads_only_ported_knobs():
+    env = {"GUBER_TICK_PIPELINE_DEPTH": "7", "GUBER_SLOW_WINDOW_MS": "x"}
+    assert config.env_knob("GUBER_TICK_PIPELINE_DEPTH", 4, int, env) == 7
+    assert config.env_knob("GUBER_INGEST_ARENA_SLABS", 8, int, env) == 8
+    with pytest.raises(ValueError, match="GUBER_SLOW_WINDOW_MS"):
+        config.env_knob("GUBER_SLOW_WINDOW_MS", 0.0, float, env)
+    with pytest.raises(KeyError):
+        config.env_knob("GUBER_LEASE_TTL", None, None, env)
+    for value in ("250ms", "2s", "1m", "100us", "0.5"):
+        assert config.parse_duration(value) == jconfig.parse_duration(value)

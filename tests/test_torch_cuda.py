@@ -665,3 +665,69 @@ def test_background_reclaim_on_the_card_keeps_every_live_key(dev):
                             working_set=3 * 4096, windows=120)
     assert info["bg_rounds"] > 0 and info["evictions"] > 0
     assert info["continuity_errors"] == 0 and info["shed"] == 0
+
+
+def test_serving_instance_on_the_card_answers_as_the_cpu_instance(dev):
+    """A V1Instance on the card and one on the CPU answer the same serial
+    raw batches (Zipf keys, all five algorithms, RESET and DRAIN rows,
+    explicit created_at) with the same response bytes, and the same
+    GLOBAL object answers."""
+    import asyncio
+
+    info = asyncio.run(cs.bitwise_instances(torch, 1 << 12, 4096, 24, 200))
+    assert info["items_equal"] == 24 * 200 + 3 * 16
+
+
+def test_concurrent_callers_on_the_card_keep_exact_accounting(dev):
+    """Callers coalesced into shared windows by the tick loop: each key's
+    drop in remaining equals the hits sent to it, whatever the windows."""
+    import asyncio
+
+    from gubernator_tpu_torch.service.instance import (
+        InstanceConfig, V1Instance)
+    from gubernator_tpu_torch.transport import fastwire
+
+    rng = np.random.default_rng(77)
+    keys = 2048
+    payloads = [np.minimum(rng.zipf(1.2, 500) - 1, keys - 1)
+                for _ in range(8)]
+
+    async def run():
+        inst = await V1Instance.create(
+            InstanceConfig(cache_size=keys, tpu_max_batch=1024))
+        try:
+            async def call(ids, hits):
+                mat, errs = await inst.get_rate_limits_columns(
+                    cs.serve_columns(reqcols, b"acct", ids, hits=hits))
+                assert not errs
+                return mat
+
+            async def remaining():
+                return np.concatenate([(await call(np.arange(
+                    s, min(s + 1000, keys)), 0))[2]
+                    for s in range(0, keys, 1000)])
+
+            before = await remaining()
+            raws = [fastwire.encode_req(cs.serve_columns(reqcols, b"acct", p))
+                    for p in payloads]
+
+            async def caller(c):
+                for k in range(6):
+                    cols, _, _ = fastwire.parse_req(raws[(c + k) % 8],
+                                                    inst.ingest_arena)
+                    await inst.get_rate_limits_columns(cols)
+
+            await asyncio.gather(*(caller(c) for c in range(16)))
+            after = await remaining()
+            windows = inst.engine.metric_h2d_windows
+        finally:
+            await inst.close()
+        return before, after, windows
+
+    before, after, windows = asyncio.run(run())
+    sent = np.zeros(keys, np.int64)
+    for c in range(16):
+        for k in range(6):
+            np.add.at(sent, payloads[(c + k) % 8], 1)
+    assert windows < 4 + 16 * 6  # callers shared windows
+    np.testing.assert_array_equal(before - after, sent)

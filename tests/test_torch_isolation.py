@@ -171,3 +171,84 @@ def test_wrappers_refuse_tensors_on_other_devices():
     with pytest.raises(ValueError):
         fused_sorted_tick(table, torch.zeros((19, 4), dtype=torch.int32,
                                              device="meta"), 0)
+
+
+SERVING_CORE = (
+    "types", "ops.reqcols", "config", "admission", "admission.deadline",
+    "admission.limiter", "admission.queue", "utils.flightrec",
+    "utils.tracing", "utils.metrics", "service.tickloop",
+    "service.instance", "transport.wire", "transport.fastwire",
+)
+
+
+def test_serving_core_runs_without_grpc_protobuf_aiohttp_or_prometheus():
+    """With grpc, google.protobuf, aiohttp and prometheus_client
+    unimportable, the serving core imports and serves a wire batch on a
+    CPU instance; only pb/, convert, grpc_api, daemon and daemon_main
+    need them."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('grpc', 'aiohttp', "
+        "'prometheus_client') or name.startswith('google.protobuf'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import asyncio, importlib\n"
+        f"for m in {SERVING_CORE!r}:\n"
+        "    importlib.import_module('gubernator_tpu_torch.' + m)\n"
+        "from gubernator_tpu_torch.ops.reqcols import ReqColumns\n"
+        "from gubernator_tpu_torch.service.instance import (\n"
+        "    InstanceConfig, V1Instance)\n"
+        "from gubernator_tpu_torch.transport import fastwire\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest\n"
+        "async def main():\n"
+        "    inst = await V1Instance.create(InstanceConfig(\n"
+        "        cache_size=64, tpu_max_batch=16, tpu_platform='cpu'))\n"
+        "    raw = fastwire.encode_req(ReqColumns.from_requests([\n"
+        "        RateLimitRequest(name='a', unique_key=str(i), hits=1,\n"
+        "                         limit=5, duration=60_000)\n"
+        "        for i in range(3)]))\n"
+        "    cols, errs, special = fastwire.parse_req(raw, inst.ingest_arena)\n"
+        "    mat, errs = await inst.get_rate_limits_columns(cols)\n"
+        "    fastwire.encode_resp(mat)\n"
+        "    inst.metrics.expose()\n"
+        "    await inst.close()\n"
+        "    print(mat[2].tolist())\n"
+        "asyncio.run(main())\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
+        "    'grpc', 'aiohttp', 'prometheus_client') or\n"
+        "    m.startswith('google.protobuf'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["[4, 4, 4]", "[]"]
+
+
+def test_instance_and_daemon_without_a_platform_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal "
+                    "without one")
+    import asyncio
+
+    from gubernator_tpu_torch import config
+    from gubernator_tpu_torch.service.instance import (
+        InstanceConfig, V1Instance)
+    from gubernator_tpu_torch.transport.daemon import Daemon, spawn_daemon
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyncio.run(V1Instance.create(
+            InstanceConfig(cache_size=16, tpu_max_batch=8)))
+    conf = config.DaemonConfig(
+        grpc_listen_address="127.0.0.1:0", http_listen_address="127.0.0.1:0",
+        config=config.Config(cache_size=16, tpu_max_batch=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyncio.run(spawn_daemon(conf))
+    with pytest.raises(ValueError, match="not ported"):
+        Daemon(config.DaemonConfig(peer_discovery_type="dns"))
+    with pytest.raises(ValueError, match="not ported"):
+        asyncio.run(V1Instance.create(InstanceConfig(
+            cache_size=16, tpu_max_batch=8, tpu_mesh_shards=2,
+            tpu_platform="cpu", cold_cache_size=4)))
