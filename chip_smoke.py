@@ -104,8 +104,27 @@ Phases, one output line each:
    for byte; and ``spawn_daemon`` over gRPC and HTTP against an
    in-process instance.
 
+7. a cluster (the reference's 4-node ``docker-compose.yaml`` development
+   cluster), in process over loopback gRPC with static membership: four
+   daemons, each over a ``TickEngine(capacity=2**21, max_batch=4096)`` on
+   the card, prefilled with their ring shares of 4M ``bench_`` keys
+   (mixed token and leaky, one-hour buckets of a million).  A: 16 serial
+   1000-request uniform batches to node 0, about three quarters of the
+   items forwarded to their owners (p50 / p99 / max ms, forward counts);
+   B: 32 concurrent callers round robin over the nodes (decisions/s, each
+   node's windows); C: 16 batches of GLOBAL hits on 1024 keys spread over
+   the nodes, then every owner's count exact and every non-owner's
+   answer its owner's (``global_converge_ms``: the last hit to all four
+   nodes agreeing); D: node 3 leaves the ring (its GLOBAL keys handed to
+   their new owners with their counts, its other keys fresh, the other
+   nodes' keys untouched; ``transfer_s``); E: a 4-node cluster of
+   2^14-slot card engines against one on the CPU, answer for answer
+   and owner row for owner row, on a seeded serial sequence (all five
+   algorithms, GLOBAL, RESET, negative hits, invalid items).  Launches by
+   path: prefill, forward, global, transfer, compare.
+
 Phase 2 also times one launch of an empty kernel (``empty_launch_ms``,
-``csrc/empty.cu``).  Phases 3-6 also report each path's tick launches by
+``csrc/empty.cu``).  Phases 3-7 also report each path's tick launches by
 lane width (``launches_by_width``, power-of-two buckets), summed over them
 on the ``launch_widths`` line.  Then the kernel table as one JSON line, the card
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -2724,6 +2743,495 @@ async def daemon_check(capacity, window, width):
     return out
 
 
+# ----------------------------------------------------------------------
+# Phase 7: a 4-node cluster on one card (the reference's docker-compose)
+# ----------------------------------------------------------------------
+CLUSTER_NODES = 4
+CLUSTER_KEYS = 4_000_000
+CLUSTER_CAPACITY = 1 << 21
+GLOBAL_KEYS = 1024
+BATCH_TIMEOUT_S = 10.0  # GUBER_BATCH_TIMEOUT in phase 7 (reference 0.5 s)
+# (duration, limit) pairs whose leak over 1000 ms steps is whole tokens
+# (the JAX engine's triple-float32 leak rounds like float64 only there,
+# ROADMAP C.1): the cluster comparison runs against the JAX package too.
+WHOLE_DL = [(1_000, 4), (4_096, 1 << 12), (5_000, 5), (1_000, 1), (0, 10),
+            (10_000, 10)]
+
+
+def spread_key(i: int) -> str:
+    """Key ``i`` of a set spread over the hash ring: FNV-1 mixes a short
+    key's early bytes little, so keys that share a prefix and differ only
+    at the end sit next to each other on the ring."""
+    import hashlib
+
+    return hashlib.md5(str(i).encode()).hexdigest()[:12]
+
+
+def cluster_plain_items(rng) -> list:
+    """A batch of unique keys: all five algorithms, RESET / DRAIN rows,
+    negative hits and invalid items (field dicts)."""
+    keys = rng.choice(40, size=int(rng.integers(4, 24)), replace=False)
+    out = []
+    for kk in keys:
+        d, lim = WHOLE_DL[int(rng.integers(0, len(WHOLE_DL)))]
+        f = dict(name="p", unique_key=spread_key(int(kk)),
+                 hits=int(rng.choice([0, 1, 1, 2, 5, -1])), limit=lim,
+                 duration=d, algorithm=int(rng.integers(0, 5)),
+                 behavior=int(rng.choice([0, 0, 0, 8, 32])),
+                 burst=int(rng.choice([0, 0, 20])))
+        if rng.random() < 0.1:
+            bad = [{"name": ""}, {"unique_key": ""}, {"algorithm": 7},
+                   {"behavior": 16}]
+            f.update(bad[int(rng.integers(0, len(bad)))])
+        out.append(f)
+    return out
+
+
+def cluster_global_items(rng) -> list:
+    """GLOBAL token and leaky items on unique keys, with negative hits,
+    RESET and hits over the limit, each with the role of the node it is
+    sent to (0: the key's owner, 1 and 2: non-owners)."""
+    keys = rng.choice(8, size=int(rng.integers(1, 5)), replace=False)
+    out = []
+    for kk in keys:
+        algo = int(kk % 2)  # each key keeps one algorithm
+        f = dict(name="g", unique_key=spread_key(100 + int(kk)),
+                 hits=int(rng.choice([1, 2, 3, -1, 7, 0])), limit=10,
+                 duration=10_000 if algo else 3_600_000, algorithm=algo,
+                 behavior=GLOBAL_BIT | int(rng.choice([0, 0, 0, 0, 8])))
+        out.append((int(rng.integers(0, 3)), f))
+    return out
+
+
+def role_daemon(c, name: str, key: str, role: int):
+    owner = c.find_owning_daemon(name, key)
+    if role == 0:
+        return owner
+    return c.list_non_owning_daemons(name, key)[role - 1]
+
+
+def strip_owner(resps) -> list:
+    """Responses as dicts without the ``owner`` metadata (two clusters on
+    ephemeral ports place the ring differently)."""
+    out = []
+    for r in resps:
+        v = dict(vars(r))
+        v["metadata"] = {k: x for k, x in r.metadata.items() if k != "owner"}
+        out.append(v)
+    return out
+
+
+def owner_rows(c) -> dict:
+    """The union over a cluster's nodes of each key's exported row on its
+    owner."""
+    rows = {}
+    for d in c.daemons:
+        snap = d.instance.engine.export_columns()
+        off = snap["key_offsets"]
+        fields = sorted(f for f in snap
+                        if f not in ("key_blob", "key_offsets"))
+        cols = [np.asarray(snap[f]) for f in fields]
+        for i in range(len(off) - 1):
+            key = bytes(snap["key_blob"][off[i]:off[i + 1]])
+            if d.instance.get_peer(key.decode()).info.is_owner:
+                assert key not in rows, key
+                rows[key] = tuple(col[i].item() for col in cols)
+    return rows
+
+
+def raw_batch(name: bytes, ids, hits=1, behavior=0, limit=SERVE_LIMIT):
+    """Serialized GetRateLimitsReq of ``name_<8 digits>`` keys."""
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.transport import fastwire
+
+    return fastwire.encode_req(serve_columns(
+        reqcols, name, ids, hits=hits, behavior=behavior, limit=limit))
+
+
+async def ask(d, raw):
+    """One raw GetRateLimits round trip to daemon ``d``; every item must
+    answer without an error."""
+    from gubernator_tpu_torch.pb import gubernator_pb2 as pb
+
+    client = d.client()
+    try:
+        out = await client.get_rate_limits_raw(raw, timeout=120)
+    finally:
+        await client.close()
+    msg = pb.GetRateLimitsResp.FromString(out)
+    assert not any(r.error for r in msg.responses), [
+        r.error for r in msg.responses if r.error][:3]
+    return msg.responses
+
+
+async def global_round(c, rng, keys: int, batches: int,
+                       limit=SERVE_LIMIT) -> dict:
+    """``batches`` batches of 1000 GLOBAL hits on ``keys`` keys, spread
+    round robin over the cluster's nodes; then, once every change reached
+    every node, each owner's count must be the limit less the hits sent
+    to the key, and every non-owner must answer as the owner does.  Key
+    i is ``glob_<gid[i]>``: digits that all vary spread the keys over the
+    ring (sequential ids differ only in their last bytes)."""
+    n = len(c.daemons)
+    gid = (np.arange(keys) * 2_654_435_761) % 10**8
+    sent = np.zeros(keys, np.int64)
+    for j in range(batches):
+        ids = rng.integers(0, keys, SERVE_BATCH)
+        np.add.at(sent, ids, 1)
+        await ask(c.daemons[j % n], raw_batch(
+            b"glob", gid[ids], behavior=GLOBAL_BIT, limit=limit))
+    t_last = time.perf_counter()
+    await c.wait_for_quiet(timeout=120)
+    out = {"converge_ms": (time.perf_counter() - t_last) * 1e3}
+    answers = []
+    for d in c.daemons:
+        rem = []
+        for s in range(0, keys, SERVE_BATCH):
+            rem += [(r.status, r.remaining, r.reset_time)
+                    for r in await ask(d, raw_batch(
+                        b"glob", gid[s:s + SERVE_BATCH], hits=0,
+                        behavior=GLOBAL_BIT, limit=limit))]
+        answers.append(rem)
+    where = {d.conf.grpc_listen_address: k for k, d in enumerate(c.daemons)}
+    inst = c.daemons[0].instance
+    owner_of = [where[inst.get_peer(f"glob_{i:08d}").info.grpc_address]
+                for i in gid]
+    owner_errors = sum(answers[o][i][1] != limit - sent[i]
+                       for i, o in enumerate(owner_of))
+    copy_errors = sum(answers[k][i] != answers[o][i]
+                      for i, o in enumerate(owner_of) for k in range(n))
+    out.update(keys=keys, hits=int(sent.sum()),
+               owners=np.bincount(owner_of, minlength=n).tolist(),
+               owner_count_errors=int(owner_errors),
+               non_owner_disagreements=int(copy_errors),
+               broadcasts=[d.metrics.sample(
+                   "gubernator_broadcast_duration_count")
+                   for d in c.daemons])
+    assert owner_errors == 0 and copy_errors == 0, out
+    return out, gid, sent, owner_of
+
+
+async def cluster_call(daemon, reqs, timeout=60.0):
+    client = daemon.client()
+    try:
+        return await client.get_rate_limits(reqs, timeout=timeout)
+    finally:
+        await client.close()
+
+
+async def drive_cluster(c, make, seed: int, clock, steps: int,
+                        timeout: float = 60.0) -> list:
+    """A seeded serial sequence through a 3- or 4-node cluster's gRPC
+    edges under the pinned clock ``clock``: even steps a batch of plain
+    items to one node, odd steps GLOBAL items each sent to the node of
+    its role, then every GLOBAL change waited for (the non-owners'
+    flushes, the owners' broadcasts).  ``make`` builds a request from a
+    field dict, so the JAX package's cluster runs the same sequence.
+    Returns every answer without its ``owner`` metadata."""
+    import asyncio
+
+    from gubernator_tpu_torch.cluster import wait_quiet
+
+    rng = np.random.default_rng(seed)
+    n = len(c.daemons)
+    answers = []
+    for k in range(steps):
+        clock[0] = NOW + 1000 * k
+        if k % 2 == 0:
+            fields = cluster_plain_items(rng)
+            answers.append(strip_owner(await cluster_call(
+                c.daemons[k % n], [make(**f) for f in fields], timeout)))
+            continue
+        sends = cluster_global_items(rng)
+        before = [c.metric_value(i, "gubernator_broadcast_duration_count")
+                  for i in range(n)]
+        got = await asyncio.gather(*(
+            cluster_call(role_daemon(c, "g", f["unique_key"], role),
+                         [make(**f)], timeout)
+            for role, f in sends))
+        answers.append([strip_owner(r) for r in got])
+        await wait_quiet(c.daemons, timeout)
+        for _, f in sends:
+            if f["hits"] != 0:
+                o = c.daemons.index(c.find_owning_daemon("g",
+                                                         f["unique_key"]))
+                await c.wait_for_broadcast(o, before[o] + 1, timeout)
+    return answers
+
+
+def cluster_phase(torch, dev, keys=CLUSTER_KEYS, capacity=CLUSTER_CAPACITY,
+                  window=4096, serial=16, callers=32, per_caller=4,
+                  global_keys=GLOBAL_KEYS, global_batches=16, small=1 << 14,
+                  compare_steps=24):
+    """The reference's 4-node development cluster on one card, in process
+    over loopback gRPC (``cluster.Cluster``, static membership): A, the
+    serial forwarding round trip; B, 32 concurrent callers over the four
+    nodes; C, GLOBAL keys reconciled to exact counts on every node; D,
+    node 3 leaving the ring (its GLOBAL keys handed over, its other keys
+    fresh); E, a 4-node card cluster against a CPU one on a seeded
+    sequence.  Returns ``(info, launches summed over the phase's
+    paths)``."""
+    import asyncio
+
+    return asyncio.run(_cluster(torch, dev, keys, capacity, window, serial,
+                                callers, per_caller, global_keys,
+                                global_batches, small, compare_steps))
+
+
+async def _cluster(torch, dev, keys, capacity, window, serial, callers,
+                   per_caller, global_keys, global_batches, small,
+                   compare_steps):
+    import asyncio
+
+    from gubernator_tpu_torch.cluster import Cluster
+    from gubernator_tpu_torch.config import BehaviorConfig
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.ops.engine import resolve_ticks
+
+    rng = np.random.default_rng(SEED + 10)
+    info, launches, widths = {"nodes": CLUSTER_NODES, "keys": keys,
+                              "capacity": capacity,
+                              "batch_timeout_s": BATCH_TIMEOUT_S}, {}, {}
+
+    def path(name):
+        return counted(torch, launches, name, widths)
+
+    def sample(d, name, labels=None):
+        return d.metrics.sample(name, labels)
+
+    # The reference's defaults, but for the forwarded batch's deadline:
+    # four nodes and every caller share one interpreter here, so a batch
+    # waits behind the others' host work far longer than across machines.
+    behaviors = BehaviorConfig(batch_timeout=BATCH_TIMEOUT_S)
+    c = await Cluster.start(CLUSTER_NODES, cache_size=capacity,
+                            tpu_max_batch=window, behaviors=behaviors)
+    try:
+        engines = [d.instance.engine for d in c.daemons]
+        assert all(e.table.device.type == dev.type for e in engines)
+        # Each key's owner on the ring (FNV-1 in Python, as the
+        # reference hashes), then each node's share into its own engine.
+        t0 = time.perf_counter()
+        blob, _ = key_blob(b"bench_", np.arange(keys))
+        width = len(b"bench_") + 8
+        names = [blob[i * width:(i + 1) * width].decode()
+                 for i in range(keys)]
+        where = {d.conf.grpc_listen_address: n
+                 for n, d in enumerate(c.daemons)}
+        node_of = np.fromiter(
+            (where[p.info.grpc_address]
+             for p in c.daemons[0].instance.local_picker.get_batch(names)),
+            np.int8, count=keys)
+        del names, blob
+        info["ring_lookup_s"] = time.perf_counter() - t0
+        shares = np.bincount(node_of, minlength=CLUSTER_NODES)
+        info["shares"] = shares.tolist()
+        assert shares.max() <= capacity - capacity // 64, shares
+        t0 = time.perf_counter()
+        with path("prefill"):
+            for n, eng in enumerate(engines):
+                mine = np.flatnonzero(node_of == n)
+                pending = []
+                for s in range(0, len(mine), window):
+                    ids = mine[s:s + window]
+                    pending.append(eng.submit_cols(serve_columns(
+                        reqcols, b"bench", ids, algorithm=ids & 1)))
+                    if len(pending) == 16 or s + window >= len(mine):
+                        resolve_ticks([h for b in pending
+                                       for h in b.handles()])
+                        for b in pending:
+                            mat, errs = b.matrix()
+                            assert not errs
+                            assert (mat[2] == SERVE_LIMIT - 1).all()
+                        pending = []
+                assert len(eng.slots) == shares[n]
+        info["prefill_s"] = time.perf_counter() - t0
+
+        # A: serial forwarding round trips to node 0.
+        raws = [raw_batch(b"bench", rng.integers(0, keys, SERVE_BATCH))
+                for _ in range(SERVE_PAYLOADS)]
+        d0 = c.daemons[0]
+
+        def peer_rpcs():
+            """Node 0's forwarded-batch RPCs (the peer clients' sends)."""
+            return sum(sample(d0, "gubernator_batch_send_duration_count",
+                              {"peerAddr": d.conf.grpc_listen_address})
+                       for d in c.daemons[1:])
+
+        fwd0 = sample(d0, "gubernator_getratelimit_counter_total",
+                      {"calltype": "forward"})
+        loc0 = sample(d0, "gubernator_getratelimit_counter_total",
+                      {"calltype": "local"})
+        with path("forward"):
+            for raw in raws[:3]:  # warm: peer channels dialled
+                await ask(d0, raw)
+            lat = []
+            rpcs0 = peer_rpcs()
+            for i in range(serial):
+                t1 = time.perf_counter()
+                resp = await ask(d0, raws[i % len(raws)])
+                lat.append((time.perf_counter() - t1) * 1e3)
+                assert all(r.status == 0 and r.remaining < SERVE_LIMIT
+                           for r in resp)
+            forwarded = sample(d0, "gubernator_getratelimit_counter_total",
+                               {"calltype": "forward"}) - fwd0
+            local = sample(d0, "gubernator_getratelimit_counter_total",
+                           {"calltype": "local"}) - loc0
+            info["forward"] = {
+                "serial_p50_ms": float(np.percentile(lat, 50)),
+                "serial_p99_ms": float(np.percentile(lat, 99)),
+                "serial_max_ms": float(max(lat)),
+                "batches": serial + 3,
+                "forwarded_items": forwarded, "local_items": local,
+                "forwarded_share": forwarded / max(1.0, forwarded + local),
+                "peer_rpcs_per_batch": (peer_rpcs() - rpcs0) / serial,
+            }
+            # B: concurrent callers, round robin over the nodes.
+            w0 = [e.metric_h2d_windows for e in engines]
+            t1 = time.perf_counter()
+
+            async def caller(k):
+                for j in range(per_caller):
+                    await ask(c.daemons[k % CLUSTER_NODES],
+                              raws[(k + j) % len(raws)])
+
+            await asyncio.gather(*(caller(k) for k in range(callers)))
+            dt = time.perf_counter() - t1
+            info["throughput"] = {
+                "callers": callers, "batches": callers * per_caller,
+                "decisions_per_s": callers * per_caller * SERVE_BATCH / dt,
+                "seconds": dt,
+                "windows": [e.metric_h2d_windows - w
+                            for e, w in zip(engines, w0)],
+            }
+
+        # C: GLOBAL keys, hits from every node, reconciled everywhere.
+        glim = SERVE_LIMIT
+        with path("global"):
+            info_g, gid, sent, owner_of = await global_round(
+                c, rng, global_keys, global_batches, glim)
+        info_g["installs_by_scatter"] = launches["global"]["scatter_rows"]
+        info["global"] = info_g
+        info["global_converge_ms"] = info_g["converge_ms"]
+
+        # D: node 3 leaves the ring, then closes.
+        leaving = c.daemons[3]
+        moved = [i for i, o in enumerate(owner_of) if o == 3]
+        # Token keys (even ids): a leaky bucket refills between probes.
+        token = np.arange(keys) % 2 == 0
+        plain3 = rng.choice(np.flatnonzero((node_of == 3) & token),
+                            min(1000, int(shares[3]) // 4), replace=False)
+        kept = rng.choice(np.flatnonzero((node_of != 3) & token), 1000,
+                          replace=False)
+        before_kept = [r.remaining for r in await ask(
+            d0, raw_batch(b"bench", kept, hits=0))]
+        before3 = [r.remaining for r in await ask(
+            d0, raw_batch(b"bench", plain3, hits=0))]
+        assert max(before3) <= SERVE_LIMIT - 1
+        with path("transfer"):
+            t1 = time.perf_counter()
+            rest = c.peers[:3]
+            for d in c.daemons:
+                d.set_peers(rest)
+            await asyncio.wait_for(asyncio.gather(
+                *leaving.instance._transfer_tasks), 120)
+            transfer_s = time.perf_counter() - t1
+            await leaving.close()
+            c.daemons, c.peers = c.daemons[:3], rest
+            await c.wait_for_quiet(timeout=120)
+            after = [(r.status, r.remaining) for r in await ask(
+                d0, raw_batch(b"glob", gid[moved], hits=0,
+                              behavior=GLOBAL_BIT, limit=glim))]
+            after3 = [r.remaining for r in await ask(
+                d0, raw_batch(b"bench", plain3, hits=0))]
+            after_kept = [r.remaining for r in await ask(
+                d0, raw_batch(b"bench", kept, hits=0))]
+        lost = sum(rem != glim - sent[i] for i, (_, rem) in zip(moved,
+                                                                after))
+        info["ring_change"] = {
+            "transfer_s": transfer_s,
+            "global_keys_moved": len(moved),
+            "transferred": sample(leaving,
+                                  "gubernator_tpu_ownership_transfers_total",
+                                  {"result": "pushed"}),
+            "global_count_errors": int(lost),
+            "plain_keys_fresh": int(sum(r == SERVE_LIMIT for r in after3)),
+            "plain_keys_checked": len(plain3),
+            "kept_keys_unchanged": int(sum(
+                a == b for a, b in zip(after_kept, before_kept))),
+        }
+        assert lost == 0 and len(moved) > 0, info["ring_change"]
+        assert info["ring_change"]["transferred"] == len(moved)
+        assert info["ring_change"]["plain_keys_fresh"] == len(plain3)
+        assert info["ring_change"]["kept_keys_unchanged"] == len(kept)
+        info["reclaims"] = [e.metric_bg_reclaims + e.metric_sync_reclaims
+                            for e in engines]
+        assert not any(info["reclaims"]), info["reclaims"]
+    finally:
+        await c.stop()
+    del engines, c
+
+    # E: a 4-node card cluster against a CPU one.
+    with path("compare"):
+        info["compare"] = await compare_clusters(small, window,
+                                                 compare_steps)
+    info["launches_by_path"] = launches
+    info["launches_by_width"] = widths
+    total = {}
+    for per in launches.values():
+        for name, n in per.items():
+            total[name] = total.get(name, 0) + n
+    assert total["fused_tick"] > 0, "no fused_tick launch in phase 7"
+    assert total["scatter_rows"] > 0, "no scatter_rows launch in phase 7"
+    return info, total
+
+
+async def compare_clusters(capacity, window, steps, nodes=CLUSTER_NODES,
+                           seed=SEED + 11):
+    """Two ``nodes``-node clusters of ``capacity``-slot engines, one on the
+    card and one on the CPU, answer the same seeded serial sequence under
+    a pinned clock alike (apart from ``owner``), and the union of their
+    owner-side rows is the same.  The forwarded batch's deadline is
+    phase 7's: a retry after a deadline that passed while the owner was
+    still ticking (its first kernel loads, say) applies the hits twice,
+    as the reference's at-least-once forwarding does."""
+    from gubernator_tpu_torch import types
+    from gubernator_tpu_torch.cluster import Cluster
+    from gubernator_tpu_torch.config import BehaviorConfig
+
+    behaviors = BehaviorConfig(batch_timeout=BATCH_TIMEOUT_S,
+                               global_sync_wait=0.02)
+    out = {}
+    with pinned_clock(NOW) as clock:
+        card = await Cluster.start(nodes, cache_size=capacity,
+                                   tpu_max_batch=window, behaviors=behaviors)
+        try:
+            cpu = await Cluster.start(nodes, cache_size=capacity,
+                                      tpu_max_batch=window,
+                                      behaviors=behaviors,
+                                      tpu_platform="cpu")
+            try:
+                a = await drive_cluster(card, types.RateLimitRequest, seed,
+                                        clock, steps)
+                b = await drive_cluster(cpu, types.RateLimitRequest, seed,
+                                        clock, steps)
+                for k, (x, y) in enumerate(zip(a, b)):
+                    assert x == y, (
+                        f"step {k}: card and CPU clusters answer "
+                        f"differently: {[(i, p, q) for i, (p, q) in enumerate(zip(x, y)) if p != q][:3]}")
+                rows, want = owner_rows(card), owner_rows(cpu)
+                assert rows == want, ("owner rows differ", [
+                    (k, rows.get(k), want.get(k))
+                    for k in sorted(set(rows) | set(want))
+                    if rows.get(k) != want.get(k)][:3])
+                out = {"steps": steps, "answers": sum(len(x) for x in a),
+                       "owner_rows_equal": len(rows)}
+            finally:
+                await cpu.stop()
+        finally:
+            await card.stop()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2771,13 +3279,15 @@ def main(argv=None) -> int:
     print("phase5 " + json.dumps(tiers), flush=True)
     serve, serve_launches = serve_phase(torch, dev)
     print("phase6 " + json.dumps(serve), flush=True)
+    cluster, cluster_launches = cluster_phase(torch, dev)
+    print("phase7 " + json.dumps(cluster), flush=True)
     for name in launches:
         launches[name] += (mesh_launches[name] + tier_launches[name]
-                           + serve_launches[name])
+                           + serve_launches[name] + cluster_launches[name])
         assert launches[name] > 0, f"{name} was not launched on the main path"
-    # The ticks' launches by lane width over the four phases' paths.
+    # The ticks' launches by lane width over the five phases' paths.
     widths = {}
-    for phase in (info, mesh, tiers, serve):
+    for phase in (info, mesh, tiers, serve, cluster):
         for per_path in phase["launches_by_width"].values():
             for name, counts in per_path.items():
                 for w, c in counts.items():

@@ -1,4 +1,4 @@
-"""Configuration of a standalone node: library Config + daemon config.
+"""Configuration of a node and its cluster: library Config + daemon config.
 
 The port's copy of the JAX package's ``config`` module (reference
 ``config.go:49-252``): ``BehaviorConfig`` inside ``Config`` inside
@@ -8,10 +8,10 @@ variable, and an optional ``key=value`` file is loaded into the
 environment first.
 
 Only the knobs of ported modules are read.  A knob of a module that is
-not ported yet (the cluster, discovery other than ``none``, TLS, leases,
-federation, resharding, the autoscaler, edge workers, the GLOBAL mesh) or
-of the JAX package's TPU/XLA path raises a ``ValueError`` that names it,
-so no setting is silently ignored.
+not ported yet (leases, federation, resharding, the autoscaler, edge
+workers, the GLOBAL mesh, the metric-flag collectors) or of the JAX
+package's TPU/XLA path raises a ``ValueError`` that names it, so no
+setting is silently ignored.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import random
 import socket
 import string
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 from gubernator_tpu_torch.resilience import ResilienceConfig
 
@@ -29,23 +29,66 @@ from gubernator_tpu_torch.resilience import ResilienceConfig
 ENV_REGISTRY: Dict[str, str] = {
     "GUBER_ADVERTISE_ADDRESS": "address peers use to reach this node",
     "GUBER_BATCH_LIMIT": "cap on requests a tick window coalesces",
+    "GUBER_BATCH_TIMEOUT": "deadline for a forwarded peer batch",
     "GUBER_BATCH_WAIT": "batch accumulation window (the tick wait)",
+    "GUBER_BREAKER_ENABLED": "per-peer circuit breakers on/off",
+    "GUBER_BREAKER_FAILURE_THRESHOLD": "failure fraction that opens a breaker",
+    "GUBER_BREAKER_HALF_OPEN_PROBES": "probe RPCs allowed half-open",
+    "GUBER_BREAKER_MIN_REQUESTS": "min window samples before tripping",
+    "GUBER_BREAKER_OPEN_CAP": "max open duration (backoff cap)",
+    "GUBER_BREAKER_OPEN_FOR": "initial open duration",
+    "GUBER_BREAKER_WINDOW": "sliding failure window length",
     "GUBER_CACHE_SIZE": "device bucket-table capacity (slots)",
     "GUBER_COLD_CACHE_SIZE": "host-side cold-tier entry budget (0 = off)",
+    "GUBER_DATA_CENTER": "datacenter name for region-aware picking",
     "GUBER_DEBUG_ENDPOINTS": "serve /debug/pipeline, /debug/traces, /debug/state (0/1)",
+    "GUBER_DISABLE_BATCHING": "disable peer-forwarding batches",
+    "GUBER_DNS_FQDN": "dns discovery: name to resolve for peers",
+    "GUBER_DRAIN_TIMEOUT": "graceful-shutdown GLOBAL flush budget",
+    "GUBER_ETCD_DIAL_TIMEOUT": "etcd discovery: dial timeout",
+    "GUBER_ETCD_ENDPOINTS": "etcd discovery: endpoints (comma list)",
+    "GUBER_ETCD_KEY_PREFIX": "etcd discovery: peer key prefix",
+    "GUBER_ETCD_PASSWORD": "etcd discovery: password",
+    "GUBER_ETCD_USER": "etcd discovery: username",
+    "GUBER_FAULT_DELAY": "fault injection: added per-RPC latency",
+    "GUBER_FAULT_DROP_RATE": "fault injection: DEADLINE_EXCEEDED rate",
+    "GUBER_FAULT_ERROR_RATE": "fault injection: UNAVAILABLE rate",
+    "GUBER_FAULT_PARTITION": "fault injection: 100% UNAVAILABLE",
+    "GUBER_FAULT_PEERS": "fault injection: target peers or '*'",
+    "GUBER_FAULT_SEED": "fault injection: RNG seed",
     "GUBER_FLIGHT_RECORDER_WINDOWS": "flight-recorder ring size (window records)",
     "GUBER_FORCE_GLOBAL": "force GLOBAL behavior on every request",
+    "GUBER_FORWARD_BACKOFF_BASE": "forward-retry backoff base",
+    "GUBER_FORWARD_BACKOFF_CAP": "forward-retry backoff cap",
+    "GUBER_FORWARD_MAX_ATTEMPTS": "forward-retry attempt budget",
+    "GUBER_GLOBAL_BATCH_LIMIT": "max records per GLOBAL flush batch",
+    "GUBER_GLOBAL_SYNC_WAIT": "GLOBAL reconcile cadence",
+    "GUBER_GLOBAL_TIMEOUT": "deadline for GLOBAL RPCs",
     "GUBER_GRPC_ADDRESS": "gRPC listen address",
     "GUBER_GRPC_MAX_CONN_AGE_SEC": "max gRPC client connection age (0 = inf)",
     "GUBER_HTTP_ADDRESS": "HTTP/JSON gateway listen address",
     "GUBER_INGEST_ARENA_SLABS": "preallocated wire-decode column slabs (0 = off)",
     "GUBER_INGEST_FALLBACK_LIMIT": "arena-miss plain allocations per window before shed",
     "GUBER_INSTANCE_ID": "unique instance id for logs",
+    "GUBER_K8S_ENDPOINTS_SELECTOR": "k8s discovery: endpoints selector",
+    "GUBER_K8S_NAMESPACE": "k8s discovery: namespace",
+    "GUBER_K8S_POD_IP": "k8s discovery: this pod's IP",
+    "GUBER_K8S_POD_PORT": "k8s discovery: this pod's port",
+    "GUBER_K8S_WATCH_MECHANISM": "k8s discovery: 'endpoints' or 'pods'",
     "GUBER_LOG_FORMAT": "log format: text or json",
     "GUBER_LOG_LEVEL": "log level: debug/info/warning/error",
-    "GUBER_PEER_DISCOVERY_TYPE": "discovery pool: only 'none' is ported",
+    "GUBER_MEMBERLIST_ADDRESS": "member-list discovery: bind address",
+    "GUBER_MEMBERLIST_ADVERTISE_ADDRESS": "member-list: advertise address",
+    "GUBER_MEMBERLIST_KNOWN_NODES": "member-list: seed nodes (comma list)",
+    "GUBER_PEER_DISCOVERY_TYPE": "discovery pool: member-list/etcd/dns/k8s/none",
+    "GUBER_PEER_PICKER": "peer picker implementation",
+    "GUBER_PEER_PICKER_HASH": "picker hash: fnv1 or fnv1a",
+    "GUBER_PEER_TIMEOUT_FLOOR": "min peer RPC timeout under deadline propagation",
     "GUBER_PENDING_LIMIT": "bounded admission queue cap in requests (0 = auto)",
+    "GUBER_REDELIVERY_LIMIT": "GLOBAL redelivery buffer cap",
+    "GUBER_REPLICATED_HASH_REPLICAS": "consistent-hash virtual replicas",
     "GUBER_REQUEST_TIMEOUT": "default per-request deadline budget",
+    "GUBER_RESOLV_CONF": "dns discovery: resolv.conf path",
     "GUBER_SHED_POLICY": "overload shed answers: fail-open/fail-closed",
     "GUBER_SLOW_WINDOW_MS": "slow-window watchdog threshold in ms (0 = off)",
     "GUBER_SNAPSHOT_DELTAS_PER_BASE": "delta records per base compaction",
@@ -55,51 +98,31 @@ ENV_REGISTRY: Dict[str, str] = {
     "GUBER_SSD_COMPACT_RATIO": "slab garbage fraction that triggers compaction",
     "GUBER_SSD_DIR": "SSD-tier slab directory ('' = off)",
     "GUBER_SSD_QUEUE_DEPTH": "SSD writer queue depth (demote batches)",
+    "GUBER_STATUS_HTTP_ADDRESS": "no-mTLS health/metrics listener",
     "GUBER_TARGET_P99_MS": "AIMD limiter window-p99 target in ms (0 = off)",
     "GUBER_TICK_PIPELINE_DEPTH": "dispatched-unresolved tick windows in flight",
+    "GUBER_TLS_AUTO": "self-signed server TLS",
+    "GUBER_TLS_CA": "TLS CA cert file",
+    "GUBER_TLS_CA_KEY": "TLS CA key file (auto-signs server certs)",
+    "GUBER_TLS_CERT": "TLS server cert file",
+    "GUBER_TLS_CLIENT_AUTH": "client-cert policy for mTLS",
+    "GUBER_TLS_CLIENT_AUTH_CA_CERT": "CA bundle validating client certs",
+    "GUBER_TLS_CLIENT_AUTH_CERT": "client cert for peer dials",
+    "GUBER_TLS_CLIENT_AUTH_KEY": "client key for peer dials",
+    "GUBER_TLS_CLIENT_AUTH_SERVER_NAME": "expected server name on dials",
+    "GUBER_TLS_INSECURE_SKIP_VERIFY": "skip peer cert verification (dev only)",
+    "GUBER_TLS_KEY": "TLS server key file",
+    "GUBER_TLS_MIN_VERSION": "minimum TLS version",
     "GUBER_TPU_BG_RECLAIM": "background reclaim: auto/on/off",
     "GUBER_TPU_MAX_BATCH": "request columns per device tick",
     "GUBER_TPU_MESH_SHARDS": "table shards (row ranges of one table on the card)",
     "GUBER_TPU_PLATFORM": "device: '' or 'cuda' (the card), 'cpu' (plain versions)",
 }
 
-_CLUSTER = "the cluster (peers, forwarding, GLOBAL reconcile; ROADMAP A.3b)"
-_DISCOVERY = "peer discovery (ROADMAP A.3b)"
 _TPU = "a knob of the JAX package's TPU/XLA path with no counterpart here"
 
 # Knobs of modules that are not ported yet -> where they belong.
 UNPORTED: Dict[str, str] = {
-    **{k: _CLUSTER for k in (
-        "GUBER_BATCH_TIMEOUT", "GUBER_DISABLE_BATCHING",
-        "GUBER_GLOBAL_TIMEOUT", "GUBER_GLOBAL_SYNC_WAIT",
-        "GUBER_GLOBAL_BATCH_LIMIT", "GUBER_DATA_CENTER",
-        "GUBER_DRAIN_TIMEOUT", "GUBER_PEER_PICKER",
-        "GUBER_PEER_PICKER_HASH", "GUBER_REPLICATED_HASH_REPLICAS",
-        "GUBER_PEER_TIMEOUT_FLOOR", "GUBER_REDELIVERY_LIMIT",
-        "GUBER_BREAKER_ENABLED", "GUBER_BREAKER_FAILURE_THRESHOLD",
-        "GUBER_BREAKER_HALF_OPEN_PROBES", "GUBER_BREAKER_MIN_REQUESTS",
-        "GUBER_BREAKER_OPEN_CAP", "GUBER_BREAKER_OPEN_FOR",
-        "GUBER_BREAKER_WINDOW", "GUBER_FORWARD_BACKOFF_BASE",
-        "GUBER_FORWARD_BACKOFF_CAP", "GUBER_FORWARD_MAX_ATTEMPTS",
-        "GUBER_FAULT_DELAY", "GUBER_FAULT_DROP_RATE",
-        "GUBER_FAULT_ERROR_RATE", "GUBER_FAULT_PARTITION",
-        "GUBER_FAULT_PEERS", "GUBER_FAULT_SEED")},
-    **{k: _DISCOVERY for k in (
-        "GUBER_DNS_FQDN", "GUBER_RESOLV_CONF", "GUBER_ETCD_DIAL_TIMEOUT",
-        "GUBER_ETCD_ENDPOINTS", "GUBER_ETCD_KEY_PREFIX",
-        "GUBER_ETCD_PASSWORD", "GUBER_ETCD_USER",
-        "GUBER_K8S_ENDPOINTS_SELECTOR", "GUBER_K8S_NAMESPACE",
-        "GUBER_K8S_POD_IP", "GUBER_K8S_POD_PORT",
-        "GUBER_K8S_WATCH_MECHANISM", "GUBER_MEMBERLIST_ADDRESS",
-        "GUBER_MEMBERLIST_ADVERTISE_ADDRESS",
-        "GUBER_MEMBERLIST_KNOWN_NODES")},
-    **{k: "TLS (ROADMAP A.3b)" for k in (
-        "GUBER_TLS_AUTO", "GUBER_TLS_CA", "GUBER_TLS_CA_KEY",
-        "GUBER_TLS_CERT", "GUBER_TLS_CLIENT_AUTH",
-        "GUBER_TLS_CLIENT_AUTH_CA_CERT", "GUBER_TLS_CLIENT_AUTH_CERT",
-        "GUBER_TLS_CLIENT_AUTH_KEY", "GUBER_TLS_CLIENT_AUTH_SERVER_NAME",
-        "GUBER_TLS_INSECURE_SKIP_VERIFY", "GUBER_TLS_KEY",
-        "GUBER_TLS_MIN_VERSION", "GUBER_STATUS_HTTP_ADDRESS")},
     **{k: "quota leases" for k in (
         "GUBER_LEASE_BUDGET_FRACTION", "GUBER_LEASE_CREDIT_BACK",
         "GUBER_LEASE_ENABLED", "GUBER_LEASE_MAX_BUDGET",
@@ -134,6 +157,7 @@ UNPORTED: Dict[str, str] = {
 }
 
 PLATFORMS = ("", "cuda", "cpu")
+DISCOVERY_TYPES = ("member-list", "etcd", "dns", "k8s", "none")
 
 
 def env_knob(name: str, default=None, parse: Optional[Callable] = None,
@@ -168,9 +192,9 @@ DEFAULT_BATCH_LIMIT = 1000
 @dataclass
 class BehaviorConfig:
     """Batching and GLOBAL cadence knobs (reference config.go:49-70).
-    Durations are seconds host-side.  A standalone node reads
-    ``batch_wait``, ``batch_limit`` and ``force_global``; the rest
-    configure the cluster."""
+    Durations are seconds host-side: ``batch_*`` the forwarding batches
+    (and ``batch_wait`` / ``batch_limit`` the tick window), ``global_*``
+    the GLOBAL reconcile loops."""
 
     batch_timeout: float = 0.5
     batch_wait: float = 500e-6
@@ -197,6 +221,9 @@ class Config:
 
     behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
     cache_size: int = 50_000
+    data_center: str = ""
+    local_picker_hash: str = "fnv1"  # GUBER_PEER_PICKER_HASH
+    replicas: int = 512              # GUBER_REPLICATED_HASH_REPLICAS
     instance_id: str = ""
     tpu_max_batch: int = 4096        # request columns per device tick
     tpu_mesh_shards: int = 0         # 0 = TickEngine; N > 1 = MeshTickEngine
@@ -210,7 +237,11 @@ class Config:
     snapshot_dir: str = ""           # persistence directory ("" = off)
     snapshot_interval: float = 5.0
     snapshot_deltas_per_base: int = 64
+    drain_timeout: float = 2.0       # graceful-shutdown GLOBAL flush budget
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    # A FaultInjector the peer clients consult before every RPC
+    # (GUBER_FAULT_* builds one; tests install theirs directly).
+    fault_injector: Optional[object] = None
     loader: Optional[object] = None
     store: Optional[object] = None
 
@@ -224,17 +255,71 @@ class Config:
 
 
 @dataclass
+class TLSSettings:
+    """TLS file paths and modes (reference config.go:330-420)."""
+
+    ca_file: str = ""
+    ca_key_file: str = ""
+    cert_file: str = ""
+    key_file: str = ""
+    auto_tls: bool = False
+    # "", "request", "verify-if-given", "require", "require-and-verify"
+    client_auth: str = ""
+    client_auth_ca_file: str = ""
+    client_auth_cert_file: str = ""
+    client_auth_key_file: str = ""
+    client_auth_server_name: str = ""
+    insecure_skip_verify: bool = False
+    min_version: str = "1.3"
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.auto_tls or self.cert_file or self.key_file
+                    or self.ca_file)
+
+
+@dataclass
 class DaemonConfig:
-    """Daemon-level config (reference config.go:181-252), standalone."""
+    """Daemon-level config (reference config.go:181-252)."""
 
     grpc_listen_address: str = "localhost:81"
     http_listen_address: str = "localhost:80"
+    http_status_listen_address: str = ""   # plaintext status listener
     advertise_address: str = ""
     config: Config = field(default_factory=Config)
     peer_discovery_type: str = "none"
+    data_center: str = ""
     log_level: str = "info"
     log_format: str = "text"
     grpc_max_conn_age_sec: int = 0
+
+    # member-list discovery
+    memberlist_address: str = ""
+    memberlist_advertise_address: str = ""
+    memberlist_known_nodes: List[str] = field(default_factory=list)
+
+    # etcd discovery
+    etcd_endpoints: List[str] = field(default_factory=list)
+    etcd_key_prefix: str = "/gubernator-tpu/peers/"
+    etcd_user: str = ""
+    etcd_password: str = ""
+    etcd_dial_timeout: float = 5.0
+
+    # k8s discovery
+    k8s_namespace: str = ""
+    k8s_pod_ip: str = ""
+    k8s_pod_port: str = ""
+    k8s_endpoints_selector: str = ""
+    k8s_watch_mechanism: str = "endpoints"
+
+    # dns discovery
+    dns_fqdn: str = ""
+    dns_resolv_conf: str = "/etc/resolv.conf"
+
+    tls: TLSSettings = field(default_factory=TLSSettings)
+
+    def client_tls(self) -> Optional[TLSSettings]:
+        return self.tls if self.tls.enabled else None
 
 
 def load_config_file(path: str,
@@ -292,6 +377,13 @@ class EnvReader:
             return default
         return v in ("1", "true", "yes", "on")
 
+    def list_(self, name: str,
+              default: Optional[List[str]] = None) -> List[str]:
+        v = self.env.get(name, "")
+        if v == "":
+            return list(default or [])
+        return [x.strip() for x in v.split(",") if x.strip()]
+
 
 _DUR_UNITS = [  # longest suffix first so "ms" wins over "s"
     ("ms", 1e-3), ("us", 1e-6), ("µs", 1e-6), ("ns", 1e-9),
@@ -322,13 +414,41 @@ def setup_daemon_config(
     r = EnvReader(env)
 
     behaviors = BehaviorConfig(
+        batch_timeout=r.float_seconds("GUBER_BATCH_TIMEOUT", 0.5),
         batch_wait=r.float_seconds("GUBER_BATCH_WAIT", 500e-6),
         batch_limit=r.int_("GUBER_BATCH_LIMIT", DEFAULT_BATCH_LIMIT),
         batch_limit_set=r.has("GUBER_BATCH_LIMIT"),
+        disable_batching=r.bool_("GUBER_DISABLE_BATCHING"),
+        global_timeout=r.float_seconds("GUBER_GLOBAL_TIMEOUT", 0.5),
+        global_sync_wait=r.float_seconds("GUBER_GLOBAL_SYNC_WAIT", 0.1),
+        global_batch_limit=r.int_("GUBER_GLOBAL_BATCH_LIMIT", 1000),
         force_global=r.bool_("GUBER_FORCE_GLOBAL"),
     )
+    resilience = ResilienceConfig(
+        breaker_enabled=r.bool_("GUBER_BREAKER_ENABLED", True),
+        breaker_failure_threshold=float(
+            r.str_("GUBER_BREAKER_FAILURE_THRESHOLD", "0.5")),
+        breaker_min_requests=r.int_("GUBER_BREAKER_MIN_REQUESTS", 5),
+        breaker_window=r.float_seconds("GUBER_BREAKER_WINDOW", 10.0),
+        breaker_open_for=r.float_seconds("GUBER_BREAKER_OPEN_FOR", 2.0),
+        breaker_open_cap=r.float_seconds("GUBER_BREAKER_OPEN_CAP", 30.0),
+        breaker_half_open_probes=r.int_("GUBER_BREAKER_HALF_OPEN_PROBES", 1),
+        forward_max_attempts=r.int_("GUBER_FORWARD_MAX_ATTEMPTS", 5),
+        forward_backoff_base=r.float_seconds(
+            "GUBER_FORWARD_BACKOFF_BASE", 0.005),
+        forward_backoff_cap=r.float_seconds("GUBER_FORWARD_BACKOFF_CAP", 0.1),
+        redelivery_limit=r.int_("GUBER_REDELIVERY_LIMIT", 10_000),
+    )
+    from gubernator_tpu_torch.resilience import FaultInjector
+
     conf = Config(
         behaviors=behaviors,
+        resilience=resilience,
+        fault_injector=FaultInjector.from_env(r),
+        data_center=r.str_("GUBER_DATA_CENTER"),
+        local_picker_hash=r.str_("GUBER_PEER_PICKER_HASH", "fnv1"),
+        replicas=r.int_("GUBER_REPLICATED_HASH_REPLICAS", 512),
+        drain_timeout=r.float_seconds("GUBER_DRAIN_TIMEOUT", 2.0),
         cache_size=r.int_("GUBER_CACHE_SIZE", 50_000),
         cold_cache_size=r.int_("GUBER_COLD_CACHE_SIZE", 0),
         ssd_dir=r.str_("GUBER_SSD_DIR"),
@@ -385,21 +505,79 @@ def setup_daemon_config(
         raise ValueError(
             f"GUBER_SNAPSHOT_DELTAS_PER_BASE must be >= 1; "
             f"got {conf.snapshot_deltas_per_base}")
-    discovery = r.str_("GUBER_PEER_DISCOVERY_TYPE", "none")
-    if discovery != "none":
+    if conf.drain_timeout < 0:
         raise ValueError(
-            f"GUBER_PEER_DISCOVERY_TYPE={discovery!r} is not ported yet: "
-            f"{_DISCOVERY}; only 'none' (a standalone node) is")
+            f"GUBER_DRAIN_TIMEOUT must be >= 0; got {conf.drain_timeout}")
+    if not 0.0 < resilience.breaker_failure_threshold <= 1.0:
+        raise ValueError(
+            f"GUBER_BREAKER_FAILURE_THRESHOLD must be in (0, 1]; "
+            f"got {resilience.breaker_failure_threshold}")
+    if resilience.forward_max_attempts < 0:
+        raise ValueError(
+            f"GUBER_FORWARD_MAX_ATTEMPTS must be >= 0; "
+            f"got {resilience.forward_max_attempts}")
+    if resilience.redelivery_limit < 0:
+        raise ValueError(
+            f"GUBER_REDELIVERY_LIMIT must be >= 0; "
+            f"got {resilience.redelivery_limit}")
+    if conf.local_picker_hash not in ("fnv1", "fnv1a"):
+        raise ValueError(
+            "GUBER_PEER_PICKER_HASH is invalid; choose one of 'fnv1', "
+            "'fnv1a'")
+    if r.str_("GUBER_PEER_PICKER", "replicated-hash") != "replicated-hash":
+        raise ValueError(
+            "GUBER_PEER_PICKER is invalid; 'replicated-hash' is the only "
+            "picker")
+    discovery = r.str_("GUBER_PEER_DISCOVERY_TYPE", "none")
+    if discovery not in DISCOVERY_TYPES:
+        raise ValueError(
+            f"GUBER_PEER_DISCOVERY_TYPE is invalid; choose one of "
+            f"{DISCOVERY_TYPES}")
+
+    tls = TLSSettings(
+        ca_file=r.str_("GUBER_TLS_CA"),
+        ca_key_file=r.str_("GUBER_TLS_CA_KEY"),
+        cert_file=r.str_("GUBER_TLS_CERT"),
+        key_file=r.str_("GUBER_TLS_KEY"),
+        auto_tls=r.bool_("GUBER_TLS_AUTO"),
+        client_auth=r.str_("GUBER_TLS_CLIENT_AUTH"),
+        client_auth_ca_file=r.str_("GUBER_TLS_CLIENT_AUTH_CA_CERT"),
+        client_auth_cert_file=r.str_("GUBER_TLS_CLIENT_AUTH_CERT"),
+        client_auth_key_file=r.str_("GUBER_TLS_CLIENT_AUTH_KEY"),
+        client_auth_server_name=r.str_("GUBER_TLS_CLIENT_AUTH_SERVER_NAME"),
+        insecure_skip_verify=r.bool_("GUBER_TLS_INSECURE_SKIP_VERIFY"),
+        min_version=r.str_("GUBER_TLS_MIN_VERSION", "1.3"),
+    )
 
     return DaemonConfig(
         grpc_listen_address=r.str_("GUBER_GRPC_ADDRESS", f"{local_host()}:81"),
         http_listen_address=r.str_("GUBER_HTTP_ADDRESS", f"{local_host()}:80"),
+        http_status_listen_address=r.str_("GUBER_STATUS_HTTP_ADDRESS"),
         advertise_address=r.str_("GUBER_ADVERTISE_ADDRESS"),
         config=conf,
         peer_discovery_type=discovery,
+        data_center=r.str_("GUBER_DATA_CENTER"),
         log_level=r.str_("GUBER_LOG_LEVEL", "info"),
         log_format=r.str_("GUBER_LOG_FORMAT", "text"),
         grpc_max_conn_age_sec=r.int_("GUBER_GRPC_MAX_CONN_AGE_SEC", 0),
+        memberlist_address=r.str_("GUBER_MEMBERLIST_ADDRESS"),
+        memberlist_advertise_address=r.str_(
+            "GUBER_MEMBERLIST_ADVERTISE_ADDRESS"),
+        memberlist_known_nodes=r.list_("GUBER_MEMBERLIST_KNOWN_NODES"),
+        etcd_endpoints=r.list_("GUBER_ETCD_ENDPOINTS", ["localhost:2379"]),
+        etcd_key_prefix=r.str_("GUBER_ETCD_KEY_PREFIX",
+                               "/gubernator-tpu/peers/"),
+        etcd_user=r.str_("GUBER_ETCD_USER"),
+        etcd_password=r.str_("GUBER_ETCD_PASSWORD"),
+        etcd_dial_timeout=r.float_seconds("GUBER_ETCD_DIAL_TIMEOUT", 5.0),
+        k8s_namespace=r.str_("GUBER_K8S_NAMESPACE", "default"),
+        k8s_pod_ip=r.str_("GUBER_K8S_POD_IP"),
+        k8s_pod_port=r.str_("GUBER_K8S_POD_PORT"),
+        k8s_endpoints_selector=r.str_("GUBER_K8S_ENDPOINTS_SELECTOR"),
+        k8s_watch_mechanism=r.str_("GUBER_K8S_WATCH_MECHANISM", "endpoints"),
+        dns_fqdn=r.str_("GUBER_DNS_FQDN"),
+        dns_resolv_conf=r.str_("GUBER_RESOLV_CONF", "/etc/resolv.conf"),
+        tls=tls,
     )
 
 

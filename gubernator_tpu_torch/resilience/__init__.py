@@ -1,13 +1,24 @@
-"""Crash-proof background loops and the peer path's knobs (the port's copy
-of the JAX package's ``resilience``): ``spawn_supervised`` and the
-``ResilienceConfig`` dataclass a ``Config`` carries.  The breakers,
-backoff and fault injection it configures belong to the cluster and are
-not ported yet."""
+"""The fault-tolerant peer path (the port's copy of the JAX package's
+``resilience``): per-peer :class:`CircuitBreaker`,
+:class:`DecorrelatedJitterBackoff` for forward retries,
+:class:`FaultInjector` schedules for chaos tests (``GUBER_FAULT_*``),
+:class:`ManualClock` virtual time, crash-proof background loops
+(``spawn_supervised``) and the ``ResilienceConfig`` a ``Config`` carries.
+Each breaker and injector draws from its own seeded ``random.Random``,
+as the JAX package's do."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from gubernator_tpu_torch.resilience.backoff import DecorrelatedJitterBackoff
+from gubernator_tpu_torch.resilience.breaker import (
+    BreakerOpenError,
+    BreakerState,
+    CircuitBreaker,
+)
+from gubernator_tpu_torch.resilience.clock import ManualClock
+from gubernator_tpu_torch.resilience.faults import FaultInjector, FaultSpec
 from gubernator_tpu_torch.resilience.supervisor import (
     spawn_supervised, spawn_supervised_thread)
 
@@ -31,4 +42,15 @@ class ResilienceConfig:
     redelivery_limit: int = 10_000
 
 
-__all__ = ["ResilienceConfig", "spawn_supervised", "spawn_supervised_thread"]
+__all__ = [
+    "BreakerOpenError",
+    "BreakerState",
+    "CircuitBreaker",
+    "DecorrelatedJitterBackoff",
+    "FaultInjector",
+    "FaultSpec",
+    "ManualClock",
+    "ResilienceConfig",
+    "spawn_supervised",
+    "spawn_supervised_thread",
+]

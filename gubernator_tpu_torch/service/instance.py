@@ -1,17 +1,25 @@
-"""V1Instance: one standalone node's request handling.
+"""V1Instance: the request router (ownership decision + 3-way dispatch).
 
-The port's copy of the JAX package's ``service/instance`` for a node with
-no peers (reference ``gubernator.go:183-295``): every key is local, so a
-GetRateLimits batch is validated, stamped and submitted to the
-:class:`TickLoop` as one window's worth of work.  A GLOBAL item is
-answered from local state, as the reference's standalone node answers
-it; the GLOBAL manager, forwarding, peer clients and the hash ring belong
-to the cluster, which is not ported yet (``set_peers`` accepts only this
-node's own entry, what discovery ``none`` installs).
+The port's copy of the JAX package's ``service/instance`` (reference
+``gubernator.go:183-295``): for every item of a GetRateLimits batch it
+decides local (this node owns the key on the consistent-hash ring),
+GLOBAL (answer from local state, reconcile in the background through the
+:class:`GlobalManager`) or forward (a batched RPC to the owning peer,
+retried with decorrelated-jitter backoff and ownership re-resolution,
+``gubernator.go:311-391``).  All local work flows through the
+:class:`TickLoop`, one device tick a window; the local items of one call
+are submitted together.  A node with no peers, or only its own entry
+(discovery ``none``), treats every key as local and may take the columns
+fast path.
 
-Create the instance inside a running event loop (as the reference's,
-``instance.py:270``), or through :meth:`V1Instance.create`, which also
-restores a Loader's or the snapshot directory's state.
+Not ported: the mesh-resident GLOBAL engine, federation, quota leases,
+live resharding, the autoscaler and the edge plane (their knobs raise in
+``config``).
+
+Create the instance inside a running event loop (the GLOBAL manager
+starts its loops at once, as the reference's ``NewV1Instance`` does), or
+through :meth:`V1Instance.create`, which also restores a Loader's or the
+snapshot directory's state.
 """
 
 from __future__ import annotations
@@ -27,12 +35,24 @@ import numpy as np
 from gubernator_tpu_torch.admission import (
     CLASS_CLIENT,
     CLASS_PEER,
+    BudgetExhaustedError,
     batch_deadline,
 )
 from gubernator_tpu_torch.algos import algorithm_error, invalid_algorithm_mask
 from gubernator_tpu_torch.config import BehaviorConfig, Config, env_knob
 from gubernator_tpu_torch.ops.engine import masked_over_limit
 from gubernator_tpu_torch.ops.reqcols import ColumnArena, ReqColumns
+from gubernator_tpu_torch.parallel.hashring import (
+    HASH_FUNCTIONS,
+    RegionPicker,
+    ReplicatedConsistentHash,
+)
+from gubernator_tpu_torch.resilience import (
+    BreakerOpenError,
+    DecorrelatedJitterBackoff,
+    ResilienceConfig,
+)
+from gubernator_tpu_torch.service.global_manager import GlobalManager
 from gubernator_tpu_torch.service.tickloop import TickLoop
 from gubernator_tpu_torch.types import (
     ALGORITHM_MAX,
@@ -64,7 +84,10 @@ class InstanceConfig:
 
     behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
     cache_size: int = 50_000
+    data_center: str = ""
     advertise_address: str = ""          # this node's own grpc address
+    picker_hash: str = "fnv1"
+    replicas: int = 512
     tpu_max_batch: int = 4096
     tpu_mesh_shards: int = 0             # 0: TickEngine; N > 1: the mesh
     tpu_platform: str = ""               # "" / "cuda": the card; "cpu"
@@ -77,16 +100,28 @@ class InstanceConfig:
     snapshot_dir: str = ""
     snapshot_interval: float = 5.0
     snapshot_deltas_per_base: int = 64
+    drain_timeout: float = 2.0           # GlobalManager.close's budget
     loader: Optional[object] = None
     store: Optional[object] = None
     metrics: Optional[Metrics] = None
+    # grpc.ChannelCredentials for peer dials (TLS), or None.
+    peer_credentials: Optional[object] = None
+    # Breaker, backoff and redelivery knobs, and the optional fault
+    # injector the peer clients consult before every RPC.
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    fault_injector: Optional[object] = None
 
     @classmethod
     def from_config(cls, conf: Config, advertise_address: str = "", **kw):
         return cls(
             behaviors=conf.behaviors,
+            resilience=conf.resilience,
+            fault_injector=conf.fault_injector,
             cache_size=conf.cache_size,
+            data_center=conf.data_center,
             advertise_address=advertise_address,
+            picker_hash=conf.local_picker_hash,
+            replicas=conf.replicas,
             tpu_max_batch=conf.tpu_max_batch,
             tpu_mesh_shards=conf.tpu_mesh_shards,
             tpu_platform=conf.tpu_platform,
@@ -99,6 +134,7 @@ class InstanceConfig:
             snapshot_dir=conf.snapshot_dir,
             snapshot_interval=conf.snapshot_interval,
             snapshot_deltas_per_base=conf.snapshot_deltas_per_base,
+            drain_timeout=conf.drain_timeout,
             loader=conf.loader,
             store=conf.store,
             **kw,
@@ -152,7 +188,7 @@ def _make_engine(conf: InstanceConfig):
 
 
 class V1Instance:
-    """One standalone service instance: engine + tick loop + ingest arena."""
+    """One service instance: engine + tick loop + pickers + GLOBAL manager."""
 
     def __init__(self, conf: InstanceConfig, engine=None):
         asyncio.get_running_loop()  # created inside a running event loop
@@ -188,7 +224,20 @@ class V1Instance:
             ColumnArena(MAX_BATCH_SIZE, slabs=slabs,
                         fallback_limit=fallback_limit)
             if slabs > 0 else None)
-        self._peers: List[PeerInfo] = []
+        hash_fn = HASH_FUNCTIONS[conf.picker_hash]
+        self._standalone = True  # no remote peer installed; see set_peers
+        self.local_picker: ReplicatedConsistentHash = (
+            ReplicatedConsistentHash(hash_fn, conf.replicas))
+        self.region_picker: RegionPicker = RegionPicker(
+            hash_fn, conf.replicas)
+        self.global_mgr = GlobalManager(
+            self, conf.behaviors, self.metrics, resilience=conf.resilience)
+        # Doomed-peer shutdowns, ring-change ownership transfers and
+        # per-item forwards run as tasks; tracked so close() awaits them
+        # and no failure is swallowed with its task.
+        self._peer_shutdown_tasks: set = set()
+        self._transfer_tasks: set = set()
+        self._forward_tasks: set = set()
         self._snapshot_writer = None
         self.restore_stats: dict = {}
         self._closed = False
@@ -258,7 +307,8 @@ class V1Instance:
     async def get_rate_limits(
         self, requests: Sequence[RateLimitRequest]
     ) -> List[RateLimitResponse]:
-        """Responses in request order (gubernator.go:183-295)."""
+        """The 3-way dispatch (gubernator.go:183-295); responses in request
+        order."""
         self._too_large(len(requests), "Requests.RateLimits")
         self.metrics.concurrent_checks.inc()
         t0 = time.perf_counter()
@@ -292,6 +342,8 @@ class V1Instance:
         created_at = timeutil.now_ms()
         out: List[Optional[RateLimitResponse]] = [None] * len(requests)
         local_idx: List[int] = []
+        global_idx: List[tuple] = []   # (i, owner_addr)
+        forward: List[tuple] = []      # (i, peer, req, key)
         for i, req in enumerate(requests):
             err = self._invalid(req)
             if err is not None:
@@ -304,21 +356,53 @@ class V1Instance:
             if self.conf.behaviors.force_global:
                 req.behavior = set_behavior(req.behavior, Behavior.GLOBAL,
                                             True)
-            local_idx.append(i)
+            key = req.hash_key()
+            peer = self.get_peer(key)
+            if peer is None or peer.info.is_owner:
+                local_idx.append(i)
+            elif has_behavior(req.behavior, Behavior.GLOBAL):
+                if peer.breaker.is_open():
+                    # Degraded GLOBAL mode: the local answer below is the
+                    # partition-tolerant one; count it.
+                    self.metrics.degraded_answers.inc()
+                global_idx.append((i, peer.info.grpc_address))
+            else:
+                forward.append((i, peer, req, key))
+
+        # Local items: one tick-loop submission for the whole call.
+        locals_done = None
         if local_idx:
-            resps = await self._submit_local(
-                [requests[i] for i in local_idx])
-            for i, resp in zip(local_idx, resps):
+            locals_done = self._submit_local(
+                [requests[i] for i in local_idx], is_owner=True)
+        # GLOBAL non-owner items: answer from local state, reconcile later.
+        globals_done = None
+        if global_idx:
+            globals_done = asyncio.ensure_future(
+                self._get_global_rate_limits(
+                    [requests[i] for i, _ in global_idx]))
+        # Forwarded items: a tracked task each, with retries.
+        fwd_tasks = [self._spawn_forward(peer, req, key)
+                     for _, peer, req, key in forward]
+
+        if locals_done is not None:
+            for i, resp in zip(local_idx, await locals_done):
                 out[i] = resp
+        if globals_done is not None:
+            for (i, owner), resp in zip(global_idx, await globals_done):
+                resp.metadata = {"owner": owner}
+                out[i] = resp
+        for (i, _, _, _), t in zip(forward, fwd_tasks):
+            out[i] = await t
         return out  # type: ignore[return-value]
 
     def columns_fast_path_ok(self) -> bool:
         """Whether GetRateLimits may run wire -> columns -> device with no
-        request objects: no server-forced GLOBAL and no Store (whose
-        read-through takes request objects).  The transport takes the
-        object path for a batch with GLOBAL items, metadata or per-item
-        errors."""
-        return (not self.conf.behaviors.force_global
+        request objects: every key local (no remote peer installed), no
+        server-forced GLOBAL and no Store (whose read-through takes
+        request objects).  The transport takes the object path for a
+        batch with GLOBAL items, metadata or per-item errors."""
+        return (self._standalone
+                and not self.conf.behaviors.force_global
                 and self.conf.store is None)
 
     async def get_rate_limits_columns(self, cols: ReqColumns,
@@ -358,23 +442,32 @@ class V1Instance:
             self.metrics.func_duration.labels(
                 name="V1Instance.getLocalRateLimit").observe(dt)
 
-    async def _submit_local(self, reqs: List[RateLimitRequest],
-                            klass: int = CLASS_CLIENT
-                            ) -> List[RateLimitResponse]:
-        """One tick-loop submission of an object batch, with metrics; the
-        batch inherits its most urgent member's deadline."""
-        t0 = time.perf_counter()
-        resps = await asyncio.wrap_future(self.tick_loop.submit(
-            reqs, deadline=batch_deadline(reqs), klass=klass))
-        self.metrics.func_duration.labels(
-            name="V1Instance.getLocalRateLimit"
-        ).observe(time.perf_counter() - t0)
-        self._count_algorithms([r.algorithm for r in reqs])
-        for resp in resps:
-            self.metrics.getratelimit_counter.labels(calltype="local").inc()
-            if resp.status == Status.OVER_LIMIT:
-                self.metrics.over_limit_counter.inc()
-        return resps
+    def _submit_local(self, reqs: List[RateLimitRequest], *, is_owner: bool,
+                      klass: int = CLASS_CLIENT) -> "asyncio.Future":
+        """One tick-loop submission of an object batch, with metrics and
+        the owner side of GLOBAL (each GLOBAL hit is queued for
+        broadcast); the batch inherits its most urgent member's
+        deadline."""
+
+        async def run():
+            t0 = time.perf_counter()
+            resps = await asyncio.wrap_future(self.tick_loop.submit(
+                reqs, deadline=batch_deadline(reqs), klass=klass))
+            self.metrics.func_duration.labels(
+                name="V1Instance.getLocalRateLimit"
+            ).observe(time.perf_counter() - t0)
+            self._count_algorithms([r.algorithm for r in reqs])
+            for req, resp in zip(reqs, resps):
+                if has_behavior(req.behavior, Behavior.GLOBAL):
+                    self.global_mgr.queue_update(req)
+                if is_owner:
+                    self.metrics.getratelimit_counter.labels(
+                        calltype="local").inc()
+                    if resp.status == Status.OVER_LIMIT:
+                        self.metrics.over_limit_counter.inc()
+            return resps
+
+        return asyncio.ensure_future(run())
 
     def _count_algorithms(self, algorithms) -> None:
         """Per-algorithm traffic split (gubernator_tpu_algorithm_requests);
@@ -387,9 +480,166 @@ class V1Instance:
                 self.metrics.algorithm_requests.labels(
                     algorithm=Algorithm(v).name.lower()).inc(int(c))
 
+    async def apply_local(
+        self, reqs: List[RateLimitRequest]
+    ) -> List[RateLimitResponse]:
+        """Apply requests to the local engine with no routing or queueing:
+        the GLOBAL manager's state re-read (global.go:241-249), in the
+        peer admission class."""
+        t0 = time.perf_counter()
+        try:
+            return await asyncio.wrap_future(self.tick_loop.submit(
+                reqs, deadline=batch_deadline(reqs), klass=CLASS_PEER))
+        finally:
+            self.metrics.func_duration.labels(
+                name="V1Instance.getLocalRateLimit"
+            ).observe(time.perf_counter() - t0)
+
+    async def _get_global_rate_limits(
+        self, reqs: List[RateLimitRequest]
+    ) -> List[RateLimitResponse]:
+        """Non-owner GLOBAL path (gubernator.go:395-421): answer from local
+        state as if this node owned the key, then queue the hits for the
+        owner."""
+        sp = tracing.current_span()
+        if sp is not None:
+            sp.add_event("getGlobalRateLimit", {"count": len(reqs)})
+        clones = []
+        for r in reqs:
+            c = RateLimitRequest(**vars(r))
+            c.behavior = set_behavior(c.behavior, Behavior.NO_BATCHING, True)
+            c.behavior = set_behavior(c.behavior, Behavior.GLOBAL, False)
+            clones.append(c)
+        resps = await asyncio.wrap_future(self.tick_loop.submit(
+            clones, deadline=batch_deadline(clones)))
+        for r in reqs:
+            self.global_mgr.queue_hit(r)
+            self.metrics.getratelimit_counter.labels(calltype="global").inc()
+        return resps
+
+    def _spawn_forward(self, peer, req: RateLimitRequest,
+                       key: str) -> "asyncio.Task":
+        """One tracked forward task; its failure is logged on completion,
+        so a forward abandoned by an exception earlier in the dispatch is
+        never collected mid-flight with a swallowed error."""
+        t = asyncio.ensure_future(self._async_request(peer, req, key))
+        self._forward_tasks.add(t)
+
+        def _done(task: "asyncio.Task") -> None:
+            self._forward_tasks.discard(task)
+            if task.cancelled():
+                return
+            exc = task.exception()
+            if exc is not None:
+                self.log.warning("forwarded request for %r failed: %s",
+                                 key, exc, exc_info=exc)
+
+        t.add_done_callback(_done)
+        return t
+
+    async def _async_request(self, peer, req: RateLimitRequest,
+                             key: str) -> RateLimitResponse:
+        """Forward one item to its owner (gubernator.go:311-391), traced
+        as the reference's asyncRequest span."""
+        with tracing.maybe_span(
+            "V1Instance.asyncRequest",
+            {"ratelimit.key": req.unique_key, "ratelimit.name": req.name,
+             "peer": peer.info.grpc_address},
+        ):
+            return await self._async_request_traced(peer, req, key)
+
+    async def _async_request_traced(self, peer, req: RateLimitRequest,
+                                    key: str) -> RateLimitResponse:
+        """Up to ``forward_max_attempts`` retries with decorrelated-jitter
+        backoff, the owner re-resolved before each (and the item applied
+        here once ownership moved to this node), the caller's deadline
+        budget respected, and a GLOBAL item behind an open breaker
+        answered from local state with ``degraded: "true"``.  A failed
+        non-GLOBAL forward answers the reference's per-item error; it
+        never becomes a local answer."""
+        import grpc  # a forward needs a peer, and a peer needs grpc
+
+        rconf = self.conf.resilience
+        backoff = None
+        attempts = 0
+        last_err: Optional[Exception] = None
+
+        async def retry(err: Exception) -> None:
+            nonlocal attempts, last_err, peer, backoff
+            attempts += 1
+            last_err = err
+            self.metrics.batch_send_retries.inc()
+            if backoff is None:
+                # Made on the first retry: its generator seeds itself
+                # from the OS, a cost every forwarded item would pay.
+                backoff = DecorrelatedJitterBackoff(
+                    rconf.forward_backoff_base, rconf.forward_backoff_cap)
+            await asyncio.sleep(backoff.next())
+            peer = self.get_peer(key) or peer
+
+        while True:
+            if attempts > rconf.forward_max_attempts:
+                self.metrics.check_error_counter.labels(
+                    error="Peer not connected").inc()
+                return RateLimitResponse(
+                    error=f"GetPeer() keeps returning peers that are not "
+                    f"connected for '{key}': {last_err}")
+            if (attempts != 0 and req.deadline is not None
+                    and time.monotonic() >= req.deadline):
+                self.metrics.check_error_counter.labels(
+                    error="Deadline exceeded").inc()
+                return RateLimitResponse(
+                    error=f"deadline budget spent while forwarding "
+                    f"'{key}': {last_err}")
+            if attempts != 0 and peer.info.is_owner:
+                resps = await self._submit_local([req], is_owner=True)
+                return resps[0]
+            try:
+                resp = await peer.get_peer_rate_limit(req)
+            except BudgetExhaustedError as e:
+                self.metrics.check_error_counter.labels(
+                    error="Deadline exceeded").inc()
+                return RateLimitResponse(
+                    error=f"deadline budget spent while forwarding "
+                    f"'{key}': {e}")
+            except BreakerOpenError as e:
+                if has_behavior(req.behavior, Behavior.GLOBAL):
+                    self.metrics.degraded_answers.inc()
+                    resp = (await self._get_global_rate_limits([req]))[0]
+                    resp.metadata = {"owner": peer.info.grpc_address,
+                                     "degraded": "true"}
+                    return resp
+                await retry(e)
+                continue
+            except grpc.aio.AioRpcError as e:
+                if e.code() in (grpc.StatusCode.DEADLINE_EXCEEDED,
+                                grpc.StatusCode.CANCELLED,
+                                grpc.StatusCode.UNAVAILABLE):
+                    await retry(e)
+                    continue
+                return RateLimitResponse(
+                    error=f"Error while fetching rate limit '{key}' from "
+                    f"peer: {e.details()}")
+            except Exception as e:
+                return RateLimitResponse(
+                    error=f"Error while fetching rate limit '{key}' from "
+                    f"peer: {e}")
+            self.metrics.getratelimit_counter.labels(calltype="forward").inc()
+            resp.metadata = {"owner": peer.info.grpc_address}
+            return resp
+
     # ------------------------------------------------------------------
     # Peer API (PeersV1)
     # ------------------------------------------------------------------
+    def peer_columns_fast_path_ok(self) -> bool:
+        """Whether GetPeerRateLimits may run wire -> columns -> device: a
+        relayed batch is processed here whatever the ring says (the
+        reference's peer side, gubernator.go:497-536), so unlike the
+        public gate this holds on a clustered node; GLOBAL, metadata and
+        error batches still take the object path."""
+        return (self.conf.store is None
+                and not self.conf.behaviors.force_global)
+
     async def get_peer_rate_limits_columns(self, cols: ReqColumns,
                                            deadline: float = None):
         """Columnar handling of a relayed batch (peer admission class)."""
@@ -422,14 +672,15 @@ class V1Instance:
             if req.created_at is None or req.created_at == 0:
                 req.created_at = created_at
         try:
-            return await self._submit_local(list(requests), klass=CLASS_PEER)
+            return await self._submit_local(
+                list(requests), is_owner=True, klass=CLASS_PEER)
         finally:
             for s in spans:
                 tracer.finish(s)
 
     async def update_peer_globals(self, updates: Sequence[GlobalUpdate]) -> None:
         """Install owner-pushed GLOBAL state (gubernator.go:425-459), off
-        the event loop (it is device work)."""
+        the event loop (it is device work: one row scatter)."""
         await asyncio.get_running_loop().run_in_executor(
             None, self.engine.install_globals, list(updates))
 
@@ -437,9 +688,31 @@ class V1Instance:
     # Health / peers
     # ------------------------------------------------------------------
     def health_check(self) -> HealthCheckResponse:
-        """A standalone node has no peer errors to report."""
-        return HealthCheckResponse(status="healthy", message="",
-                                   peer_count=len(self._peers))
+        """Recent per-peer errors (gubernator.go:542-586), plus the breaker
+        quorum rule: with more than half of the local peers behind open
+        circuit breakers this node is cut off from the cluster majority
+        and reports unhealthy (the daemon's /healthz answers 503)."""
+        errs: List[str] = []
+        local_peers = self.local_picker.peers()
+        for p in local_peers:
+            for msg in p.get_last_err():
+                errs.append(
+                    f"error returned from local peer.GetLastErr: {msg}")
+        region_peers = self.region_picker.peers()
+        for p in region_peers:
+            for msg in p.get_last_err():
+                errs.append(
+                    f"error returned from region peer.GetLastErr: {msg}")
+        open_breakers = sum(1 for p in local_peers if p.breaker.is_open())
+        if local_peers and open_breakers * 2 > len(local_peers):
+            errs.append(
+                f"{open_breakers}/{len(local_peers)} local peers have open "
+                f"circuit breakers")
+        return HealthCheckResponse(
+            status="unhealthy" if errs else "healthy",
+            message="|".join(errs),
+            peer_count=len(local_peers) + len(region_peers),
+        )
 
     def occupancy(self) -> dict:
         """Tier occupancy: device-table fill, cold size, shed count."""
@@ -453,29 +726,132 @@ class V1Instance:
         }
 
     def set_peers(self, peer_info: Sequence[PeerInfo]) -> None:
-        """Install the peer set: only this node's own entry (what discovery
-        ``none`` installs), marked owner.  Any other peer raises."""
-        others = [p.grpc_address for p in peer_info
-                  if p.grpc_address != self.conf.advertise_address]
-        if others:
-            raise ValueError(
-                f"clustered mode is not ported yet: peers {others} besides "
-                f"this node ({self.conf.advertise_address!r})")
-        self._peers = [
-            PeerInfo(grpc_address=p.grpc_address,
-                     http_address=p.http_address,
-                     datacenter=p.datacenter, is_owner=True)
-            for p in peer_info]
+        """Install a new peer set (gubernator.go:616-711): reuse clients of
+        unchanged peers, re-dial peers whose info changed, mark this
+        node's own entry owner, drain removed peers, and hand the GLOBAL
+        keys this node owned to their new owners."""
+        local = self.local_picker.new()
+        region = self.region_picker.new()
+        replaced: list = []
+        for info in peer_info:
+            if info.grpc_address == self.conf.advertise_address:
+                info = PeerInfo(
+                    grpc_address=info.grpc_address,
+                    http_address=info.http_address,
+                    datacenter=info.datacenter,
+                    is_owner=True,
+                )
+            if info.datacenter and info.datacenter != self.conf.data_center:
+                peer = self.region_picker.get_by_address(info.grpc_address)
+                if peer is None:
+                    peer = self._new_peer_client(info)
+                region.add(peer)
+                continue
+            peer = self.local_picker.get_by_address(info.grpc_address)
+            if peer is not None and peer.info != info:
+                replaced.append(peer)  # same address, changed info
+                peer = None
+            if peer is None:
+                peer = self._new_peer_client(info)
+            local.add(peer)
+
+        old_local, old_region = self.local_picker, self.region_picker
+        # The columns fast path reads one bool: cleared before the picker
+        # swap when remote peers arrive, set after it when they leave, so
+        # it never sees "standalone" with remote peers live.
+        standalone = all(p.info.is_owner for p in local.peers())
+        if not standalone:
+            self._standalone = False
+        self.local_picker, self.region_picker = local, region
+        if standalone:
+            self._standalone = True
+
+        doomed = replaced + [
+            p for p in old_local.peers()
+            if local.get_by_address(p.info.grpc_address) is None]
+        for picker in old_region.pickers().values():
+            doomed.extend(
+                p for p in picker.peers()
+                if region.get_by_address(p.info.grpc_address) is None)
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return  # no loop (an instance driven synchronously)
+        for p in doomed:
+            t = loop.create_task(
+                self._shutdown_peer(p),
+                name=f"peer-shutdown:{p.info.grpc_address}")
+            self._peer_shutdown_tasks.add(t)
+            t.add_done_callback(self._peer_shutdown_tasks.discard)
+        # Ownership handoff: GLOBAL keys this node owned whose new owner
+        # is another peer get their accumulated state pushed there.
+        if self.global_mgr._owned:
+            t = loop.create_task(self.global_mgr.transfer_ownership(),
+                                 name="ownership-transfer")
+            self._transfer_tasks.add(t)
+            t.add_done_callback(self._transfer_tasks.discard)
+
+    async def _shutdown_peer(self, peer) -> None:
+        try:
+            await peer.shutdown()
+        except Exception:
+            self.log.warning("shutdown of removed peer %s failed",
+                             peer.info.grpc_address, exc_info=True)
+
+    def _new_peer_client(self, info: PeerInfo):
+        """A client of ``info`` (this node's own entry too: it is never
+        dialled, since its keys are local)."""
+        from gubernator_tpu_torch.service.peer_client import PeerClient
+
+        return PeerClient(
+            info,
+            behaviors=self.conf.behaviors,
+            channel_credentials=self.conf.peer_credentials,
+            metrics=self.metrics,
+            resilience=self.conf.resilience,
+            fault_injector=self.conf.fault_injector,
+            self_address=self.conf.advertise_address,
+        )
+
+    def get_peer(self, key: str):
+        """The owning peer of a key; None with no peers set (every key
+        local)."""
+        if len(self.local_picker) == 0:
+            return None
+        return self.local_picker.get(key)
+
+    def get_peer_list(self) -> list:
+        return self.local_picker.peers()
 
     # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
     async def close(self) -> None:
-        """Shutdown: the final full snapshot base (or Loader save), then
-        the tick loop and the engine."""
+        """Graceful drain and shutdown (gubernator.go:151-170): finish
+        ownership transfers, flush the GLOBAL buffers under the drain
+        budget, await forwards and peer shutdowns, stop the peers, write
+        the final snapshot base (or Loader save), then stop the tick loop
+        and the engine."""
         if self._closed:
             return
         self._closed = True
+        if self._transfer_tasks:
+            await asyncio.gather(*list(self._transfer_tasks),
+                                 return_exceptions=True)
+        await self.global_mgr.close(drain_timeout=self.conf.drain_timeout)
+        if self._forward_tasks:
+            await asyncio.gather(*list(self._forward_tasks),
+                                 return_exceptions=True)
+        if self._peer_shutdown_tasks:
+            await asyncio.gather(*list(self._peer_shutdown_tasks),
+                                 return_exceptions=True)
+        for p in (set(self.local_picker.peers())
+                  | set(self.region_picker.peers())):
+            try:
+                await p.shutdown()
+            except Exception:
+                self.log.warning("peer %s shutdown failed during close",
+                                 p.info.grpc_address, exc_info=True)
         if self._snapshot_writer is not None:
             await self._snapshot_writer.close(final_base=True)
         if self.conf.loader is not None:

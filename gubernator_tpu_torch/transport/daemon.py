@@ -1,14 +1,16 @@
 """Daemon: gRPC server + HTTP-JSON gateway + metrics + lifecycle.
 
-The port's copy of the JAX package's ``transport/daemon`` for a
-standalone node (reference ``daemon.go``): one grpc.aio server exposing
-``V1`` and ``PeersV1``, an aiohttp JSON gateway with grpc-gateway's
-snake_case marshaling (``/v1/GetRateLimits``, ``/v1/HealthCheck``,
-``/healthz``, ``/readyz``, ``/metrics``, and with GUBER_DEBUG_ENDPOINTS
-``/debug/pipeline``, ``/debug/traces``, ``/debug/state``), discovery
-``none`` and ``wait_for_connect`` readiness.  Not ported: TLS, the other
-discovery pools, the edge plane, and the reshard, autoscaler and profile
-debug routes.
+The port's copy of the JAX package's ``transport/daemon`` (reference
+``daemon.go``): one grpc.aio server exposing ``V1`` and ``PeersV1``, an
+aiohttp JSON gateway with grpc-gateway's snake_case marshaling
+(``/v1/GetRateLimits``, ``/v1/HealthCheck``, ``/healthz`` (503 when a
+majority of peers sit behind open breakers), ``/readyz``, ``/metrics``,
+and with GUBER_DEBUG_ENDPOINTS ``/debug/pipeline``, ``/debug/traces``,
+``/debug/state``), TLS and mTLS with AutoTLS and the plaintext status
+listener (``daemon.go:305-334``), the five discovery pools
+(``daemon.go:208-243``) and ``wait_for_connect`` readiness.  Not
+ported: the edge plane and the reshard, autoscaler and profile debug
+routes.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from gubernator_tpu_torch.admission import (
     DEADLINE_METADATA_KEY,
     deadline_from_header,
 )
-from gubernator_tpu_torch.config import DaemonConfig, env_knob
+from gubernator_tpu_torch.config import (
+    DISCOVERY_TYPES, DaemonConfig, env_knob)
 from gubernator_tpu_torch.ops.reqcols import IngestOverloadError
 from gubernator_tpu_torch.pb import gubernator_pb2 as pb
 from gubernator_tpu_torch.pb import peers_pb2 as peers_pb
@@ -41,6 +44,7 @@ from gubernator_tpu_torch.service.instance import (
 from gubernator_tpu_torch.transport import convert, fastwire
 from gubernator_tpu_torch.transport.grpc_api import (
     V1Stub, peers_handler, v1_handler)
+from gubernator_tpu_torch.transport.tlsutil import TLSBundle, setup_tls
 from gubernator_tpu_torch.types import GlobalUpdate, PeerInfo
 from gubernator_tpu_torch.utils import flightrec, tracing
 from gubernator_tpu_torch.utils.metrics import Metrics
@@ -272,7 +276,7 @@ class PeersServicer:
             context, self.instance.tick_loop.admission.request_timeout)
         fast, msg = await _raw_columns_edge(
             raw, context,
-            self.instance.columns_fast_path_ok(),
+            self.instance.peer_columns_fast_path_ok(),
             self.instance.get_peer_rate_limits_columns,
             peers_pb.GetPeerRateLimitsReq,
             arena=self.instance.ingest_arena,
@@ -317,19 +321,22 @@ def _json(msg) -> dict:
 
 
 class Daemon:
-    """One running standalone node: instance + listeners."""
+    """One running node: instance + listeners + discovery."""
 
     def __init__(self, conf: DaemonConfig, engine=None):
-        if conf.peer_discovery_type != "none":
+        if conf.peer_discovery_type not in DISCOVERY_TYPES:
             raise ValueError(
-                f"peer discovery {conf.peer_discovery_type!r} is not "
-                "ported yet; only 'none' (a standalone node) is")
+                f"unknown peer discovery type {conf.peer_discovery_type!r}; "
+                f"choose one of {DISCOVERY_TYPES}")
         self.conf = conf
         self.metrics = Metrics()
         self.instance: Optional[V1Instance] = None
         self._engine = engine
         self._grpc_server: Optional[grpc.aio.Server] = None
         self._http_runner: Optional[web.AppRunner] = None
+        self._status_runner: Optional[web.AppRunner] = None
+        self._pool = None
+        self.tls: Optional[TLSBundle] = None
         self.peer_info: List[PeerInfo] = []
         # /readyz is 503 until the startup restore completed and again
         # from the moment the drain begins; /healthz stays liveness.
@@ -360,6 +367,7 @@ class Daemon:
             raise
 
     async def _start(self) -> None:
+        self.tls = setup_tls(self.conf.tls)
         options = [("grpc.max_receive_message_length", MAX_RECV_BYTES)]
         if self.conf.grpc_max_conn_age_sec > 0:
             age_ms = self.conf.grpc_max_conn_age_sec * 1000
@@ -369,7 +377,11 @@ class Daemon:
             interceptors=[_StatsInterceptor(self.metrics),
                           _TraceInterceptor()],
             options=options)
-        port = server.add_insecure_port(self.conf.grpc_listen_address)
+        if self.tls is not None:
+            port = server.add_secure_port(
+                self.conf.grpc_listen_address, self.tls.server_credentials())
+        else:
+            port = server.add_insecure_port(self.conf.grpc_listen_address)
         if port == 0:
             raise RuntimeError(
                 f"failed to bind gRPC listener {self.conf.grpc_listen_address}")
@@ -402,7 +414,11 @@ class Daemon:
         await self._start_gateway()
         iconf = InstanceConfig.from_config(
             self.conf.config, advertise_address=self.advertise_address,
-            metrics=self.metrics)
+            metrics=self.metrics,
+            peer_credentials=(
+                self.tls.channel_credentials() if self.tls else None))
+        iconf.data_center = (self.conf.data_center
+                             or self.conf.config.data_center)
         self.instance = await V1Instance.create(iconf, engine=self._engine)
         server.add_generic_rpc_handlers((
             v1_handler(V1Servicer(self.instance)),
@@ -411,15 +427,18 @@ class Daemon:
         await server.start()
         self._grpc_server = server
         self._ready = True
-        # Discovery "none": this node alone.
-        self.set_peers([PeerInfo(grpc_address=self.advertise_address,
-                                 http_address=self.conf.http_listen_address)])
+        await self._start_discovery()
         log.info("gubernator-tpu-torch daemon up: grpc=%s http=%s",
                  self.conf.grpc_listen_address, self.conf.http_listen_address)
 
     # ------------------------------------------------------------------
     # HTTP gateway (grpc-gateway JSON + /metrics, daemon.go:245-292)
     # ------------------------------------------------------------------
+    def _add_debug_routes(self, app: web.Application) -> None:
+        app.router.add_get("/debug/pipeline", self._h_debug_pipeline)
+        app.router.add_get("/debug/traces", self._h_debug_traces)
+        app.router.add_get("/debug/state", self._h_debug_state)
+
     async def _start_gateway(self) -> None:
         if not self.conf.http_listen_address:
             return
@@ -430,19 +449,36 @@ class Daemon:
         app.router.add_get("/readyz", self._h_readyz)
         app.router.add_get("/metrics", self._h_metrics)
         if self._debug_enabled:
-            app.router.add_get("/debug/pipeline", self._h_debug_pipeline)
-            app.router.add_get("/debug/traces", self._h_debug_traces)
-            app.router.add_get("/debug/state", self._h_debug_state)
+            self._add_debug_routes(app)
         runner = web.AppRunner(app, access_log=None)
         await runner.setup()
         self._http_runner = runner
         host, _, port = self.conf.http_listen_address.rpartition(":")
-        site = web.TCPSite(runner, host or "localhost", int(port))
+        ssl_ctx = self.tls.server_ssl_context() if self.tls else None
+        site = web.TCPSite(runner, host or "localhost", int(port),
+                           ssl_context=ssl_ctx)
         await site.start()
         socks = site._server.sockets if site._server is not None else []
         if int(port) == 0 and socks:
             self.conf.http_listen_address = (
                 f"{host or 'localhost'}:{socks[0].getsockname()[1]}")
+        # A plaintext status listener for health probes behind mTLS
+        # (daemon.go:305-334).
+        if self.conf.http_status_listen_address:
+            sapp = web.Application()
+            sapp.router.add_get("/v1/HealthCheck", self._h_health_check)
+            sapp.router.add_get("/healthz", self._h_health_check)
+            sapp.router.add_get("/readyz", self._h_readyz)
+            sapp.router.add_get("/metrics", self._h_metrics)
+            if self._debug_enabled:
+                self._add_debug_routes(sapp)
+            srunner = web.AppRunner(sapp, access_log=None)
+            await srunner.setup()
+            self._status_runner = srunner
+            shost, _, sport = (
+                self.conf.http_status_listen_address.rpartition(":"))
+            await web.TCPSite(srunner, shost or "localhost",
+                              int(sport)).start()
 
     async def _h_get_rate_limits(self, request: web.Request) -> web.Response:
         """The JSON gateway, snake_case field names (daemon.go:251-261)."""
@@ -589,14 +625,68 @@ class Daemon:
         return web.json_response(body)
 
     # ------------------------------------------------------------------
+    # Discovery (daemon.go:208-243)
+    # ------------------------------------------------------------------
+    async def _start_discovery(self) -> None:
+        kind = self.conf.peer_discovery_type
+        info = self._self_info()
+        if kind == "none":
+            self.set_peers([info])
+            return
+        from gubernator_tpu_torch import discovery
+
+        if kind == "dns":
+            self._pool = discovery.DNSPool(
+                fqdn=self.conf.dns_fqdn,
+                grpc_port=int(
+                    self.conf.grpc_listen_address.rsplit(":", 1)[1]),
+                http_port=(
+                    int(self.conf.http_listen_address.rsplit(":", 1)[1])
+                    if self.conf.http_listen_address else 0),
+                on_update=self.set_peers,
+            )
+        elif kind == "etcd":
+            self._pool = discovery.EtcdPool(
+                endpoints=self.conf.etcd_endpoints,
+                key_prefix=self.conf.etcd_key_prefix,
+                info=info,
+                on_update=self.set_peers,
+            )
+        elif kind == "k8s":
+            self._pool = discovery.K8sPool(
+                namespace=self.conf.k8s_namespace,
+                selector=self.conf.k8s_endpoints_selector,
+                pod_ip=self.conf.k8s_pod_ip,
+                pod_port=self.conf.k8s_pod_port,
+                mechanism=self.conf.k8s_watch_mechanism,
+                on_update=self.set_peers,
+            )
+        else:  # member-list
+            self._pool = discovery.MemberlistPool(
+                bind_address=self.conf.memberlist_address,
+                known_nodes=self.conf.memberlist_known_nodes,
+                info=info,
+                on_update=self.set_peers,
+            )
+        await self._pool.start()
+
+    def _self_info(self) -> PeerInfo:
+        return PeerInfo(
+            grpc_address=self.advertise_address,
+            http_address=self.conf.http_listen_address,
+            datacenter=self.conf.data_center,
+        )
+
     def set_peers(self, peers: Sequence[PeerInfo]) -> None:
-        """Install membership (daemon.go:399-409): this node alone."""
+        """Install cluster membership; the instance marks this node's own
+        entry (daemon.go:399-409)."""
         self.peer_info = list(peers)
         self.instance.set_peers(self.peer_info)
 
     def client(self) -> "DaemonClient":
         """A client dialing this daemon (reference Daemon.Client)."""
-        return DaemonClient(self.conf.grpc_listen_address)
+        creds = self.tls.channel_credentials() if self.tls else None
+        return DaemonClient(self.conf.grpc_listen_address, credentials=creds)
 
     async def wait_for_connect(self, timeout: float = 30.0) -> None:
         """Readiness: block until the gRPC listener answers HealthCheck."""
@@ -616,7 +706,8 @@ class Daemon:
 
     async def close(self) -> None:
         """Graceful shutdown (daemon.go:369-396): readiness to 503 first,
-        then the instance (final snapshot), then the listeners."""
+        then discovery off, then the instance (ownership transfers, the
+        GLOBAL drain, the final snapshot), then the listeners."""
         self._draining = True
         if self._watchdog_task is not None:
             self._watchdog_task.cancel()
@@ -632,6 +723,9 @@ class Daemon:
                 and flightrec.get() is self._flight_recorder):
             flightrec.uninstall()
         self._flight_recorder = None
+        if self._pool is not None:
+            await self._pool.close()
+            self._pool = None
         if self.instance is not None:
             await self.instance.close()
         if self._grpc_server is not None:
@@ -639,13 +733,19 @@ class Daemon:
         if self._http_runner is not None:
             await self._http_runner.cleanup()
             self._http_runner = None
+        if self._status_runner is not None:
+            await self._status_runner.cleanup()
+            self._status_runner = None
 
 
 class DaemonClient:
     """Thin async client of the public V1 API (reference client.go)."""
 
-    def __init__(self, address: str):
-        self.channel = grpc.aio.insecure_channel(address)
+    def __init__(self, address: str, credentials=None):
+        if credentials is not None:
+            self.channel = grpc.aio.secure_channel(address, credentials)
+        else:
+            self.channel = grpc.aio.insecure_channel(address)
         self.stub = V1Stub(self.channel)
         # Raw-bytes method of the columnar path: the native codec writes
         # and reads the wire bytes; gRPC ships them.

@@ -1,7 +1,8 @@
 """gRPC service and client bindings of the V1 and PeersV1 services.
 
 The port's copy of the JAX package's hand-written bindings, for the
-methods a standalone node serves.  Method paths match the reference's
+methods a node and its peers serve (the lease and federation methods are
+not ported).  Method paths match the reference's
 generated code (``/pb.gubernator.V1/GetRateLimits`` etc., reference
 gubernator_grpc.pb.go / peers_grpc.pb.go), so reference clients and
 servers interoperate on the wire.
@@ -79,3 +80,18 @@ class V1Stub:
             response_deserializer=pb.HealthCheckResp.FromString,
         )
 
+
+class PeersV1Stub:
+    """Client stub of the peer service."""
+
+    def __init__(self, channel):
+        self.GetPeerRateLimits = channel.unary_unary(
+            f"/{PEERS_SERVICE}/GetPeerRateLimits",
+            request_serializer=peers_pb.GetPeerRateLimitsReq.SerializeToString,
+            response_deserializer=peers_pb.GetPeerRateLimitsResp.FromString,
+        )
+        self.UpdatePeerGlobals = channel.unary_unary(
+            f"/{PEERS_SERVICE}/UpdatePeerGlobals",
+            request_serializer=peers_pb.UpdatePeerGlobalsReq.SerializeToString,
+            response_deserializer=peers_pb.UpdatePeerGlobalsResp.FromString,
+        )

@@ -1,8 +1,9 @@
 """Prometheus metrics with the reference's family names, in plain Python.
 
 The port's copy of the JAX package's ``utils/metrics`` for the families a
-standalone node feeds (service, cache, gRPC, tick, tiers, snapshots,
-admission and the serving telemetry histograms).  It carries its own
+node and its cluster feed (service, peer forwarding, GLOBAL reconcile,
+breakers, cache, gRPC, tick, tiers, snapshots, admission and the serving
+telemetry histograms).  It carries its own
 small counter, gauge, summary and histogram families with ``labels()``
 and renders the Prometheus text exposition the ``prometheus_client``
 library would for the same families and calls (``_total`` counters,
@@ -327,6 +328,39 @@ class Metrics:
             "The count of requests queued up in WorkerPool.",
             ["method", "worker"], registry=reg)
 
+        # Batch-forwarding families (gubernator.go:95-110).
+        self.batch_send_duration = Summary(
+            "gubernator_batch_send_duration",
+            "The timings of batch send operations to a remote peer.",
+            ["peerAddr"], registry=reg)
+        self.batch_send_retries = Counter(
+            "gubernator_batch_send_retries",
+            "The count of retries occurred in asyncRequest() forwarding a "
+            "request to another peer.",
+            registry=reg)
+        self.batch_queue_length = Gauge(
+            "gubernator_batch_queue_length",
+            "The getRateLimitsBatch() queue length in PeerClient.",
+            ["peerAddr"], registry=reg)
+
+        # GLOBAL manager families (global.go:50-67).
+        self.global_send_duration = Summary(
+            "gubernator_global_send_duration",
+            "The duration of GLOBAL async sends in seconds.",
+            registry=reg)
+        self.broadcast_duration = Summary(
+            "gubernator_broadcast_duration",
+            "The duration of GLOBAL broadcasts to peers in seconds.",
+            registry=reg)
+        self.global_send_queue_length = Gauge(
+            "gubernator_global_send_queue_length",
+            "The count of requests queued up for global broadcast.",
+            registry=reg)
+        self.global_queue_length = Gauge(
+            "gubernator_global_queue_length",
+            "The count of requests queued up for update all peers.",
+            registry=reg)
+
         # Cache families (lrucache.go:48-59).
         self.cache_size = Gauge(
             "gubernator_cache_size",
@@ -443,6 +477,42 @@ class Metrics:
             "(the rest of their batch was still served).",
             registry=reg)
 
+        # The fault-tolerant peer path (docs/resilience.md).
+        self.breaker_state = Gauge(
+            "gubernator_breaker_state",
+            "Circuit breaker state per peer: 0=closed, 1=half-open, 2=open.",
+            ["peerAddr"], registry=reg)
+        self.breaker_transitions = Counter(
+            "gubernator_breaker_transitions",
+            "Circuit breaker state transitions per peer; label \"to\" is "
+            "the state entered (closed/half_open/open).",
+            ["peerAddr", "to"], registry=reg)
+        self.degraded_answers = Counter(
+            "gubernator_degraded_answers",
+            "GLOBAL requests answered from local non-owner state while "
+            "the owning peer's circuit breaker was open (degraded mode).",
+            registry=reg)
+        self.global_redelivered_hits = Counter(
+            "gubernator_global_redelivered_hits",
+            "GLOBAL hit records re-enqueued into the redelivery buffer "
+            "after a failed flush to the owning peer.",
+            registry=reg)
+        self.global_dropped_hits = Counter(
+            "gubernator_global_dropped_hits",
+            "GLOBAL hit records dropped because the redelivery buffer "
+            "was at its cap (GUBER_REDELIVERY_LIMIT) — lost accounting.",
+            registry=reg)
+        self.global_redelivered_broadcasts = Counter(
+            "gubernator_global_redelivered_broadcasts",
+            "GLOBAL update records re-enqueued for broadcast after a "
+            "failed push to one or more peers.",
+            registry=reg)
+        self.global_dropped_broadcasts = Counter(
+            "gubernator_global_dropped_broadcasts",
+            "GLOBAL update records dropped because the broadcast "
+            "redelivery buffer was at its cap.",
+            registry=reg)
+
         # Crash-safe persistence (docs/persistence.md).
         self.snapshot_writes = Counter(
             "gubernator_tpu_snapshot_writes",
@@ -471,6 +541,15 @@ class Metrics:
             "Bucket rows replayed from the snapshot store at startup "
             "(before TTL expiry filtering).",
             registry=reg)
+        self.ownership_transfers = Counter(
+            "gubernator_tpu_ownership_transfers",
+            "GLOBAL keys whose accumulated state was handed to a new "
+            "owning peer after a ring change; label \"result\" is "
+            "\"pushed\" (landed on the new owner), \"requeued\" (push "
+            "failed; retried via the broadcast redelivery buffer), or "
+            "\"untracked\" (tracker at GUBER_REDELIVERY_LIMIT when the "
+            "key updated — its state will not ride a handoff).",
+            ["result"], registry=reg)
         self.loop_restarts = Counter(
             "gubernator_loop_restarts",
             "Background loops (global_hits, global_broadcast, peer_batch) "

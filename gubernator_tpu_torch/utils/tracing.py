@@ -291,6 +291,10 @@ def span(name, attributes=None, parent=None, root=False):
     return _tracer.span(name, attributes, parent, root)
 
 
+def current_span() -> Optional[Span]:
+    return _tracer.current_span()
+
+
 def inject(metadata: Dict[str, str]) -> None:
     _tracer.inject(metadata)
 

@@ -3,7 +3,9 @@
 ``setup_daemon_config`` of both packages reads the same ``environ`` dict:
 for every ported knob the resulting fields are equal, and invalid values
 raise in both.  A knob of a module the port does not have yet raises in
-the port, naming the knob, instead of being silently ignored.
+the port, naming the knob, instead of being silently ignored; since the
+cluster was ported, its knobs, discovery and TLS are read as the JAX
+package reads them.
 """
 
 import dataclasses
@@ -43,6 +45,55 @@ PORTED = {
     "GUBER_TPU_MAX_BATCH": {"GUBER_TPU_MAX_BATCH": "1024"},
     "GUBER_TPU_MESH_SHARDS": {"GUBER_TPU_MESH_SHARDS": "4"},
     "GUBER_TPU_PLATFORM": {"GUBER_TPU_PLATFORM": "cpu"},
+    # The cluster, its resilience knobs, discovery and TLS.
+    "GUBER_BATCH_TIMEOUT": {"GUBER_BATCH_TIMEOUT": "250ms"},
+    "GUBER_DISABLE_BATCHING": {"GUBER_DISABLE_BATCHING": "1"},
+    "GUBER_GLOBAL": {"GUBER_GLOBAL_TIMEOUT": "2s",
+                     "GUBER_GLOBAL_SYNC_WAIT": "20ms",
+                     "GUBER_GLOBAL_BATCH_LIMIT": "77"},
+    "GUBER_DATA_CENTER": {"GUBER_DATA_CENTER": "dc-west"},
+    "GUBER_DRAIN_TIMEOUT": {"GUBER_DRAIN_TIMEOUT": "750ms"},
+    "GUBER_PEER_PICKER": {"GUBER_PEER_PICKER": "replicated-hash",
+                          "GUBER_PEER_PICKER_HASH": "fnv1a",
+                          "GUBER_REPLICATED_HASH_REPLICAS": "64"},
+    "GUBER_BREAKER": {"GUBER_BREAKER_ENABLED": "0",
+                      "GUBER_BREAKER_FAILURE_THRESHOLD": "0.25",
+                      "GUBER_BREAKER_MIN_REQUESTS": "9",
+                      "GUBER_BREAKER_WINDOW": "3s",
+                      "GUBER_BREAKER_OPEN_FOR": "500ms",
+                      "GUBER_BREAKER_OPEN_CAP": "5s",
+                      "GUBER_BREAKER_HALF_OPEN_PROBES": "3"},
+    "GUBER_FORWARD": {"GUBER_FORWARD_MAX_ATTEMPTS": "2",
+                      "GUBER_FORWARD_BACKOFF_BASE": "1ms",
+                      "GUBER_FORWARD_BACKOFF_CAP": "50ms",
+                      "GUBER_REDELIVERY_LIMIT": "123"},
+    "GUBER_MEMBERLIST": {"GUBER_PEER_DISCOVERY_TYPE": "member-list",
+                         "GUBER_MEMBERLIST_ADDRESS": "0.0.0.0:7946",
+                         "GUBER_MEMBERLIST_ADVERTISE_ADDRESS": "10.0.0.5:7946",
+                         "GUBER_MEMBERLIST_KNOWN_NODES": "a:7946, b:7946"},
+    "GUBER_ETCD": {"GUBER_PEER_DISCOVERY_TYPE": "etcd",
+                   "GUBER_ETCD_ENDPOINTS": "e1:2379,e2:2379",
+                   "GUBER_ETCD_KEY_PREFIX": "/p/", "GUBER_ETCD_USER": "u",
+                   "GUBER_ETCD_PASSWORD": "pw",
+                   "GUBER_ETCD_DIAL_TIMEOUT": "2s"},
+    "GUBER_K8S": {"GUBER_PEER_DISCOVERY_TYPE": "k8s",
+                  "GUBER_K8S_NAMESPACE": "ns", "GUBER_K8S_POD_IP": "10.2.3.4",
+                  "GUBER_K8S_POD_PORT": "81",
+                  "GUBER_K8S_ENDPOINTS_SELECTOR": "app=guber",
+                  "GUBER_K8S_WATCH_MECHANISM": "pods"},
+    "GUBER_DNS": {"GUBER_PEER_DISCOVERY_TYPE": "dns",
+                  "GUBER_DNS_FQDN": "guber.svc", "GUBER_RESOLV_CONF": "rc"},
+    "GUBER_TLS": {"GUBER_TLS_CA": "ca.pem", "GUBER_TLS_CA_KEY": "ca.key",
+                  "GUBER_TLS_CERT": "c.pem", "GUBER_TLS_KEY": "c.key",
+                  "GUBER_TLS_AUTO": "1",
+                  "GUBER_TLS_CLIENT_AUTH": "require-and-verify",
+                  "GUBER_TLS_CLIENT_AUTH_CA_CERT": "cca.pem",
+                  "GUBER_TLS_CLIENT_AUTH_CERT": "cc.pem",
+                  "GUBER_TLS_CLIENT_AUTH_KEY": "cc.key",
+                  "GUBER_TLS_CLIENT_AUTH_SERVER_NAME": "guber",
+                  "GUBER_TLS_INSECURE_SKIP_VERIFY": "1",
+                  "GUBER_TLS_MIN_VERSION": "1.2",
+                  "GUBER_STATUS_HTTP_ADDRESS": "127.0.0.1:9981"},
 }
 
 # Values both packages refuse.
@@ -62,14 +113,21 @@ INVALID = [
     {"GUBER_SNAPSHOT_DELTAS_PER_BASE": "0"},
     {"GUBER_CACHE_SIZE": "lots"},
     {"GUBER_BATCH_WAIT": "soon"},
+    {"GUBER_DRAIN_TIMEOUT": "-1"},
+    {"GUBER_BREAKER_FAILURE_THRESHOLD": "0"},
+    {"GUBER_FORWARD_MAX_ATTEMPTS": "-1"},
+    {"GUBER_REDELIVERY_LIMIT": "-2"},
+    {"GUBER_PEER_PICKER_HASH": "md5"},
+    {"GUBER_PEER_PICKER": "round-robin"},
+    {"GUBER_PEER_DISCOVERY_TYPE": "consul"},
 ]
 
 
 def same_fields(a, b):
     """Every field of the port's dataclass equals the JAX one's."""
     for f in dataclasses.fields(b):
-        if f.name in ("loader", "store"):
-            continue
+        if f.name in ("loader", "store", "fault_injector"):
+            continue  # objects of each package's own classes
         va, vb = getattr(a, f.name), getattr(b, f.name)
         if dataclasses.is_dataclass(vb):
             same_fields(va, vb)
@@ -131,11 +189,38 @@ def test_unported_knobs_raise_naming_themselves(what):
 
 
 def test_discovery_other_than_none_raises():
+    """Every discovery pool of the JAX package is ported: each of the
+    four besides ``none`` sets the fields the JAX config sets, and a type
+    outside the five raises in both, naming the knob."""
     for kind in ("dns", "etcd", "k8s", "member-list"):
         env = {**BASE, "GUBER_PEER_DISCOVERY_TYPE": kind}
-        jconfig.setup_daemon_config(environ=env)  # the JAX package runs it
-        with pytest.raises(ValueError, match="not ported"):
-            config.setup_daemon_config(environ=env)
+        a = jconfig.setup_daemon_config(environ=env)
+        b = config.setup_daemon_config(environ=env)
+        same_fields(a, b)
+        assert b.peer_discovery_type == kind
+    assert config.DISCOVERY_TYPES == jconfig.DISCOVERY_TYPES
+    env = {**BASE, "GUBER_PEER_DISCOVERY_TYPE": "consul"}
+    with pytest.raises(ValueError, match="GUBER_PEER_DISCOVERY_TYPE"):
+        jconfig.setup_daemon_config(environ=env)
+    with pytest.raises(ValueError, match="GUBER_PEER_DISCOVERY_TYPE"):
+        config.setup_daemon_config(environ=env)
+
+
+def test_fault_knobs_build_the_jax_packages_injector():
+    """GUBER_FAULT_* build the same schedule in both packages, and none
+    without a target peer."""
+    env = {**BASE, "GUBER_FAULT_PEERS": "10.0.0.1:81, *",
+           "GUBER_FAULT_ERROR_RATE": "0.25", "GUBER_FAULT_DROP_RATE": "0.5",
+           "GUBER_FAULT_DELAY": "5ms", "GUBER_FAULT_PARTITION": "1",
+           "GUBER_FAULT_SEED": "42"}
+    a = jconfig.setup_daemon_config(environ=env).config.fault_injector
+    b = config.setup_daemon_config(environ=env).config.fault_injector
+    assert sorted(b._faults) == sorted(a._faults) == ["*", "10.0.0.1:81"]
+    for peer in a._faults:
+        assert vars(b._faults[peer]) == vars(a._faults[peer])
+    assert b._rng.getstate() == a._rng.getstate()
+    assert config.setup_daemon_config(
+        environ=BASE).config.fault_injector is None
 
 
 def test_env_knob_reads_only_ported_knobs():
@@ -146,5 +231,7 @@ def test_env_knob_reads_only_ported_knobs():
         config.env_knob("GUBER_SLOW_WINDOW_MS", 0.0, float, env)
     with pytest.raises(KeyError):
         config.env_knob("GUBER_LEASE_TTL", None, None, env)
+    assert config.env_knob("GUBER_PEER_TIMEOUT_FLOOR", 0.05,
+                           config.parse_duration, env) == 0.05
     for value in ("250ms", "2s", "1m", "100us", "0.5"):
         assert config.parse_duration(value) == jconfig.parse_duration(value)

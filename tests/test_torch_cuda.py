@@ -15,7 +15,9 @@ windows on the chained tick, and random Zipf windows with long segments),
 its state exported and loaded, layered
 windows on a 2^14-slot table, the mesh engine on four tiny shards, the
 tiered engine (Store, cold and SSD tiers) against the same engine on the
-CPU, and background reclaim under concurrent ticks.  They import nothing of JAX, so
+CPU, background reclaim under concurrent ticks, and a 3-node cluster
+of card engines (against one of CPU engines on a seeded sequence, and
+GLOBAL counts reconciled exactly).  They import nothing of JAX, so
 they run where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -731,3 +733,47 @@ def test_concurrent_callers_on_the_card_keep_exact_accounting(dev):
             np.add.at(sent, payloads[(c + k) % 8], 1)
     assert windows < 4 + 16 * 6  # callers shared windows
     np.testing.assert_array_equal(before - after, sent)
+
+
+def test_cluster_on_the_card_answers_as_the_cpu_cluster(dev):
+    """A 3-node cluster of card engines and one of CPU engines answer the
+    seeded serial sequence of ``chip_smoke.drive_cluster`` (every
+    algorithm, GLOBAL items at their owner and at non-owners, RESET,
+    negative hits, invalid items) alike, apart from the ``owner``
+    metadata, and the union of their owner-side rows is the same."""
+    import asyncio
+
+    info = asyncio.run(cs.compare_clusters(1 << 12, 1024, 16, nodes=3))
+    assert info["answers"] > 16 and info["owner_rows_equal"] > 0
+
+
+def test_global_convergence_on_the_card_is_exact(dev):
+    """GLOBAL hits sent to every node of a 3-node card cluster: once
+    every change reached every node, each owner's count is the limit
+    less the hits sent, every non-owner answers as the owner does, and
+    the non-owners installed the owners' state by row scatter."""
+    import asyncio
+
+    from gubernator_tpu_torch.cluster import Cluster
+    from gubernator_tpu_torch.config import BehaviorConfig
+
+    async def run():
+        c = await Cluster.start(3, cache_size=1 << 14, tpu_max_batch=1024,
+                                behaviors=BehaviorConfig(
+                                    batch_timeout=cs.BATCH_TIMEOUT_S,
+                                    global_sync_wait=0.02))
+        try:
+            torch.cuda.synchronize()
+            gt.reset_kernel_launches()
+            out = (await cs.global_round(c, np.random.default_rng(5), 512,
+                                         6))[0]
+            torch.cuda.synchronize()
+            return out, gt.kernel_launches()
+        finally:
+            await c.stop()
+
+    out, launches = asyncio.run(run())
+    assert out["owner_count_errors"] == 0
+    assert out["non_owner_disagreements"] == 0
+    assert out["hits"] == 6 * 1000 and min(out["owners"]) > 0
+    assert launches["fused_tick"] > 0 and launches["scatter_rows"] > 0

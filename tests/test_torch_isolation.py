@@ -63,7 +63,19 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "gubernator_tpu_torch.persistence.snapshot",
             "gubernator_tpu_torch.persistence.writer",
             "gubernator_tpu_torch.persistence.transition",
-            "gubernator_tpu_torch.resilience.supervisor"} <= set(mods)
+            "gubernator_tpu_torch.resilience.supervisor",
+            "gubernator_tpu_torch.resilience.breaker",
+            "gubernator_tpu_torch.resilience.faults",
+            "gubernator_tpu_torch.parallel.hashring",
+            "gubernator_tpu_torch.service.peer_client",
+            "gubernator_tpu_torch.service.global_manager",
+            "gubernator_tpu_torch.discovery.gossip",
+            "gubernator_tpu_torch.discovery.etcdpool",
+            "gubernator_tpu_torch.discovery.k8spool",
+            "gubernator_tpu_torch.discovery.dnspool",
+            "gubernator_tpu_torch.transport.tlsutil",
+            "gubernator_tpu_torch.cluster",
+            "gubernator_tpu_torch.cmd.cluster_main"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -178,14 +190,16 @@ SERVING_CORE = (
     "admission.limiter", "admission.queue", "utils.flightrec",
     "utils.tracing", "utils.metrics", "service.tickloop",
     "service.instance", "transport.wire", "transport.fastwire",
+    "parallel.hashring", "resilience", "service.global_manager",
 )
 
 
 def test_serving_core_runs_without_grpc_protobuf_aiohttp_or_prometheus():
     """With grpc, google.protobuf, aiohttp and prometheus_client
-    unimportable, the serving core imports and serves a wire batch on a
-    CPU instance; only pb/, convert, grpc_api, daemon and daemon_main
-    need them."""
+    unimportable, the serving core (with the cluster's ring, breakers and
+    GLOBAL manager) imports and serves a wire batch on a CPU instance;
+    only pb/, convert, grpc_api, the peer client, tlsutil, discovery,
+    daemon, cluster and the cmd entry points need them."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -246,8 +260,14 @@ def test_instance_and_daemon_without_a_platform_raise_without_a_card():
         config=config.Config(cache_size=16, tpu_max_batch=8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         asyncio.run(spawn_daemon(conf))
+    with pytest.raises(ValueError, match="discovery"):
+        Daemon(config.DaemonConfig(peer_discovery_type="consul"))
+    from gubernator_tpu_torch.cluster import Cluster
+
     with pytest.raises(ValueError, match="not ported"):
-        Daemon(config.DaemonConfig(peer_discovery_type="dns"))
+        asyncio.run(Cluster.start(1, global_mesh=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyncio.run(Cluster.start(1))
     with pytest.raises(ValueError, match="not ported"):
         asyncio.run(V1Instance.create(InstanceConfig(
             cache_size=16, tpu_max_batch=8, tpu_mesh_shards=2,

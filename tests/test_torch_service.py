@@ -9,7 +9,10 @@ path with GLOBAL, RESET and invalid items, and the columns path.  Both
 packages' clocks are pinned (``timeutil.now_ms``), every algorithm runs,
 and leaky (duration, limit) pairs are exact quotients (ROADMAP C.1).
 Responses, (5, n) matrices, the exported state and the ``/metrics`` text
-must be equal.  A JAX daemon and a port daemon then answer the same raw
+must be equal.  Both nodes re-read every GLOBAL key in the background
+(their GLOBAL manager's broadcast, ROADMAP C.8), so GLOBAL items keep
+their negative hits and the exports are compared once the re-reads
+landed.  A JAX daemon and a port daemon then answer the same raw
 ``GetRateLimitsReq`` bytes over gRPC with the same bytes, and the HTTP
 gateway with the same JSON.
 """
@@ -54,12 +57,11 @@ def clock(monkeypatch):
 def items(rng, n, k, *, objects=True):
     """``n`` request field dicts of call ``k``: every algorithm, RESET and
     DRAIN rows, explicit or server-stamped created_at; on the object
-    path also GLOBAL items and invalid ones.  The JAX node re-reads each
-    GLOBAL key in the background (a hits-0 copy of the item, its GLOBAL
-    manager's broadcast), which the port's standalone node does not do
-    yet (ROADMAP C.8); so GLOBAL items get keys of their own, long
-    durations, no RESET and no negative hits, where the re-read leaves
-    the bucket as it was."""
+    path also GLOBAL items and invalid ones.  Both nodes re-read each
+    GLOBAL key in the background (a hits-0 copy of the item, the GLOBAL
+    manager's broadcast), which clamps a leaky bucket that negative hits
+    took over its limit (ROADMAP C.8); GLOBAL items get keys of their
+    own and keep their negative hits."""
     out = []
     for i in range(n):
         d, lim = EXACT_DL[int(rng.integers(0, len(EXACT_DL)))]
@@ -75,8 +77,7 @@ def items(rng, n, k, *, objects=True):
         if objects and pick < 0.12:
             f.update(unique_key=f"g{k}_{i}", behavior=GLOBAL,
                      duration=int(rng.choice([60_000, 3_600_000])),
-                     limit=1000, algorithm=int(rng.integers(0, 2)),
-                     hits=abs(f["hits"]))
+                     limit=1000, algorithm=int(rng.integers(0, 2)))
         elif objects and pick < 0.2:
             f.update(rng.choice([{"name": ""}, {"unique_key": ""},
                                  {"algorithm": 7},
@@ -121,10 +122,39 @@ def by_key(snap):
             for i, k in enumerate(keys)}
 
 
-def assert_same_export(j, t):
+async def settled(*insts, before):
+    """Wait (bounded) until each instance's GLOBAL manager has broadcast
+    once more than ``before`` (its count when the call was sent): the
+    call's GLOBAL items were all queued in one window, so that broadcast
+    re-read them all."""
+    for inst, n in zip(insts, before):
+        async def landed(inst=inst, n=n):
+            while inst.metrics.sample(
+                    "gubernator_broadcast_duration_count") < n + 1:
+                await asyncio.sleep(0.005)
+        await asyncio.wait_for(landed(), 30)
+
+
+def broadcasts(*insts):
+    return [i.metrics.sample("gubernator_broadcast_duration_count")
+            for i in insts]
+
+
+def has_global_hits(fields):
+    return any(f["behavior"] == GLOBAL and f["hits"] != 0
+               and f["name"] and f["unique_key"] for f in fields)
+
+
+def assert_same_export(j, t, keys=None):
+    """Equal exports, or with ``keys`` equal rows of those keys (a load
+    drops rows already expired, which the engine it came from keeps)."""
     a, b = j.engine.export_columns(), t.engine.export_columns()
     assert sorted(a) == sorted(b)
-    assert by_key(a) == by_key(b)
+    a, b = by_key(a), by_key(b)
+    if keys is not None:
+        a = {k: a.get(k) for k in keys}
+        b = {k: b.get(k) for k in keys}
+    assert a == b
 
 
 async def drive(j, t, clock, seed, calls=16):
@@ -134,10 +164,17 @@ async def drive(j, t, clock, seed, calls=16):
         fields = items(rng, int(rng.integers(1, 100)), k,
                        objects=k % 2 == 1)
         if k % 2:
+            before = broadcasts(j, t)
             want = await j.get_rate_limits([JRequest(**f) for f in fields])
             got = await t.get_rate_limits(
                 [RateLimitRequest(**f) for f in fields])
             assert [vars(r) for r in got] == [vars(r) for r in want], k
+            if has_global_hits(fields):
+                # The GLOBAL items' background re-reads, then their rows.
+                await settled(j, t, before=before)
+                assert_same_export(j, t, keys={
+                    f"{f['name']}_{f['unique_key']}".encode()
+                    for f in fields if f["behavior"] == GLOBAL})
         else:
             wm, we = await j.get_rate_limits_columns(jcolumns(fields))
             gm, ge = await t.get_rate_limits_columns(
@@ -179,12 +216,22 @@ async def test_batch_limits_and_peers_match(clock):
         with pytest.raises(instance.BatchTooLargeError):
             await t.get_rate_limits_columns(columns(ReqColumns, big))
         assert t.columns_fast_path_ok() and j.columns_fast_path_ok()
+        from gubernator_tpu.types import PeerInfo as JPeerInfo
         from gubernator_tpu_torch.types import PeerInfo
 
         t.set_peers([PeerInfo(grpc_address="")])  # discovery "none"
         assert t.health_check().peer_count == 1
-        with pytest.raises(ValueError, match="not ported"):
-            t.set_peers([PeerInfo(grpc_address="10.0.0.1:81")])
+        assert t.columns_fast_path_ok()
+        # Another node: the public columns path closes, the peer one stays.
+        addrs = ["", "10.0.0.1:81"]
+        j.set_peers([JPeerInfo(grpc_address=a) for a in addrs])
+        t.set_peers([PeerInfo(grpc_address=a) for a in addrs])
+        assert not t.columns_fast_path_ok() and not j.columns_fast_path_ok()
+        assert t.peer_columns_fast_path_ok() and j.peer_columns_fast_path_ok()
+        assert vars(t.health_check()) == vars(j.health_check())
+        for k in ("a_k1", "b_k2", "svc0_k7"):
+            assert (t.get_peer(k).info.grpc_address
+                    == j.get_peer(k).info.grpc_address)
     finally:
         await j.close()
         await t.close()
@@ -207,21 +254,24 @@ def _families(text):
 
 
 async def test_metrics_text_matches_the_jax_exposition(clock):
-    """The same calls (no GLOBAL: the JAX node's background re-reads
-    would add windows) leave the same /metrics text on the families the
-    port keeps.  Empty tables: a load drops the rows already expired, so
-    a loaded engine counts fewer keys than the one it came from."""
+    """The same calls leave the same /metrics text on the families the
+    port keeps; a call with GLOBAL items waits for both nodes' background
+    re-read, so both count the same windows.  Empty tables: a load drops
+    the rows already expired, so a loaded engine counts fewer keys than
+    the one it came from."""
     j, t = await started(seed_state=False)
     try:
         rng = np.random.default_rng(5)
         for k in range(6):
             clock["now"] = NOW + 1000 * k
-            fields = [f for f in items(rng, 30, k, objects=k % 2 == 1)
-                      if f["behavior"] != GLOBAL]
+            fields = items(rng, 30, k, objects=k % 2 == 1)
             if k % 2:
+                before = broadcasts(j, t)
                 await j.get_rate_limits([JRequest(**f) for f in fields])
                 await t.get_rate_limits(
                     [RateLimitRequest(**f) for f in fields])
+                if has_global_hits(fields):
+                    await settled(j, t, before=before)
             else:
                 await j.get_rate_limits_columns(jcolumns(fields))
                 await t.get_rate_limits_columns(columns(ReqColumns, fields))
