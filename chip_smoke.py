@@ -18,7 +18,10 @@ Phases, one output line each:
    and leaky heads, size 1 on the zoo's, the edge lanes, 64 padding
    heads), on its slices at the same tile edges and at 512 and 4096 heads,
    and on windows of token, leaky or zoo heads only; gather and scatter
-   on 32768 random slots; and the ragged tick (B.4) on 32768-lane windows of global slots over 8 shards
+   on 32768 random slots, the gather also on 4096, 312500 and 625000
+   random slots and on the reclaim scan's 2^20 ascending ones (its
+   ``sweep``: ms, bound and share at each shape, timed over slot sets
+   whose rows add up to more than twice the L2); and the ragged tick (B.4) on 32768-lane windows of global slots over 8 shards
    of the same size, with balanced extents and with every lane on one
    shard, and on their slices and edge windows as B.1; the chained
    duplicate tick (B.5) on 32768-lane windows of Zipf(1.2) slots (the
@@ -40,7 +43,8 @@ Phases, one output line each:
    chain length measured in this kernel, not a bound), with its build's
    chunk, shared memory and ``ptxas`` registers and spills.
    ``--against CHECKOUT`` times that checkout's tick kernels, B.5
-   included, in turns with these (``against_ms``);
+   included, and its row gather at every sweep shape in turns with these
+   (``against_ms``, the gather's ``against_share``);
 3. the engine at full size: ``TickEngine(capacity=10_000_000,
    max_batch=32768)`` serves windows that are first held against a
    ``device="cpu"`` engine on the same route (a unique window, a random
@@ -67,7 +71,15 @@ Phases, one output line each:
    token-bucket model), a skewed unique window of 32768 keys on shard 0
    and a window of fresh keys (per-shard reclaim).  A unique window and
    the skewed window must each take one ``fused_ragged_tick`` launch and
-   no other; every path reports its launches.
+   no other; every path reports its launches.  Then the mesh's state
+   paths on fresh meshes of the same size, each held against a CPU mesh
+   of 8 x 2^17 slots on a seeded sequence: 4096 GLOBAL installs over
+   every shard (one scatter a STATE_CHUNK; installed keys answer alike),
+   four Store-backed 4096-wide windows over persisted and fresh keys
+   (same answers, same Store call sequence and contents), and an
+   ``export_items`` -> ``load_items`` round trip of 2^20 live keys into a
+   fresh mesh (one gather and one scatter; the exports equal the items);
+   no guard row is ever written.
 
 5. the tiers and persistence: first a ``TickEngine(capacity=2**14,
    max_batch=4096, cold_capacity=2**13)`` with a ``MockStore`` and an
@@ -657,9 +669,10 @@ def with_algorithm(engine_mod, m, alg: int, live: int):
 
 
 def build_against(path: str) -> dict:
-    """The tick kernels of another checkout at ``path`` (the same C
-    interfaces), built from its ``csrc/`` with this checkout's flags, one
-    compiler each, all started together: ``{kernel: C function}``."""
+    """The tick kernels and the row gather (``rows``) of another checkout
+    at ``path`` (the same C interfaces), built from its ``csrc/`` with
+    this checkout's flags, one compiler each, all started together:
+    ``{kernel: C function}``."""
     import ctypes
 
     from gubernator_tpu_torch import _build
@@ -671,6 +684,7 @@ def build_against(path: str) -> dict:
         "fused_merged_tick": [vp, i64, vp, i64, vp, vp, i64, i64, vp],
         "fused_ragged_tick": [vp, i64, i64, vp, vp, i64, vp, i64, i64, i64, vp],
         "fused_sorted_tick": [vp, i64, vp, i64, vp, i64, i64, i64, vp],
+        "rows": [vp, i64, i64, vp, i64, vp, vp],
     }
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     jobs = {}
@@ -684,7 +698,8 @@ def build_against(path: str) -> dict:
     for name, (proc, out) in jobs.items():
         log = proc.communicate()[0].decode(errors="replace")
         assert proc.returncode == 0, f"building {out} failed:\n{log}"
-        fn = getattr(ctypes.CDLL(out), "gt_" + name)
+        fn = getattr(ctypes.CDLL(out),
+                     "gt_gather_rows" if name == "rows" else "gt_" + name)
         fn.restype, fn.argtypes = ctypes.c_int, sigs[name]
         fns[name] = fn
     return fns
@@ -1082,7 +1097,10 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
     of the 256 MB table: the ticks' windows touch more than twice the 50 MB
     L2 in rows and columns (``working_set_mb``), so their rows come from
     HBM as in the engine.  ``against`` (build_against) adds another
-    checkout's tick kernels, timed in turns with these."""
+    checkout's tick kernels and row gather, timed in turns with these.
+    The gather's ``sweep`` holds it at 4096, 32768, 312500 and 625000
+    random rows and at the reclaim scan's shape."""
+    from gubernator_tpu_torch import _build
     from gubernator_tpu_torch.ops import engine as E
     from gubernator_tpu_torch.ops import rowtable
 
@@ -1118,22 +1136,59 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
             sets.append(s)
         return sets
 
-    def check_gather(sets):
+    sweep = {}
+    # Its own generator: the draws of the other kernels' inputs stay
+    # those of earlier runs.
+    grng = np.random.default_rng(SEED + 4)
+
+    def check_gather(sets, shape):
+        """The gather on ``sets`` (held bit for bit against its plain
+        version, and with ``against`` the other checkout's gather too),
+        timed; its ``sweep`` line: ms, bound, share, and the other
+        checkout's ms timed in turns with it.  The timed sets are topped
+        up with random ones until their rows add up to more than twice
+        the L2, so the rows come from HBM as a window's do (at 4096 rows
+        16 sets would come back from the caches)."""
+        n = sets[0].numel()
+        need = -(-2 * L2_MB * 10**6 // (n * 128))
+        sets = sets + [torch.from_numpy(grng.choice(
+            cap, n, replace=False).astype(np.int64)).to(dev)
+            for _ in range(need - len(sets))]
         g_k = rowtable.gather_rows(table, sets[0])
         g_p = rowtable.gather_rows_plain(table, sets[0])
         torch.cuda.synchronize()
-        assert torch.equal(g_k, g_p), "gather_rows differs from plain"
-        n = sets[0].numel()
-        return _entry(
+        assert torch.equal(g_k, g_p), f"gather_rows differs from plain ({shape})"
+        theirs = None
+        if against is not None:
+            g_t = torch.empty_like(g_k)
+
+            def theirs_on(s):
+                _build.check(against["rows"](
+                    table.data_ptr(), cap, table.shape[1], s.data_ptr(), n,
+                    g_t.data_ptr(), _stream(torch)), "against gather_rows")
+            theirs_on(sets[0])
+            torch.cuda.synchronize()
+            assert torch.equal(g_t, g_p), f"against gather differs ({shape})"
+            theirs = [lambda s=s: theirs_on(s) for s in sets]
+        ab = ab_times(torch, [lambda s=s: rowtable.gather_rows(table, s)
+                              for s in sets], theirs)
+        e = _entry(
             "gather_rows", "gubernator_tpu_torch/csrc/rows.cu",
             "gubernator_tpu/ops/rowtable.py:257", _max_abs(torch, g_k, g_p),
-            time_ms(torch, [lambda s=s: rowtable.gather_rows(table, s)
-                            for s in sets]),
+            ab["ms"],
             time_ms(torch, [lambda s=s: rowtable.gather_rows_plain(table, s)
                             for s in sets]),
             time_ms(torch, [lambda s=s: torch.index_select(table, 0, s)
                             for s in sets]),
             n * (8 + 256), 0)
+        line = {"rows": n, "ms": e["ms"], "bound_ms": e["bound_ms"],
+                "share": e["bound_ms"] / e["ms"], "checked": True}
+        if theirs is not None:
+            line.update(ms_repeat=ab["ms_repeat"], against_ms=ab["against_ms"],
+                        against_share=[e["bound_ms"] / t
+                                       for t in ab["against_ms"]])
+        sweep[shape] = line
+        return e
 
     def check_scatter(sets, rows):
         s_k, s_p = table.clone(), table.clone()
@@ -1162,7 +1217,7 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
         against)
     out["fused_ragged_tick"] = ragged_entry(torch, dev, rng, lanes,
                                             table_slots, rotate, against)
-    out["gather_rows"] = check_gather(slot_sets(lanes))
+    out["gather_rows"] = check_gather(slot_sets(lanes), str(lanes))
     rows = torch.from_numpy(
         rng.integers(-2**62, 2**62, (lanes, 16)).astype(np.int64)).to(dev)
     out["scatter_rows"] = check_scatter(slot_sets(lanes, guard_every=97), rows)
@@ -1173,7 +1228,8 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
     scan = min(rowtable.SCAN_CHUNK, cap)
     main = {
         "gather_rows": check_gather(
-            [torch.arange(scan, dtype=torch.int64, device=dev)]),
+            [torch.arange(scan, dtype=torch.int64, device=dev)],
+            "reclaim_scan"),
         "scatter_rows": check_scatter(
             slot_sets(E.EVICT_CHUNK),
             torch.zeros((E.EVICT_CHUNK, 16), dtype=torch.int64, device=dev)),
@@ -1204,13 +1260,14 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
     }
     for shape, (name, n) in tiers.items():
         if name == "gather_rows":
-            e = check_gather(tier_sets(n))
+            e = check_gather(tier_sets(n), str(n))
         else:
             e = check_scatter(tier_sets(n), torch.from_numpy(trng.integers(
                 -2**62, 2**62, (n, 16)).astype(np.int64)).to(dev))
         out[name].setdefault("at_tier_shapes", {})[shape] = {
             "rows": n, **{k: e[k] for k in ("ms", "plain_ms", "library_ms",
                                             "bound_ms", "max_abs_err")}}
+    out["gather_rows"]["sweep"] = sweep
     out["empty_launch_ms"] = empty_launch_ms(torch, dev)
     return out
 
@@ -1709,7 +1766,7 @@ def mesh_host_split(eng, wins, now) -> dict:
 
 def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
                width=32768, windows=32, ref_local_capacity=1 << 17,
-               compare_zipf=8192):
+               compare_zipf=8192, state=None):
     """The sharded engine at full size (module doc, phase 4).  Each path
     runs with every kernel's launch count set to 0 just before it and read
     just after.  Returns ``(info, launches summed over the paths)``."""
@@ -1881,11 +1938,202 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     got = launches["reclaim"]
     assert got["gather_rows"] > 0 and got["scatter_rows"] > 0
     assert got["fused_ragged_tick"] == 1
+    assert guard_rows_zero(eng)
+    del eng
+    info["state"] = mesh_state_paths(
+        torch, dev, n_shards, local_capacity, width, ref_local_capacity,
+        launches, widths, **(state or {}))
     info["launches_by_path"] = launches
     info["launches_by_width"] = widths
     total = {k: sum(p[k] for p in launches.values())
              for k in launches["unique"]}
     return info, total
+
+
+def recording_store():
+    """The port's MockStore logging every call in order: ``(op, key)``,
+    and for ``on_change`` the item written."""
+    from gubernator_tpu_torch.store import MockStore
+
+    class RecordingStore(MockStore):
+        def __init__(self):
+            super().__init__()
+            self.log = []
+
+        def on_change(self, req, item):
+            self.log.append(("on_change", req.hash_key(), dict(item)))
+            super().on_change(req, item)
+
+        def get(self, req):
+            self.log.append(("get", req.hash_key()))
+            return super().get(req)
+
+        def remove(self, key):
+            self.log.append(("remove", key))
+            super().remove(key)
+    return RecordingStore()
+
+
+def global_updates(types, rng, ids, now: int) -> list:
+    """GLOBAL updates (token or leaky) over keys ``gl_<8 digits>``."""
+    d_l = [(60_000, 10), (3_600_000, 1000), (30_000, 100), (5_000, 5)]
+    out = []
+    for i in ids.tolist():
+        d, lim = d_l[int(rng.integers(len(d_l)))]
+        out.append(types.GlobalUpdate(
+            key=f"gl_{i:08d}", algorithm=int(rng.integers(0, 2)), duration=d,
+            status=types.RateLimitResponse(
+                limit=lim, remaining=int(rng.integers(0, lim + 1)),
+                status=int(rng.integers(0, 2)),
+                reset_time=now + int(rng.integers(60_000, 3_600_000)))))
+    return out
+
+
+def answers(resps) -> list:
+    return [(r.status, r.limit, r.remaining, r.reset_time, r.error)
+            for r in resps]
+
+
+def guard_rows_zero(eng) -> bool:
+    L = eng.local_capacity
+    return bool((eng.table[L::L + 1] == 0).all())
+
+
+def mesh_state_paths(torch, dev, n_shards: int, local_capacity: int,
+                     width: int, ref_local_capacity: int, launches: dict,
+                     widths: dict, installs=4096, store_windows=4,
+                     store_width=4096, round_trip_per_shard=1 << 17) -> dict:
+    """The mesh's state paths at ``local_capacity`` on ``dev``, each held
+    against a ``device="cpu"`` mesh of ``ref_local_capacity`` slots a
+    shard on the same seeded sequence (phase 4): ``installs`` GLOBAL
+    installs over every shard (some keys repeated: the last wins), then
+    ``store_windows`` Store-backed windows of ``store_width`` requests over
+    persisted (read through) and fresh keys with repeats and RESET rows (same answers, same Store call sequence and contents), and
+    an ``export_items`` / ``load_items`` round trip of
+    ``round_trip_per_shard`` live keys a shard into a fresh mesh (the
+    fresh mesh's and the CPU mesh's exports equal the items).  Each path's
+    launches are counted (``counted``): installs and load take one scatter
+    a STATE_CHUNK, export one gather a STATE_CHUNK, and no guard row is
+    ever written."""
+    from gubernator_tpu_torch import types
+    from gubernator_tpu_torch.native import crc32_batch
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.ops.engine import STATE_CHUNK
+    from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
+
+    rng = np.random.default_rng(SEED + 7)
+    now = NOW + 10_000_000
+    out = {}
+
+    def pair(L, d, store=False):
+        return MeshTickEngine(n_shards, L, max_batch=width, device=d,
+                              store=recording_store() if store else None)
+
+    eng, ref = pair(local_capacity, dev, True), pair(ref_local_capacity,
+                                                     "cpu", True)
+    # GLOBAL installs over every shard; a sixteenth of the updates repeat
+    # a key.
+    ids = rng.permutation(installs)
+    ids[installs - installs // 16:] = ids[:installs // 16]
+    n_unique = len(np.unique(ids))
+    ups = global_updates(types, rng, ids, now)
+    with counted(torch, launches, "installs", widths):
+        t0 = time.perf_counter()
+        eng.install_globals(ups, now)
+        torch.cuda.synchronize()
+        out["installs_s"] = time.perf_counter() - t0
+    ref.install_globals(ups, now)
+    got = launches["installs"]
+    assert got["scatter_rows"] == -(-n_unique // STATE_CHUNK), got
+    assert sum(got.values()) == got["scatter_rows"], got
+    out["installs"] = {"updates": installs, "keys": n_unique,
+                       "launches": got}
+    probes = request_objects(types, token_columns(
+        reqcols, b"gl_", np.unique(ids), hits=0))
+    with counted(torch, launches, "installs_check", widths):
+        items = eng.export_items()
+        got = eng.process(probes, now + 1)
+    assert items == ref.export_items() and len(items) == n_unique
+    assert answers(got) == answers(ref.process(probes, now + 1)), (
+        "installed keys")
+
+    # Store windows over keys persisted in both stores (read through) and
+    # fresh keys; repeats and RESET rows.
+    pool = np.arange(3 * store_width)
+    persisted = pool[(pool % 3) == 1]
+    for st in (eng.store, ref.store):
+        for i in persisted.tolist():
+            st.data[f"st_{i:08d}"] = {
+                "key": f"st_{i:08d}", "algorithm": i % 2, "limit": 100,
+                "remaining": i % 97, "remaining_f": float(i % 97),
+                "duration": 3_600_000, "created_at": now, "updated_at": now,
+                "burst": 100, "status": 0, "expire_at": now + 3_600_000}
+    store_s = []
+    with counted(torch, launches, "store", widths):
+        for w in range(store_windows):
+            t = now + 2_000 * (w + 1)
+            cols = window_columns(reqcols, rng, b"st_",
+                                  rng.choice(pool, store_width), t)
+            cols.behavior[rng.random(store_width) < 0.05] = 8  # RESET
+            reqs = request_objects(types, cols)
+            t0 = time.perf_counter()
+            got = eng.process(reqs, t)
+            store_s.append(time.perf_counter() - t0)
+            assert answers(got) == answers(ref.process(reqs, t)), (
+                f"store window {w}")
+    assert eng.store.log == ref.store.log, "Store call sequences differ"
+    assert eng.store.data == ref.store.data
+    ops = [op for op, *_ in eng.store.log]
+    out["store"] = {"windows": store_windows, "width": store_width,
+                    "window_s": store_s,
+                    "calls": {op: ops.count(op) for op in sorted(set(ops))},
+                    "launches": launches["store"]}
+    assert {"get", "on_change", "remove"} <= set(ops)
+    assert guard_rows_zero(eng)
+    del eng, ref
+
+    # Export -> load: a mesh holding round_trip_per_shard live keys a
+    # shard (keys picked by their route), its items loaded into a fresh
+    # mesh and into the CPU mesh.
+    src = pair(local_capacity, dev)
+    per = round_trip_per_shard
+    cand = np.arange(int(per * n_shards * 1.1) + 4096)
+    blob, off = key_blob(b"rt_", cand)
+    sh = (crc32_batch(blob, off) % np.uint32(n_shards)).astype(np.int64)
+    rids = np.sort(np.concatenate([cand[sh == s][:per]
+                                   for s in range(n_shards)]))
+    assert len(rids) == per * n_shards
+    t0 = time.perf_counter()
+    for a in range(0, len(rids), width):
+        mat, errs = src.process_columns(window_columns(
+            reqcols, rng, b"rt_", rids[a:a + width], now, prefill=True), now)
+        assert not errs
+    out["round_trip_prefill_s"] = time.perf_counter() - t0
+    with counted(torch, launches, "export", widths):
+        t0 = time.perf_counter()
+        items = src.export_items()
+        out["export_s"] = time.perf_counter() - t0
+    assert len(items) == len(rids)
+    assert launches["export"]["gather_rows"] == -(-len(rids) // STATE_CHUNK)
+    del src
+    dst = pair(local_capacity, dev)
+    with counted(torch, launches, "load", widths):
+        t0 = time.perf_counter()
+        dst.load_items(items, now + 1_000)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+    got = launches["load"]
+    assert got["scatter_rows"] == -(-len(rids) // STATE_CHUNK), got
+    assert sum(got.values()) == got["scatter_rows"], got
+    ref = pair(ref_local_capacity, "cpu")
+    ref.load_items(items, now + 1_000)
+    back = dst.export_items()
+    assert back == items, "card mesh export after load differs"
+    assert ref.export_items() == items, "CPU mesh export after load differs"
+    assert guard_rows_zero(dst)
+    out["round_trip"] = {"items": len(items), "launches_export":
+                         launches["export"], "launches_load": got}
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -56,7 +56,7 @@ from gubernator_tpu_torch.ops.reqcols import (
 from gubernator_tpu_torch.ops.snapshot import (
     ITEM_FIELDS, LEASE_SNAP_FIELDS, SNAP_FIELDS, ZOO_SNAP_FIELDS,
     columns_from_rows, empty_snapshot, items_from_snapshot,
-    rows_from_columns, snapshot_from_items)
+    rows_from_columns, rows_from_items, snapshot_from_items)
 from gubernator_tpu_torch.ops.sortedtick import (
     fused_sorted_tick, fused_sorted_tick_plain)
 from gubernator_tpu_torch.tiering.coldstore import ColdStore
@@ -584,6 +584,77 @@ STATE_CHUNK = 1 << 20
 # Tables at least this large take the layered plan (the JAX engine's gate:
 # below it, duplicate windows it declines go to the sequential program).
 LAYERED_MIN_CAPACITY = 1 << 14
+
+
+def scatter_chunked(table: torch.Tensor, slots: np.ndarray,
+                    rows: np.ndarray) -> int:
+    """Whole host rows to the table at unique ``slots`` through the scatter
+    kernel, STATE_CHUNK rows a launch; returns the bytes uploaded."""
+    for a in range(0, len(slots), STATE_CHUNK):
+        rowtable.scatter_rows(
+            table,
+            torch.from_numpy(slots[a:a + STATE_CHUNK]).to(table.device),
+            torch.from_numpy(rows[a:a + STATE_CHUNK]).to(table.device))
+    return slots.nbytes + rows.nbytes
+
+
+def gather_chunked(table: torch.Tensor, slots: np.ndarray) -> np.ndarray:
+    """The table's rows at ``slots`` as one host (k, W) array, through the
+    gather kernel, STATE_CHUNK rows a launch."""
+    parts = [rowtable.gather_rows(table, torch.from_numpy(np.ascontiguousarray(
+        slots[a:a + STATE_CHUNK], np.int64)).to(table.device)).cpu().numpy()
+        for a in range(0, len(slots), STATE_CHUNK)]
+    if not parts:
+        return np.zeros((0, table.shape[1]), np.int64)
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+def store_rows(store, requests, lanes: np.ndarray, keys: List[bytes],
+               rows: np.ndarray) -> None:
+    """The Store calls of a write-through (algorithms.go:78-90, 149-153):
+    ``rows[j]`` is the state after the tick of key ``keys[j]``, touched by
+    request ``requests[lanes[j]]``; a row the tick cleared maps to
+    ``Store.remove``, any other to ``Store.on_change``, in order.  A slot
+    without a key (b"") is skipped."""
+    cols = columns_from_rows(rows)
+    in_use = rows[:, WORD["in_use"]] != 0
+    for j, i in enumerate(lanes.tolist()):
+        if not keys[j]:
+            continue
+        key = keys[j].decode()
+        if not in_use[j]:
+            store.remove(key)
+            continue
+        item = {"key": key}
+        for f in ITEM_FIELDS:
+            v = cols[f][j]
+            item[f] = float(v) if f == "remaining_f" else int(v)
+        store.on_change(requests[i], item)
+
+
+def install_rows(updates: Sequence[GlobalUpdate], now: int) -> np.ndarray:
+    """The table rows of owner-pushed GLOBAL updates (the reference's
+    UpdatePeerGlobals receive path, gubernator.go:425-459): token buckets
+    get status, limit, duration, remaining, ``created_at = now``; leaky
+    buckets ``remaining_f``, limit, duration, ``burst = limit``,
+    ``updated_at = now``; both ``expire_at = reset_time``."""
+    a = np.array([[u.algorithm, u.status.limit, u.status.remaining,
+                   u.status.status, u.duration, u.status.reset_time]
+                  for u in updates], np.int64).reshape(-1, 6).T
+    algo, limit, remaining, status, duration, reset_time = a
+    leaky = algo == int(Algorithm.LEAKY_BUCKET)
+    zero = np.zeros(len(updates), np.int64)
+    cols = dict(
+        algorithm=algo, limit=limit,
+        remaining=np.where(leaky, 0, remaining),
+        remaining_f=np.where(leaky, remaining.astype(np.float64), 0.0),
+        duration=duration,
+        created_at=np.where(leaky, 0, now),
+        updated_at=np.where(leaky, now, 0),
+        burst=np.where(leaky, limit, 0),
+        status=status, expire_at=reset_time, tat=zero,
+        prev_count=zero)
+    return rows_from_columns(cols, np.arange(len(updates)))
 
 
 def evict_chunked(table: torch.Tensor, victims: np.ndarray) -> None:
@@ -1210,7 +1281,7 @@ class TickEngine(BatchFront):
         # The scatter lands the rows before the tick: no longer pending.
         self._pending.difference_update(hit_slots.tolist())
         self._dirty[hit_slots] = True
-        self._write_rows(hit_slots,
+        scatter_chunked(self.table, hit_slots,
                          rows_from_columns(ccols, np.arange(len(pos))))
         self.metric_promote_dispatches += 1
         self.metric_promote_ticks += 1
@@ -1235,14 +1306,9 @@ class TickEngine(BatchFront):
             known[j] = 1
             self._pending.discard(slot)
         if restored:
-            items = list(restored.values())
-            cols = {f: np.asarray(
-                [it.get(f, 0) if f in ZOO_SNAP_FIELDS else it[f]
-                 for it in items],
-                np.float64 if f == "remaining_f" else np.int64)
-                for f in ITEM_FIELDS}
-            self._write_rows(np.fromiter(restored, np.int64, len(restored)),
-                             rows_from_columns(cols, np.arange(len(items))))
+            scatter_chunked(self.table,
+                            np.fromiter(restored, np.int64, len(restored)),
+                            rows_from_items(list(restored.values())))
 
     # ------------------------------------------------------------------
     # The tick
@@ -1371,37 +1437,12 @@ class TickEngine(BatchFront):
         _, first = np.unique(slots[lanes], return_index=True)
         lanes = lanes[np.sort(first)]
         tgt = np.ascontiguousarray(slots[lanes])
-        rows = rowtable.gather_rows(
-            self.table, torch.from_numpy(tgt).to(self.device)).cpu().numpy()
-        keys = self.slots.keys_batch(tgt)
-        cols = columns_from_rows(rows)
-        in_use = rows[:, WORD["in_use"]] != 0
-        for j, i in enumerate(lanes.tolist()):
-            if not keys[j]:
-                continue
-            key = keys[j].decode()
-            if not in_use[j]:
-                self.store.remove(key)
-                continue
-            item = {"key": key}
-            for f in ITEM_FIELDS:
-                v = cols[f][j]
-                item[f] = float(v) if f == "remaining_f" else int(v)
-            self.store.on_change(requests[i], item)
+        store_rows(self.store, requests, lanes, self.slots.keys_batch(tgt),
+                   gather_chunked(self.table, tgt))
 
     # ------------------------------------------------------------------
     # State movement: installs, leases, snapshots
     # ------------------------------------------------------------------
-    def _write_rows(self, slots: np.ndarray, rows: np.ndarray) -> int:
-        """Whole rows to the table at unique ``slots`` through the scatter
-        kernel, STATE_CHUNK rows at a time; returns the bytes uploaded."""
-        for a in range(0, len(slots), STATE_CHUNK):
-            rowtable.scatter_rows(
-                self.table,
-                torch.from_numpy(slots[a:a + STATE_CHUNK]).to(self.device),
-                torch.from_numpy(rows[a:a + STATE_CHUNK]).to(self.device))
-        return slots.nbytes + rows.nbytes
-
     def _assign_keys(self, blob, offsets: np.ndarray, now: int) -> np.ndarray:
         """Slots for keys whose rows are written directly (installs):
         assigned when new, with one reclaim when the table is full; -1
@@ -1425,14 +1466,10 @@ class TickEngine(BatchFront):
 
     def install_globals(self, updates: Sequence[GlobalUpdate],
                         now: Optional[int] = None) -> None:
-        """Install owner-pushed GLOBAL state (the reference's
-        UpdatePeerGlobals receive path, gubernator.go:425-459) as whole
-        rows: token buckets get status, limit, duration, remaining,
-        ``created_at = now``; leaky buckets ``remaining_f``, limit,
-        duration, ``burst = limit``, ``updated_at = now``; both
-        ``expire_at = reset_time``.  The last update of a key wins; keys
-        the table cannot place are dropped (the next push retries).  The
-        rows are live when this returns."""
+        """Install owner-pushed GLOBAL state as whole rows
+        (:func:`install_rows`).  The last update of a key wins; keys the
+        table cannot place are dropped (the next push retries).  The rows
+        are live when this returns."""
         if not updates:
             return
         with self._locked():
@@ -1449,25 +1486,9 @@ class TickEngine(BatchFront):
             if not by_slot:
                 return
             tgt = np.fromiter(by_slot, np.int64, len(by_slot))
-            us = list(by_slot.values())
-            a = np.array([[u.algorithm, u.status.limit, u.status.remaining,
-                           u.status.status, u.duration, u.status.reset_time]
-                          for u in us], np.int64).T
-            algo, limit, remaining, status, duration, reset_time = a
-            leaky = algo == int(Algorithm.LEAKY_BUCKET)
-            zero = np.zeros(len(us), np.int64)
-            cols = dict(
-                algorithm=algo, limit=limit,
-                remaining=np.where(leaky, 0, remaining),
-                remaining_f=np.where(leaky, remaining.astype(np.float64), 0.0),
-                duration=duration,
-                created_at=np.where(leaky, 0, now),
-                updated_at=np.where(leaky, now, 0),
-                burst=np.where(leaky, limit, 0),
-                status=status, expire_at=reset_time, tat=zero,
-                prev_count=zero)
             self._dirty[tgt] = True
-            self._write_rows(tgt, rows_from_columns(cols, np.arange(len(us))))
+            scatter_chunked(self.table, tgt,
+                            install_rows(list(by_slot.values()), now))
 
     def lease_window(self, keys: Sequence[bytes], budgets: Sequence[int],
                      expires: Sequence[int], gens: Sequence[int],
@@ -1652,7 +1673,8 @@ class TickEngine(BatchFront):
             tgt = slots[sel]
             self._last_access[tgt] = self._tick_count
             self._dirty[tgt] = True
-            nbytes = self._write_rows(tgt, rows_from_columns(cols, sel))
+            nbytes = scatter_chunked(self.table, tgt,
+                                     rows_from_columns(cols, sel))
             if has_lease:
                 lease = np.stack([cols[f][sel].astype(np.int64)
                                   for f in LEASE_SNAP_FIELDS])

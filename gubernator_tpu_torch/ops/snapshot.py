@@ -79,6 +79,15 @@ def rows_from_columns(cols: Dict[str, np.ndarray], sel: np.ndarray
     return rows
 
 
+def rows_from_items(items: Sequence[dict]) -> np.ndarray:
+    """The table rows (in use) of Loader-contract item dicts; items that
+    do not name the zoo fields load them as zeros."""
+    cols = {f: np.asarray([it.get(f, 0) if f in ZOO_SNAP_FIELDS else it[f]
+                           for it in items], _dtype(f))
+            for f in ITEM_FIELDS}
+    return rows_from_columns(cols, np.arange(len(items)))
+
+
 def snapshot_from_items(items: Sequence[dict]) -> dict:
     """Loader-contract item dicts → columnar snapshot (the inverse of
     :func:`items_from_snapshot`).  The zoo columns default to zero for
@@ -111,10 +120,7 @@ def items_from_columns(keys: List[bytes], cols: Dict[str, np.ndarray],
     """Loader-contract item dicts of slots ``live`` from host logical
     columns over every slot (``rowtable.host_columns``): ``keys[j]`` is
     slot ``live[j]``'s key."""
-    picked = {f: np.asarray(cols[f])[live] for f in ITEM_FIELDS}
-    return [
-        {"key": keys[j].decode(),
-         **{f: (float(picked[f][j]) if f == "remaining_f"
-                else int(picked[f][j])) for f in ITEM_FIELDS}}
-        for j in range(len(live))
-    ]
+    picked = [np.asarray(cols[f])[live].astype(_dtype(f)).tolist()
+              for f in ITEM_FIELDS]
+    return [{"key": k.decode(), **dict(zip(ITEM_FIELDS, vals))}
+            for k, vals in zip(keys, zip(*picked))]

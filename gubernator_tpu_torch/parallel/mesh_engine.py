@@ -25,16 +25,26 @@ Reclaim is per shard, as in the JAX engine: a full shard frees its
 TTL-dead slots, else evicts its least recently used ones, through the
 gather and scatter kernels on the shard's block.
 
-Not ported yet: the Store, GLOBAL installs, snapshot export/load,
-resharding and placement of shards on several cards (``store=`` raises
-``NotImplementedError``).
+State moves as in the JAX engine's state paths: a write/read-through
+``Store`` (misses read through ``Store.get`` before the tick, each touched
+slot's state goes to ``Store.on_change`` or ``Store.remove`` at resolve),
+owner-pushed GLOBAL installs (``install_globals``) and Loader items
+(``export_items`` / ``load_items``).  Global slot ``g`` is flat row
+``g + g // L`` (shard ``g // L``'s local slot ``g % L``), so every
+shard's rows move in ONE gather or scatter launch per ``STATE_CHUNK``
+rows, where the JAX engine runs a blocked program per shard; no lane is
+ever aimed at a shard's guard row.
+
+Not ported, as in the JAX mesh: the cold and SSD tiers and the columnar
+snapshot (``export_columns`` / ``load_columns``).  Not ported yet:
+resharding and placement of shards on several cards.
 """
 
 from __future__ import annotations
 
 import threading
 import warnings
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,17 +52,20 @@ import torch
 from gubernator_tpu_torch import DeviceLike, resolve_device
 from gubernator_tpu_torch.native import NativeSlotMap, crc32_batch
 from gubernator_tpu_torch.ops import rowtable, tick
-from gubernator_tpu_torch.ops.buckets import ROW_W
+from gubernator_tpu_torch.ops.buckets import ROW_W, WORD
 from gubernator_tpu_torch.ops.engine import (
-    BatchFront, StagingRing, TickHandle, evict_chunked, masked_over_limit,
-    pack_cols_req32, pack_wide_rows, select_reclaim_victims,
-    sort_packed_by_slot)
+    BatchFront, StagingRing, TickHandle, evict_chunked, gather_chunked,
+    install_rows, masked_over_limit, pack_cols_req32, pack_wide_rows,
+    scatter_chunked, select_reclaim_victims, sort_packed_by_slot, store_rows)
 from gubernator_tpu_torch.ops.fusedtick import REQ32_ROWS
 from gubernator_tpu_torch.ops.raggedtick import (
     choose_tile, fused_ragged_tick, ragged_walk, shard_block)
-from gubernator_tpu_torch.ops.reqcols import ReqColumns, compact_blob
+from gubernator_tpu_torch.ops.reqcols import (
+    ReqColumns, compact_blob, pack_blob)
+from gubernator_tpu_torch.ops.snapshot import (
+    columns_from_rows, items_from_columns, rows_from_items)
 from gubernator_tpu_torch.parallel.partition import RaggedExtents
-from gubernator_tpu_torch.types import Behavior
+from gubernator_tpu_torch.types import Behavior, GlobalUpdate
 from gubernator_tpu_torch.utils import timeutil
 
 _LOCAL_WIDTH_WARNED = False
@@ -78,7 +91,8 @@ class MeshRaggedTickHandle(TickHandle):
     """One dispatched mesh window.  Its flat (6, B) compact response is in
     slot-sorted lane order, as a single-card window's, so it resolves
     through ``ops.engine.resolve_ticks``; resolving also retires the
-    window from the engine's in-flight count."""
+    window from the engine's in-flight count and, with a Store, runs the
+    write-through (its request-order slots are global slots)."""
 
     __slots__ = ()
 
@@ -90,7 +104,7 @@ class MeshTickEngine(BatchFront):
     local_capacity`` slots: global slot g lives on shard
     ``g // local_capacity``, which is the shard its key routes to.
     Thread-safe: one lock covers routing, resolution, packing and
-    dispatch."""
+    dispatch.  ``store``: a write/read-through Store (store.py)."""
 
     def __init__(
         self,
@@ -102,10 +116,7 @@ class MeshTickEngine(BatchFront):
         routing: str = "auto",
         local_width: int = 0,
     ):
-        if store is not None:
-            raise NotImplementedError(
-                "MeshTickEngine(store=...) is not ported to the torch "
-                "engine yet")
+        self.store = store
         self.n_shards = int(n_shards)
         self.local_capacity = int(local_capacity)
         if self.n_shards < 1 or self.local_capacity < 1:
@@ -274,12 +285,29 @@ class MeshTickEngine(BatchFront):
         self._pending.update(g_res[known[resolved] == 0].tolist())
         return sh, slots, known
 
-    def _account_misses(self, slots: np.ndarray, known: np.ndarray) -> None:
-        """Hit and miss counts of one resolved batch."""
+    def _account_misses(self, cols: ReqColumns, sh: np.ndarray,
+                        slots: np.ndarray, known: np.ndarray) -> None:
+        """Hit and miss counts of one resolved batch, and the Store's
+        read-through of its misses (``known`` is set in place for the rows
+        it restores).  With a Store, a slot still pending (assigned, never
+        written by a tick) counts as a miss, as in the JAX engine."""
         resolved = slots >= 0
-        n_miss = int((resolved & (known == 0)).sum())
+        miss = resolved & (known == 0)
+        if self.store is not None and self._pending:
+            pend = np.fromiter(self._pending, np.int64, len(self._pending))
+            miss |= resolved & np.isin(
+                sh * self.local_capacity + np.maximum(slots, 0), pend)
+        n_miss = int(miss.sum())
         self.metric_hits += int(resolved.sum()) - n_miss
         self.metric_misses += n_miss
+        if self.store is not None and n_miss:
+            if cols.refs is None:
+                raise ValueError(
+                    "Store read-through needs request objects; build "
+                    "the batch with ReqColumns.from_requests(..., "
+                    "keep_refs=True)")
+            self._read_through(cols.refs, sh, slots, known,
+                               np.flatnonzero(miss))
 
     def _account_resolved(self, resp_mat: np.ndarray, errors) -> None:
         """Bookkeeping of a resolved window (the caller holds the lock)."""
@@ -305,11 +333,16 @@ class MeshTickEngine(BatchFront):
             errors: Dict[int, str] = {}
             greg_e, greg_d = self._gregorian_cols(cols, now, errors)
             sh, slots, known = self._resolve_columns(cols, now, errors)
-            self._account_misses(slots, known)
+            self._account_misses(cols, sh, slots, known)
             ok = slots >= 0
             ok[list(errors)] = False
-            return self._dispatch_ragged(cols, now, sh, slots, known, ok,
-                                         greg_e, greg_d, errors)
+            handle = self._dispatch_ragged(cols, now, sh, slots, known, ok,
+                                           greg_e, greg_d, errors)
+            if self.store is not None:
+                # The write-through gather must see exactly this window's
+                # state.
+                handle.result()
+            return handle
 
     def _dispatch_ragged(self, cols, now, sh, slots, known, ok, greg_e,
                          greg_d, errors) -> MeshRaggedTickHandle:
@@ -340,7 +373,11 @@ class MeshTickEngine(BatchFront):
             uploaded = True
         self._pending.clear()
         self.metric_routed_windows += 1
-        handle = MeshRaggedTickHandle(self, resp, n, inv, errors, cols.limit)
+        gslots = None
+        if self.store is not None:
+            gslots = np.where(ok, sh * self.local_capacity + slots, -1)
+        handle = MeshRaggedTickHandle(self, resp, n, inv, errors, cols.limit,
+                                      cols.refs, gslots)
         self.metric_h2d_windows += 1
         if self._inflight > 0:
             self.metric_h2d_overlapped += 1
@@ -369,3 +406,187 @@ class MeshTickEngine(BatchFront):
                         m, a, z - a, s * self.local_capacity,
                         self.local_capacity, tile, out)
         return out
+
+    # ------------------------------------------------------------------
+    # State paths: all shards' rows in one launch per STATE_CHUNK
+    # ------------------------------------------------------------------
+    def _flat(self, g: np.ndarray) -> np.ndarray:
+        """Flat table rows of global slots: shard ``g // L``'s local slot
+        ``g % L`` is row ``(g // L) * (L + 1) + g % L``, never a guard
+        row."""
+        g = np.asarray(g, np.int64)
+        return g + g // self.local_capacity
+
+    def _read_through(self, requests, sh: np.ndarray, slots: np.ndarray,
+                      known: np.ndarray, miss: np.ndarray) -> None:
+        """``Store.get`` for the window's misses (algorithms.go:45-51), in
+        request order, once a slot: the items found land through one
+        scatter before the tick, and their requests tick as known
+        slots."""
+        restored: Dict[int, dict] = {}
+        for j in miss.tolist():
+            g = int(sh[j]) * self.local_capacity + int(slots[j])
+            if g in restored:
+                known[j] = 1
+                continue
+            item = self.store.get(requests[j])
+            if item is None:
+                continue
+            restored[g] = item
+            known[j] = 1
+            self._pending.discard(g)
+        if restored:
+            scatter_chunked(
+                self.table,
+                self._flat(np.fromiter(restored, np.int64, len(restored))),
+                rows_from_items(list(restored.values())))
+
+    def _write_through(self, requests, gslots: np.ndarray, n: int,
+                       errors: Dict[int, str]) -> None:
+        """``Store.on_change`` with each touched slot's state after the
+        tick (algorithms.go:149-153), once a slot; a slot the tick cleared
+        (RESET_REMAINING) maps to ``Store.remove`` (algorithms.go:78-90).
+        The calls go shard by shard, shards in the order the window first
+        touches them and slots in request order within each, as the JAX
+        engine's blocked readback yields them.  The rows come through one
+        gather.  ``gslots`` is in request order, -1 on lanes that did not
+        tick."""
+        lanes = np.flatnonzero(gslots >= 0)
+        if len(lanes) == 0:
+            return
+        _, first = np.unique(gslots[lanes], return_index=True)
+        lanes = lanes[np.sort(first)]
+        shard = gslots[lanes] // self.local_capacity
+        _, s_first, s_inv = np.unique(shard, return_index=True,
+                                      return_inverse=True)
+        s_rank = np.argsort(np.argsort(s_first))
+        lanes = lanes[np.argsort(s_rank[s_inv], kind="stable")]
+        g = gslots[lanes]
+        shard = g // self.local_capacity
+        keys: List[bytes] = [b""] * len(lanes)
+        for s in np.unique(shard).tolist():
+            at = np.flatnonzero(shard == s)
+            for k, key in zip(at.tolist(), self.slots[s].keys_batch(
+                    g[at] - s * self.local_capacity)):
+                keys[k] = key
+        store_rows(self.store, requests, lanes, keys,
+                   gather_chunked(self.table, self._flat(g)))
+
+    def _install_slots(self, keys: List[bytes], now: int) -> np.ndarray:
+        """Global slots for installed keys, -1 where the key's shard stays
+        full, stamped with this tick.  A shard with room for every new key
+        resolves them in one native call; a shard without takes them one
+        at a time, reclaiming before each key that does not fit, as the
+        JAX engine's per-key resolve does."""
+        blob, offsets = pack_blob(keys)
+        sh = (crc32_batch(blob, offsets)
+              % np.uint32(self.n_shards)).astype(np.int64)
+        out = np.full(len(keys), -1, np.int64)
+        for s in np.unique(sh).tolist():
+            at = np.flatnonzero(sh == s)
+            sm, lo = self.slots[s], s * self.local_capacity
+            sub = compact_blob(blob, offsets, at)
+            new = {keys[i] for i, sl in zip(at.tolist(), sm.lookup_blob(*sub))
+                   if sl < 0}
+            if len(sm) + len(new) <= self.local_capacity:
+                out[at] = lo + sm.resolve_blob(*sub)[0]
+            else:
+                for i in at.tolist():
+                    sl = int(sm.resolve_batch([keys[i]])[0][0])
+                    if sl < 0:
+                        self._reclaim(s, now)
+                        sl = int(sm.resolve_batch([keys[i]])[0][0])
+                        if sl < 0:
+                            continue
+                    out[i] = lo + sl
+                    self._last_access[lo + sl] = self._tick_count
+                    self._pending.discard(lo + sl)
+        got = out[out >= 0]
+        self._last_access[got] = self._tick_count
+        self._pending.difference_update(got.tolist())
+        return out
+
+    def install_globals(self, updates: Sequence[GlobalUpdate],
+                        now: Optional[int] = None) -> None:
+        """Install owner-pushed GLOBAL state as whole rows
+        (``ops.engine.install_rows``), every shard's in one scatter a
+        STATE_CHUNK.  The last update of a key wins; a key whose shard
+        cannot place it is dropped (the next push retries)."""
+        if not updates:
+            return
+        with self._lock:
+            now = now if now is not None else timeutil.now_ms()
+            # A new logical tick: the previous tick's slots must not stay
+            # protected from reclaim.
+            self._tick_count += 1
+            g = self._install_slots([u.key.encode() for u in updates], now)
+            by_slot: Dict[int, GlobalUpdate] = {}
+            for u, s in zip(updates, g.tolist()):
+                if s >= 0:
+                    by_slot[s] = u
+            if not by_slot:
+                return
+            tgt = np.fromiter(by_slot, np.int64, len(by_slot))
+            scatter_chunked(self.table, self._flat(tgt),
+                            install_rows(list(by_slot.values()), now))
+
+    def export_items(self) -> List[dict]:
+        """The live state as Loader-contract item dicts, in global slot
+        order: every shard's mapped rows cross to the host through the
+        gather kernel, STATE_CHUNK rows a launch, and rows not in use are
+        dropped."""
+        with self._lock:
+            g = np.flatnonzero(np.concatenate(
+                [sm.mapped_mask() for sm in self.slots]))
+            rows = gather_chunked(self.table, self._flat(g))
+            alive = rows[:, WORD["in_use"]] != 0
+            g, rows = g[alive], rows[alive]
+            owner = g // self.local_capacity
+            keys: List[bytes] = []
+            for s in range(self.n_shards):
+                sel = g[owner == s] - s * self.local_capacity
+                if len(sel):
+                    keys.extend(self.slots[s].keys_batch(sel))
+            return items_from_columns(keys, columns_from_rows(rows),
+                                      np.arange(len(g)))
+
+    def load_items(self, items: Sequence[dict],
+                   now: Optional[int] = None) -> None:
+        """Load Loader-contract item dicts: items expired by ``now`` are
+        dropped, a key that repeats keeps its last item (in its first
+        item's place), each shard assigns its keys in one native call (a
+        full shard stamps what it placed, reclaims once and retries the
+        rest; what still does not fit is dropped), and the rows land in
+        one scatter a STATE_CHUNK."""
+        with self._lock:
+            now = now if now is not None else timeutil.now_ms()
+            self._tick_count += 1  # as install_globals: unblock reclaim
+            live = list({it["key"]: it for it in items
+                         if it["expire_at"] >= now}.values())
+            if not live:
+                return
+            blob, offsets = pack_blob([it["key"].encode() for it in live])
+            sh = (crc32_batch(blob, offsets)
+                  % np.uint32(self.n_shards)).astype(np.int64)
+            local = np.full(len(live), -1, np.int64)
+            for s in np.unique(sh).tolist():
+                at = np.flatnonzero(sh == s)
+                sm, lo = self.slots[s], s * self.local_capacity
+                ls = sm.assign_blob(*compact_blob(blob, offsets, at))
+                if (ls < 0).any():
+                    # Stamp the rows just placed first: their device rows
+                    # are stale until the scatter, and an unstamped
+                    # reclaim would hand their slots to the retried keys.
+                    got = lo + ls[ls >= 0]
+                    self._last_access[got] = self._tick_count
+                    self._pending.update(got.tolist())
+                    self._reclaim(s, now)
+                    retry = np.flatnonzero(ls < 0)
+                    ls[retry] = sm.assign_blob(
+                        *compact_blob(blob, offsets, at[retry]))
+                local[at] = ls
+            ok = np.flatnonzero(local >= 0)
+            g = sh[ok] * self.local_capacity + local[ok]
+            self._last_access[g] = self._tick_count
+            scatter_chunked(self.table, self._flat(g),
+                            rows_from_items([live[j] for j in ok.tolist()]))

@@ -150,18 +150,22 @@ def _make_engine(conf: InstanceConfig):
     if conf.tpu_mesh_shards > 1:
         from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
 
-        for knob, value in (("a Store", conf.store),
-                            ("GUBER_COLD_CACHE_SIZE", conf.cold_cache_size),
-                            ("GUBER_SSD_DIR", conf.ssd_dir)):
-            if value:
-                raise ValueError(
-                    f"{knob} with the sharded mesh engine "
-                    "(GUBER_TPU_MESH_SHARDS > 1) is not ported yet "
-                    "(ROADMAP A.5)")
+        if conf.cold_cache_size:
+            log.warning(
+                "GUBER_COLD_CACHE_SIZE is not supported by the sharded "
+                "mesh engine yet; tiering disabled")
+        if conf.ssd_dir:
+            # A hard error, as in setup_daemon_config: a silently absent
+            # third tier leaves the deployment without capacity it was
+            # sized around.
+            raise ValueError(
+                "GUBER_SSD_DIR is not supported by the sharded mesh "
+                "engine (GUBER_TPU_MESH_SHARDS > 1): the SSD tier "
+                "hangs off the single-chip cold store; unset one")
         n = conf.tpu_mesh_shards
         return MeshTickEngine(
             n_shards=n, local_capacity=max(1, conf.cache_size // n),
-            max_batch=conf.tpu_max_batch, device=device)
+            max_batch=conf.tpu_max_batch, device=device, store=conf.store)
     from gubernator_tpu_torch.ops.engine import TickEngine
 
     ssd = None
@@ -245,14 +249,17 @@ class V1Instance:
     @classmethod
     async def create(cls, conf: InstanceConfig, engine=None) -> "V1Instance":
         inst = cls(conf, engine)
+        columnar = hasattr(inst.engine, "load_columns")
         if conf.loader is not None:
-            if hasattr(conf.loader, "load_columns"):
+            if hasattr(conf.loader, "load_columns") and columnar:
                 snap = conf.loader.load_columns()
                 if snap is not None:
                     inst.engine.load_columns(snap)
             else:
                 inst.engine.load_items(list(conf.loader.load()))
-        if conf.snapshot_dir:
+        # The snapshot writer drains export_columns: an engine without the
+        # columnar snapshot (the mesh) runs without persistence.
+        if conf.snapshot_dir and columnar:
             await inst._start_persistence()
         return inst
 
@@ -855,7 +862,8 @@ class V1Instance:
         if self._snapshot_writer is not None:
             await self._snapshot_writer.close(final_base=True)
         if self.conf.loader is not None:
-            if hasattr(self.conf.loader, "save_columns"):
+            if (hasattr(self.conf.loader, "save_columns")
+                    and hasattr(self.engine, "export_columns")):
                 self.conf.loader.save_columns(self.engine.export_columns())
             else:
                 self.conf.loader.save(self.engine.export_items())

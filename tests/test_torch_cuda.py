@@ -13,7 +13,10 @@ shapes (CHAIN_CASES), the engine on a tiny table that
 fills and reclaims (with herd windows on the grouped plan and random
 windows on the chained tick, and random Zipf windows with long segments),
 its state exported and loaded, layered
-windows on a 2^14-slot table, the mesh engine on four tiny shards, the
+windows on a 2^14-slot table, the row gather at every tail of its
+32-row warps (0-625000 rows, 16- and 6-word rows, clamped slots), the
+mesh engine on four tiny shards and its state paths (installs, a Store,
+an items round trip) against the CPU mesh, the
 tiered engine (Store, cold and SSD tiers) against the same engine on the
 CPU, background reclaim under concurrent ticks, and a 3-node cluster
 of card engines (against one of CPU engines on a seeded sequence, and
@@ -467,6 +470,45 @@ def test_gather_and_scatter_match_plain(dev, width):
     rowtable.scatter_rows_plain(t_p, slots, rows)
     assert torch.equal(t_k, t_p)
     assert torch.equal(t_k[cap], table[cap])  # the guard row is never written
+
+
+GATHER_ROWS = (0, 1, 7, 31, 33, 4097, 625000)
+
+
+@pytest.mark.parametrize("width", [16, 6])
+@pytest.mark.parametrize("n", GATHER_ROWS)
+def test_gather_rows_matches_plain_at_every_tail(dev, n, width):
+    """The row gather (a warp per 32 rows, 16-word rows at a compile-time
+    width, any other even width at run time) on ``n`` random slots, some
+    negative, at the guard row or past it (clamped), bit for bit."""
+    g = torch.Generator().manual_seed(n * 31 + width)
+    cap = 1 << 20 if n > 4097 else 5000
+    table = torch.randint(-2**62, 2**62, (cap + 1, width), generator=g,
+                          dtype=torch.int64).to(dev)
+    slots = torch.randint(0, cap, (n,), generator=g, dtype=torch.int64)
+    slots[1::13] = -1 - torch.arange(len(slots[1::13]))
+    slots[2::13] = cap
+    slots[3::13] = cap + 1 + torch.arange(len(slots[3::13]))
+    slots = slots.to(dev)
+    r0 = rowtable.gather_rows.launches
+    got = rowtable.gather_rows(table, slots)
+    assert rowtable.gather_rows.launches == r0 + 1
+    assert got.shape == (n, width)
+    assert torch.equal(got, rowtable.gather_rows_plain(table, slots))
+
+
+def test_mesh_state_paths_on_the_card_match_the_cpu_mesh(dev):
+    """Installs, a Store's windows and an items round trip on a card mesh
+    equal the CPU mesh's (answers, exported items, Store calls), in one
+    row kernel launch a STATE_CHUNK, with every guard row zero."""
+    launches, widths = {}, {}
+    info = cs.mesh_state_paths(
+        torch, dev, n_shards=4, local_capacity=2048, width=256,
+        ref_local_capacity=1024, launches=launches, widths=widths,
+        installs=512, store_windows=3, store_width=256,
+        round_trip_per_shard=1024)
+    assert info["round_trip"]["items"] == 4096
+    assert info["store"]["calls"]["get"] > 0
 
 
 def test_engine_on_the_card_matches_the_cpu_engine(dev):

@@ -268,7 +268,7 @@ def test_instance_and_daemon_without_a_platform_raise_without_a_card():
         asyncio.run(Cluster.start(1, global_mesh=True))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         asyncio.run(Cluster.start(1))
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="GUBER_SSD_DIR is not supported"):
         asyncio.run(V1Instance.create(InstanceConfig(
             cache_size=16, tpu_max_batch=8, tpu_mesh_shards=2,
-            tpu_platform="cpu", cold_cache_size=4)))
+            tpu_platform="cpu", cold_cache_size=4, ssd_dir="/nonexistent")))

@@ -226,9 +226,9 @@ def test_pipelined_submits_match_jax(engines):
 
 
 def test_constructor_contract():
-    with pytest.raises(NotImplementedError):
-        MeshTickEngine(n_shards=2, local_capacity=8, device="cpu",
-                       store=object())
+    store = object()
+    assert MeshTickEngine(n_shards=2, local_capacity=8, device="cpu",
+                          store=store).store is store
     with pytest.raises(ValueError, match="int32"):
         MeshTickEngine(n_shards=4, local_capacity=1 << 29, device="cpu")
     with pytest.raises(ValueError, match="routing"):
