@@ -135,11 +135,32 @@ Phases, one output line each:
    algorithms, GLOBAL, RESET, negative hits, invalid items).  Launches by
    path: prefill, forward, global, transfer, compare.
 
+8. quota leases (``lease_node``, run on phase 6's node before it
+   closes): two holders (``LeaseCache``s of their own ids, as two
+   gateways) lease 16384 resident token-bucket keys that phase 6's
+   traffic did not touch: grants of 4096 specs a call through
+   ``V1Instance.lease_grant`` (want 32), 64 local admissions a key each,
+   one batched renewal when the lease runs out (``take_syncs`` +
+   ``lease_sync``, then want 64), and a release round that credits the
+   unused budget back; over-admission 0, hits=0 probes before and after
+   differ by exactly the admissions, one ``lease_apply`` launch a lease
+   window, nothing outstanding, no sync loss or drop (grant, sync and
+   release round seconds, local admissions a second, server items
+   against admissions).  ``lease_wire``: a ``LeaseSession`` over
+   phase 6's gRPC daemon takes 256 keys at one grant RPC a key, loses
+   nothing on ``close()``, probes exact, ``/metrics`` counting the
+   grants.  ``lease_compare``: the seeded edge-case ``lease_sequence`` on
+   a 2^14-slot card engine and a CPU one, equal.
+
 Phase 2 also times one launch of an empty kernel (``empty_launch_ms``,
-``csrc/empty.cu``).  Phases 3-7 also report each path's tick launches by
-lane width (``launches_by_width``, power-of-two buckets), summed over them
-on the ``launch_widths`` line.  Then the kernel table as one JSON line, the card
-line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
+``csrc/empty.cu``) and B.9, the lease-column window
+(``csrc/lease_apply.cu``), on set and delta windows of 4096 and 65536
+lanes over a 10M-slot column triple, bit for bit against its plain
+version, beside the pre-B.9 eager sequence (``library_ms``).  Phases
+3-8 also report each path's tick and lease-window launches by lane
+width (``launches_by_width``, power-of-two buckets), summed over them on
+the ``launch_widths`` line.  Then the kernel table as one JSON line, the
+card line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device the script exits non-zero before
 printing a result.
 """
@@ -1268,7 +1289,123 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
             "rows": n, **{k: e[k] for k in ("ms", "plain_ms", "library_ms",
                                             "bound_ms", "max_abs_err")}}
     out["gather_rows"]["sweep"] = sweep
+    # Its own generator: the draws above stay those of earlier runs.
+    out["lease_apply"] = lease_entry(
+        torch, dev, np.random.default_rng(SEED + 5))
     out["empty_launch_ms"] = empty_launch_ms(torch, dev)
+    return out
+
+
+# ----------------------------------------------------------------------
+# B.9: the lease-column window (ops/leasecols.py)
+# ----------------------------------------------------------------------
+LEASE_SLOTS = 10_000_000      # phase 6's table: the lease columns of 10M keys
+LEASE_WIDTHS = (4096, 65536)  # a grant call's window; a wide window
+LEASE_NEGATIVE = 16           # slots holding a negative budget
+
+
+def lease_lanes(rng, cap: int, n: int) -> tuple:
+    """Raw lanes of one window: random slots, one lane in 16 repeating an
+    earlier lane's slot; budgets in [-50, 50); expiries; generations."""
+    slots = rng.integers(0, cap, n)
+    rep = np.flatnonzero(rng.random(n) < 1 / 16)
+    rep = rep[rep > 0]
+    slots[rep] = slots[(rng.random(len(rep)) * rep).astype(np.int64)]
+    return (slots, rng.integers(-50, 50, n), NOW + rng.integers(0, 10**6, n),
+            rng.integers(0, 1000, n))
+
+
+def eager_lease_window(cols, lanes, is_set):
+    """The port's lease window before B.9 (its ``TickEngine.lease_window``
+    after the host kept only resident lanes): index writes, or an
+    accumulating add, a clamp of the whole budget column and two
+    scatter-max, as separate torch launches."""
+    import torch
+
+    budget, expire, gen = cols
+    idx, bud, exp, g = lanes
+    g = g.to(torch.int32)
+    if is_set:
+        budget[idx] = bud
+        expire[idx] = exp
+        gen[idx] = g
+    else:
+        budget.index_put_((idx,), bud, accumulate=True)
+        budget.clamp_(min=0)
+        expire.scatter_reduce_(0, idx, exp, "amax")
+        gen.scatter_reduce_(0, idx, g, "amax")
+
+
+def lease_entry(torch, dev, rng, cap=LEASE_SLOTS, widths=LEASE_WIDTHS,
+                rotate=16) -> dict:
+    """B.9 on a ``cap``-slot column triple (200 MB, four times the L2):
+    set and delta windows of each width in ``widths``, the kernel on the
+    packed lanes held bit for bit against the plain version (set: on the
+    same lanes; delta: on the raw lanes, repeats and the whole-column
+    clamp included, with LEASE_NEGATIVE slots negative before the
+    window), and timed over ``rotate`` lane sets beside the plain version
+    on the packed lanes and the pre-B.9 eager sequence
+    (``eager_lease_window``, ``library_ms``).  Bound: 28 B a packed lane in, 20 B of columns
+    written, and for a delta window 20 B read.  The kernel table's entry
+    is the set window of 4096 lanes, a grant call's."""
+    from gubernator_tpu_torch.ops import leasecols as LC
+
+    def col(v, dtype):
+        t = torch.from_numpy(np.asarray(v, dtype)).to(dev)
+        t[cap] = 0  # the guard entry
+        return t
+
+    neg = rng.choice(cap, LEASE_NEGATIVE, replace=False)
+    budget = col(rng.integers(0, 1000, cap + 1), np.int64)
+    budget[torch.from_numpy(neg).to(dev)] = -5
+    cols = (budget, col(NOW + rng.integers(0, 10**6, cap + 1), np.int64),
+            col(rng.integers(0, 1000, cap + 1), np.int32))
+    scratch = [c.clone() for c in cols]
+    shapes, err = {}, 0
+    for n in widths:
+        for is_set in (True, False):
+            raw = [lease_lanes(rng, cap, n) for _ in range(rotate)]
+            packed = [torch.from_numpy(LC.pack_lanes(
+                *r, is_set, () if is_set else neg)).to(dev) for r in raw]
+            unpacked = [torch.from_numpy(np.stack(
+                [np.asarray(r[0]), r[1], r[2],
+                 np.asarray(r[3]).astype(np.int32).astype(np.int64)])).to(dev)
+                for r in raw]
+            k = [c.clone() for c in cols]
+            p = [c.clone() for c in cols]
+            LC.lease_apply(*k, packed[0], is_set)
+            LC.lease_apply_plain(*p, packed[0] if is_set else unpacked[0],
+                                 is_set)
+            torch.cuda.synchronize()
+            kind = "set" if is_set else "delta"
+            for a, b in zip(k, p):
+                assert torch.equal(a, b), f"lease_apply differs ({kind} {n})"
+                err = max(err, _max_abs(torch, a, b))
+            del k, p
+            m = packed[0].shape[1]
+            nbytes = m * (28 + 20 + (0 if is_set else 20))
+            # The engine's lease window before B.9: a set window's lanes
+            # deduplicated on the host, a delta window's raw.
+            library = [p_ if is_set else u for p_, u in zip(packed, unpacked)]
+            shapes[f"{kind}_{n}"] = _entry(
+                "lease_apply", "gubernator_tpu_torch/csrc/lease_apply.cu",
+                "gubernator_tpu/ops/engine.py:1837", err,
+                time_ms(torch, [lambda l=l: LC.lease_apply(*scratch, l, is_set)
+                                for l in packed]),
+                time_ms(torch, [lambda l=l: LC.lease_apply_plain(
+                    *scratch, l, is_set) for l in packed]),
+                time_ms(torch, [lambda l=l: eager_lease_window(
+                    scratch, l, is_set) for l in library]),
+                nbytes, 0)
+            shapes[f"{kind}_{n}"]["lanes"] = m
+    out = dict(shapes[f"set_{widths[0]}"])
+    out["max_abs_err"] = float(err)
+    out["by_shape"] = {
+        k: {f: v[f] for f in ("lanes", "ms", "plain_ms", "library_ms",
+                              "bound_ms", "bytes")}
+        for k, v in shapes.items()}
+    for v in out["by_shape"].values():
+        v["share"] = v["bound_ms"] / v["ms"]
     return out
 
 
@@ -1643,6 +1780,15 @@ def device_timed(torch, module, names, out: dict):
     torch.cuda.synchronize()
     for n in names:
         out[n] = sum(a.elapsed_time(b) for a, b in marks[n])
+
+
+def assert_same_export(ea: dict, eb: dict) -> None:
+    """Two ``export_columns`` snapshots equal, key blob and every column."""
+    assert ea.keys() == eb.keys()
+    assert bytes(ea["key_blob"]) == bytes(eb["key_blob"])
+    for f in ea:
+        if f != "key_blob":
+            np.testing.assert_array_equal(ea[f], eb[f], err_msg=f)
 
 
 def check_export_sample(torch, eng, snap, rng, k: int = 4096) -> None:
@@ -2230,12 +2376,8 @@ def tier_compare(torch, dev, root: str, capacity=1 << 14, width=4096,
         assert {k: sa[k] for k in SSD_COUNTS} == {k: sb[k] for k in SSD_COUNTS}
         assert stores[0].data == stores[1].data
         assert stores[0].called == stores[1].called
-        ea, eb = a.export_columns(), b.export_columns()
-        assert ea.keys() == eb.keys()
-        assert bytes(ea["key_blob"]) == bytes(eb["key_blob"])
-        for f in ea:
-            if f != "key_blob":
-                np.testing.assert_array_equal(ea[f], eb[f], err_msg=f)
+        ea = a.export_columns()
+        assert_same_export(ea, b.export_columns())
         metrics = ("metric_cold_hits", "metric_ssd_hits",
                    "metric_promote_dispatches", "metric_promote_ticks",
                    "metric_demote_readbacks", "metric_unexpired_evictions")
@@ -2576,6 +2718,16 @@ SERVE_LIMIT = 1_000_000
 SERVE_DURATION = 3_600_000
 SERVE_PAYLOADS = 16
 GLOBAL_BIT = 2
+# Phase 8 (quota leases on phase 6's node).
+LEASE_KEYS = 16384
+LEASE_CALL = 4096        # specs a grant or sync call: a gateway's batch
+LEASE_WANTS = (32, 64)   # the first lease's budget, the renewal's
+LEASE_ADMITS = 64        # local admissions a key a holder
+LEASE_TTL = "600s"       # GUBER_LEASE_TTL: no lease expires mid-phase
+WIRE_KEYS = 256
+WIRE_ADMITS = 8
+LEASE_SECRET = b"chip-smoke-lease"
+SEQUENCE_SLOTS = 1 << 14
 
 
 def serve_columns(reqcols, name: bytes, ids, hits=1, algorithm=0,
@@ -2615,7 +2767,8 @@ def mixed_serve_batch(reqcols, rng, n: int, keys: int, now: int):
 
 def serve_phase(torch, dev, keys=10_000_000, window=4096, serial=150,
                 callers=32, batches=96, segments=4, probe=4096, hot=64,
-                small=1 << 16, small_batches=64, small_width=200):
+                small=1 << 16, small_batches=64, small_width=200,
+                lease_keys=LEASE_KEYS):
     """The port's serving path on the card, in process: one ``V1Instance``
     over a prefilled ``keys``-key ``TickEngine`` with ``window``-wide
     ticks and 48 ingest slabs; 1000-request wire batches parsed by the
@@ -2624,17 +2777,37 @@ def serve_phase(torch, dev, keys=10_000_000, window=4096, serial=150,
     round trips and ``callers`` concurrent callers; a flight-recorder
     segment; each key's count checked around traffic B; a small card
     instance against a CPU one, bit for bit; and the daemon over gRPC
-    and HTTP where those packages are installed.  Returns ``(info,
-    launches summed over the phase's paths)``."""
+    and HTTP where those packages are installed.  Phase 8 runs on the same
+    node before it closes (``lease_node`` over ``lease_keys`` keys), over
+    the daemon's gRPC (``lease_wire``) and as the card-against-CPU
+    ``lease_sequence``.  Returns ``(info, launches summed over the
+    phase's paths, phase 8's info, its launches)``."""
     import asyncio
 
     return asyncio.run(_serve(torch, dev, keys, window, serial, callers,
                               batches, segments, probe, hot, small,
-                              small_batches, small_width))
+                              small_batches, small_width, lease_keys))
+
+
+@contextlib.contextmanager
+def env_knobs(**knobs):
+    """Set ``GUBER_*`` environment knobs for the block, restoring them
+    after."""
+    prev = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 async def _serve(torch, dev, keys, window, serial, callers, batches,
-                 segments, probe, hot, small, small_batches, small_width):
+                 segments, probe, hot, small, small_batches, small_width,
+                 lease_keys):
     import asyncio
 
     from gubernator_tpu_torch.ops import reqcols
@@ -2675,17 +2848,10 @@ async def _serve(torch, dev, keys, window, serial, callers, batches,
     info["prefill_s"] = time.perf_counter() - t0
     assert len(eng.slots) == keys
 
-    prev = os.environ.get("GUBER_INGEST_ARENA_SLABS")
-    os.environ["GUBER_INGEST_ARENA_SLABS"] = "48"
-    try:
+    with env_knobs(GUBER_INGEST_ARENA_SLABS="48", GUBER_LEASE_TTL=LEASE_TTL):
         inst = await V1Instance.create(
             InstanceConfig(cache_size=capacity, tpu_max_batch=window),
             engine=eng)
-    finally:
-        if prev is None:
-            os.environ.pop("GUBER_INGEST_ARENA_SLABS", None)
-        else:
-            os.environ["GUBER_INGEST_ARENA_SLABS"] = prev
     arena = inst.ingest_arena
     sent = {}
 
@@ -2822,6 +2988,18 @@ async def _serve(torch, dev, keys, window, serial, callers, batches,
                      "misses": arena.metric_misses,
                      "fallbacks": arena.metric_fallbacks,
                      "in_use_after": arena.in_use()}
+    # Phase 8 on this node: token-bucket keys no traffic above touched.
+    touched = np.concatenate(a_ids + b_ids + [probe_ids])
+    pick = rng.choice(keys // 2, 4 * lease_keys, replace=False) * 2
+    lease_ids = np.setdiff1d(pick, touched)[:lease_keys]
+    assert len(lease_ids) == lease_keys
+    leases = {}
+    with path("lease_node"):
+        leases["node"] = await lease_node(torch, inst, eng, lease_ids,
+                                          probe_remaining)
+    assert launches["lease_node"]["lease_apply"] == \
+        leases["node"]["lease_windows"], launches["lease_node"]
+    assert launches["lease_node"]["fused_tick"] > 0
     await inst.close()
     assert arena.in_use() == 0
     del eng, inst
@@ -2829,16 +3007,45 @@ async def _serve(torch, dev, keys, window, serial, callers, batches,
     with path("serve_bitwise"):
         info["bitwise"] = await bitwise_instances(
             torch, small, window, small_batches, small_width)
-    with path("serve_daemon"):
-        info["daemon"] = await daemon_check(small, window, small_width)
-    info["launches_by_path"] = launches
-    info["launches_by_width"] = widths
-    total = {}
-    for per in launches.values():
-        for name, c in per.items():
-            total[name] = total.get(name, 0) + c
-    assert total["fused_tick"] > 0, "no fused_tick launch in phase 6"
-    return info, total
+    info["daemon"], leases["wire"] = await daemon_check(
+        small, window, small_width, path)
+    with path("lease_compare"):
+        leases["card_vs_cpu"] = lease_compare(torch, dev)
+    phases = []
+    for tag, out in ((False, info), (True, leases)):
+        per = {k: v for k, v in launches.items()
+               if k.startswith("lease_") == tag}
+        out["launches_by_path"] = per
+        out["launches_by_width"] = {k: widths[k] for k in per}
+        total = {}
+        for counts in per.values():
+            for name, c in counts.items():
+                total[name] = total.get(name, 0) + c
+        phases += [out, total]
+    assert phases[1]["fused_tick"] > 0, "no fused_tick launch in phase 6"
+    assert phases[3]["lease_apply"] > 0, "no lease_apply launch in phase 8"
+    return tuple(phases)
+
+
+def lease_compare(torch, dev) -> dict:
+    """``lease_sequence`` on a SEQUENCE_SLOTS-slot card engine and on the
+    same engine on the CPU: tokens, acks, stats, lease columns, probes
+    and the exported tables must be equal."""
+    from gubernator_tpu_torch import leases, types
+    from gubernator_tpu_torch.ops.engine import TickEngine
+    from gubernator_tpu_torch.resilience import ManualClock
+
+    runs, snaps = [], []
+    for d in (dev, torch.device("cpu")):
+        eng = TickEngine(capacity=SEQUENCE_SLOTS, max_batch=64, device=d)
+        runs.append(lease_sequence(leases, types, eng, ManualClock, NOW))
+        snaps.append(eng.export_columns())
+    assert runs[0] == runs[1], (runs[0], runs[1])
+    assert_same_export(*snaps)
+    return {"equal": True, "grant_calls": len(runs[0]["grants"]),
+            "sync_calls": len(runs[0]["acks"]), "stats": runs[0]["stats"],
+            "lease_windows": runs[0]["windows"][0],
+            "exported_items": len(snaps[0]["key_offsets"]) - 1}
 
 
 async def _answer_raw(inst, raw):
@@ -2917,16 +3124,18 @@ async def bitwise_instances(torch, capacity, window, batches, width):
             "card_duplicate_routes": routes}
 
 
-async def daemon_check(capacity, window, width):
+async def daemon_check(capacity, window, width, path):
     """``spawn_daemon`` on 127.0.0.1:0 answers raw batches over gRPC and
-    one JSON batch over HTTP as an in-process CPU instance answers them;
-    a missing package is named, not caught."""
+    one JSON batch over HTTP as an in-process CPU instance answers them
+    (path ``serve_daemon``), then serves phase 8's ``lease_wire`` (path
+    ``lease_wire``); a missing package is named, not caught.  Returns
+    the two paths' results."""
     import importlib.util
 
     missing = [m for m in ("grpc", "aiohttp", "google.protobuf")
                if importlib.util.find_spec(m.split(".")[0]) is None]
     if missing:
-        return {"skipped_missing": missing}
+        raise RuntimeError(f"the daemon needs {missing}")
     import asyncio
     import urllib.request
 
@@ -2951,43 +3160,341 @@ async def daemon_check(capacity, window, width):
             cache_size=capacity, tpu_max_batch=window, tpu_platform="cpu"))
         client = d.client()
         try:
-            for k in range(4):
-                clock[0] = NOW + 1_000 * k
-                raw = fastwire.encode_req(mixed_serve_batch(
-                    reqcols, rng, width, 4096, clock[0]))
-                got = await client.get_rate_limits_raw(raw)
-                assert got == await _answer_raw(ref, raw), k
-                out["grpc_batches"] += 1
-            reqs = global_requests(types, 99, 8) + [
-                types.RateLimitRequest(name="http", unique_key=f"h{i}",
-                                       hits=1, limit=10, duration=60_000)
-                for i in range(4)]
-            body = json.dumps({"requests": [
-                json_format.MessageToDict(convert.req_to_pb(r),
-                                          preserving_proto_field_name=True)
-                for r in reqs]}).encode()
+            with path("serve_daemon"):
+                for k in range(4):
+                    clock[0] = NOW + 1_000 * k
+                    raw = fastwire.encode_req(mixed_serve_batch(
+                        reqcols, rng, width, 4096, clock[0]))
+                    got = await client.get_rate_limits_raw(raw)
+                    assert got == await _answer_raw(ref, raw), k
+                    out["grpc_batches"] += 1
+                reqs = global_requests(types, 99, 8) + [
+                    types.RateLimitRequest(name="http", unique_key=f"h{i}",
+                                           hits=1, limit=10, duration=60_000)
+                    for i in range(4)]
+                body = json.dumps({"requests": [
+                    json_format.MessageToDict(
+                        convert.req_to_pb(r), preserving_proto_field_name=True)
+                    for r in reqs]}).encode()
+                url = f"http://{d.conf.http_listen_address}/v1/GetRateLimits"
 
-            def post():
-                req = urllib.request.Request(
-                    f"http://{d.conf.http_listen_address}/v1/GetRateLimits",
-                    data=body, method="POST")
-                with urllib.request.urlopen(req, timeout=60) as r:
-                    return json.loads(r.read())
+                def post():
+                    req = urllib.request.Request(url, data=body,
+                                                 method="POST")
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        return json.loads(r.read())
 
-            got = await asyncio.to_thread(post)
-            want = json_format.MessageToDict(
-                pb.GetRateLimitsResp(responses=convert.resps_to_pb(
-                    await ref.get_rate_limits(reqs))),
-                preserving_proto_field_name=True,
-                always_print_fields_with_no_presence=True)
-            assert got == want
-            out["http_items"] = len(reqs)
-            health = await client.health_check()
-            out["health"] = [health.status, health.peer_count]
+                got = await asyncio.to_thread(post)
+                want = json_format.MessageToDict(
+                    pb.GetRateLimitsResp(responses=convert.resps_to_pb(
+                        await ref.get_rate_limits(reqs))),
+                    preserving_proto_field_name=True,
+                    always_print_fields_with_no_presence=True)
+                assert got == want
+                out["http_items"] = len(reqs)
+                health = await client.health_check()
+                out["health"] = [health.status, health.peer_count]
+            with path("lease_wire"):
+                wire = await lease_wire(d)
         finally:
             await client.close()
             await d.close()
             await ref.close()
+    return out, wire
+
+
+# ----------------------------------------------------------------------
+# Phase 8: quota leases on phase 6's node
+# ----------------------------------------------------------------------
+
+
+class _Pressure:
+    """A tick loop stand-in that only answers ``under_pressure``."""
+
+    pressured = False
+
+    def under_pressure(self) -> bool:
+        return self.pressured
+
+
+class _ShedEngine:
+    """An engine whose every decision is a retriable shed answer."""
+
+    def __init__(self, response_cls):
+        self.response_cls = response_cls
+
+    def process(self, reqs, now=None):
+        return [self.response_cls(error="request shed: tick loop shutting "
+                                        "down") for _ in reqs]
+
+
+def lease_sequence(leases, types, eng, clock, now: int) -> dict:
+    """The seeded edge-case lease sequence: a ``leases.LeaseManager``
+    (HMAC, fixed secret) over ``eng`` through ``grant_local`` /
+    ``sync_local`` at virtual ``now``: two holders on one key in one
+    window, credit-back on release, excess force-charged, a stale
+    generation, a holder the key never delegated to, a config change
+    bumping the generation, ``revoke``, the generation monotonic across
+    release and regrant, pressure degrading a renewal to cheap
+    extension, an expired slice reconciled, excess on a key with no
+    config dropped, a shed credit-back counted and a force-charge that
+    bounces off an empty bucket.  ``leases``, ``types`` and ``clock`` (a
+    ManualClock class) are one package's, the port's or in the CPU tests
+    the JAX package's.  Returns plain values: tokens, acks, ``stats()``,
+    the lease columns, hits=0 probes of every key and the engine's lease
+    window counters."""
+    L = leases
+    clk = clock(start=now / 1000)
+    loop = _Pressure()
+    mgr = L.LeaseManager(
+        eng, tick_loop=loop,
+        config=L.LeaseConfig(ttl_ms=5_000, secret=LEASE_SECRET),
+        signer=L.LeaseSigner(secret=LEASE_SECRET), clock=clk)
+    t = {"now": now}
+    out = {"grants": [], "acks": []}
+
+    def spec(key, want, holder="A", limit=1_000):
+        return L.LeaseSpec(name="lease_t", key=key, limit=limit,
+                           duration=60_000, want=want, holder=holder)
+
+    def grant(*specs):
+        toks = mgr.grant_local(list(specs), now_ms=t["now"])
+        out["grants"].append([
+            None if x is None else (x.name, x.key, x.budget, x.expires_ms,
+                                    x.generation, x.signature.hex())
+            for x in toks])
+        return toks
+
+    def sync(*items):  # (key, consumed, generation, release, holder)
+        acks = mgr.sync_local([
+            L.LeaseSync(name="lease_t", key=k, consumed=c, generation=g,
+                        release=r, holder=h) for k, c, g, r, h in items],
+            now_ms=t["now"])
+        out["acks"].append([(a.accepted, a.generation, a.credited, a.charged)
+                            for a in acks])
+
+    def advance(ms):
+        t["now"] += ms
+        clk.advance(ms / 1000)
+
+    ta, tb = grant(spec("k1", 20, "A"), spec("k1", 30, "B"))
+    sync(("k1", 5, ta.generation, True, "A"))
+    sync(("k1", 40, tb.generation, True, "B"))
+    [t2] = grant(spec("k2", 10))
+    sync(("k2", 3, t2.generation + 5, False, "A"),
+         ("k2", 2, t2.generation, False, "Z"))
+    grant(spec("k2", 10, limit=500))
+    sync(("k2", 4, t2.generation, False, "A"))
+    [t3] = grant(spec("k3", 7))
+    out["revoked"] = [mgr.revoke("lease_t", "k3"),
+                      mgr.revoke("lease_t", "none")]
+    sync(("k3", 2, t3.generation, True, "A"))
+    [t4] = grant(spec("k4", 9))
+    sync(("k4", 9, t4.generation, True, "A"))
+    grant(spec("k4", 9))
+    sync(("k4", 1, t4.generation, False, "A"))
+    [t5] = grant(spec("k5", 25))
+    loop.pressured = True
+    advance(2_000)
+    grant(spec("k5", 25), spec("k6", 10))
+    loop.pressured = False
+    advance(6_000)
+    sync(("k5", 3, t5.generation, False, "A"))
+    sync(("none", 4, 1, False, "A"))
+    [t7] = grant(spec("k7", 15))
+    mgr.engine = _ShedEngine(types.RateLimitResponse)
+    sync(("k7", 5, t7.generation, True, "A"))
+    mgr.engine = eng
+    [t8] = grant(spec("k8", 10))
+    eng.process([types.RateLimitRequest(
+        name="lease_t", unique_key="k8", hits=990, limit=1_000,
+        duration=60_000)], now=t["now"])
+    sync(("k8", 25, t8.generation, True, "A"))
+    keys = [f"k{i}" for i in range(1, 9)]
+    out["stats"] = mgr.stats()
+    out["columns"] = [np.asarray(c).tolist() for c in eng.lease_columns(
+        [f"lease_t_{k}".encode() for k in keys])]
+    probes = eng.process([types.RateLimitRequest(
+        name="lease_t", unique_key=k, hits=0,
+        limit=500 if k == "k2" else 1_000, duration=60_000) for k in keys],
+        now=t["now"])
+    out["probes"] = [(int(r.status), r.limit, r.remaining, r.reset_time)
+                     for r in probes]
+    out["windows"] = [eng.metric_lease_windows, eng.metric_lease_ops,
+                      eng.metric_lease_dispatches]
+    return out
+
+
+async def lease_node(torch, inst, eng, ids, probe) -> dict:
+    """Phase 8 on phase 6's node: two holders (LeaseCaches with their own
+    ids, as two gateways) lease the token-bucket keys ``ids``: a grant
+    round (LEASE_CALL specs a call, want LEASE_WANTS[0]), LEASE_ADMITS
+    local admissions a key until the lease runs out, one batched renewal
+    (``take_syncs`` + ``lease_sync``, then grants of LEASE_WANTS[1]), the
+    rest of the admissions and a release round that credits the unused
+    budget back.  ``probe(ids)`` reads the keys' remaining with hits=0
+    before and after.  Asserts no over-admission, no drift, one
+    ``lease_apply`` launch a lease window (read by the caller), nothing
+    outstanding after release and no sync loss or drop."""
+    from gubernator_tpu_torch.leases import ADMIT, LeaseCache, LeaseSpec
+
+    mgr = inst.lease_mgr
+    specs = [LeaseSpec(name="bench", key=f"{int(i):08d}", limit=SERVE_LIMIT,
+                       duration=SERVE_DURATION) for i in ids]
+    holders = ("gateway-a", "gateway-b")
+    caches = [LeaseCache(verifier=mgr.verifier(), want_budget=LEASE_WANTS[0],
+                         holder_id=h) for h in holders]
+    n = len(specs)
+    granted = np.zeros((len(caches), n), np.int64)
+    admitted = np.zeros((len(caches), n), np.int64)
+    items = {"grant": 0, "sync": 0}
+    seconds = {"grant_rounds": [], "sync_rounds": [], "release_rounds": [],
+               "admit_s": 0.0}
+    credited = 0
+    w0 = (eng.metric_lease_windows, eng.metric_lease_dispatches)
+    m0 = (mgr.metric_sync_loss, mgr.metric_sync_dropped)
+    before = await probe(ids)
+
+    async def grant_round(k, cache):
+        t0 = time.perf_counter()
+        for s in range(0, n, LEASE_CALL):
+            part = [cache.fill_want(sp) for sp in specs[s:s + LEASE_CALL]]
+            toks = await inst.lease_grant(part)
+            items["grant"] += len(part)
+            for j, (sp, tok) in enumerate(zip(part, toks)):
+                assert cache.note_grant(sp, tok), f"grant declined: {sp}"
+                granted[k, s + j] += tok.budget
+        seconds["grant_rounds"].append(time.perf_counter() - t0)
+
+    async def sync_round(cache, release):
+        nonlocal credited
+        t0 = time.perf_counter()
+        syncs = cache.take_syncs(release=release)
+        for s in range(0, len(syncs), LEASE_CALL):
+            part = syncs[s:s + LEASE_CALL]
+            acks = await inst.lease_sync(part)
+            items["sync"] += len(part)
+            assert all(a.accepted and not a.charged for a in acks)
+            credited += sum(a.credited for a in acks)
+            cache.note_synced(part, acks)
+        key = "release_rounds" if release else "sync_rounds"
+        seconds[key].append(time.perf_counter() - t0)
+
+    def admit(k, cache):
+        t0 = time.perf_counter()
+        for j, sp in enumerate(specs):
+            while admitted[k, j] < LEASE_ADMITS:
+                if cache.try_admit(sp) != ADMIT:
+                    break
+                admitted[k, j] += 1
+        seconds["admit_s"] += time.perf_counter() - t0
+
+    for k, cache in enumerate(caches):
+        await grant_round(k, cache)
+        admit(k, cache)
+        assert (admitted[k] == LEASE_WANTS[0]).all()  # ran out once
+        await sync_round(cache, release=False)
+        cache.want_budget = LEASE_WANTS[1]
+        await grant_round(k, cache)
+        admit(k, cache)
+        assert (admitted[k] == LEASE_ADMITS).all()
+        await sync_round(cache, release=True)
+        assert cache.stats().leases == 0
+    after = await probe(ids)
+    keys = [sp.full_key.encode() for sp in specs]
+    budget, _, _ = eng.lease_columns(keys)
+    windows = eng.metric_lease_windows - w0[0]
+    info = {
+        "keys": n, "holders": len(caches),
+        "admissions": int(admitted.sum()), "granted": int(granted.sum()),
+        "credited": int(credited),
+        "over_admission": int(np.maximum(admitted - granted, 0).sum()),
+        "drift_keys": int(np.count_nonzero(before - after
+                                           != admitted.sum(axis=0))),
+        "outstanding_after": int(np.abs(budget).sum()),
+        "outstanding_total": mgr.stats()["outstanding_total"],
+        "sync_loss": mgr.metric_sync_loss - m0[0],
+        "sync_dropped": mgr.metric_sync_dropped - m0[1],
+        "lease_windows": windows,
+        "lease_dispatches": eng.metric_lease_dispatches - w0[1],
+        "server_items": items,
+        "lease_traffic_reduction": float(admitted.sum())
+        / (items["grant"] + items["sync"]),
+        "local_admissions_per_s": float(admitted.sum()) / seconds["admit_s"],
+        **seconds,
+    }
+    assert info["over_admission"] == 0, info
+    assert info["drift_keys"] == 0, info
+    assert info["outstanding_after"] == 0 == info["outstanding_total"], info
+    assert info["sync_loss"] == 0 == info["sync_dropped"], info
+    assert info["lease_dispatches"] == windows > 0, info
+    return info
+
+
+def scrape_lease_grants(d) -> float:
+    """``gubernator_tpu_lease_grants_total`` from the daemon's HTTP
+    ``/metrics``."""
+    import urllib.request
+
+    url = f"http://{d.conf.http_listen_address}/metrics"
+    with urllib.request.urlopen(url, timeout=60) as r:
+        for line in r.read().decode().splitlines():
+            if line.startswith("gubernator_tpu_lease_grants_total "):
+                return float(line.split()[1])
+    raise AssertionError("/metrics has no gubernator_tpu_lease_grants_total")
+
+
+async def lease_wire(d, keys=WIRE_KEYS, admits=WIRE_ADMITS) -> dict:
+    """A ``LeaseSession`` over the daemon ``d``'s ``DaemonClient``:
+    ``admits`` admissions on each of ``keys`` keys cost one grant RPC a
+    key, ``close()`` loses nothing, hits=0 probes read ``limit -
+    admits``, and ``/metrics`` counts the grants."""
+    import asyncio
+
+    from gubernator_tpu_torch import types
+    from gubernator_tpu_torch.client import LeaseSession
+    from gubernator_tpu_torch.leases import LeaseSpec
+
+    client = d.client()
+    rpcs = {"grant": 0, "sync": 0}
+
+    class Counting:
+        async def lease_grant(self, specs):
+            rpcs["grant"] += 1
+            return await client.lease_grant(specs)
+
+        async def lease_sync(self, syncs):
+            rpcs["sync"] += 1
+            return await client.lease_sync(syncs)
+
+    limit = 100
+    g0 = await asyncio.to_thread(scrape_lease_grants, d)
+    sess = LeaseSession(Counting(), verifier=d.instance.lease_mgr.verifier(),
+                        want_budget=admits)
+    specs = [LeaseSpec(name="wire", key=spread_key(i), limit=limit,
+                       duration=60_000) for i in range(keys)]
+    t0 = time.perf_counter()
+    try:
+        for sp in specs:
+            for _ in range(admits):
+                assert await sess.admit(sp) is True
+        lost = await sess.close()
+        seconds = time.perf_counter() - t0
+        probes = await client.get_rate_limits([types.RateLimitRequest(
+            name="wire", unique_key=sp.key, hits=0, limit=limit,
+            duration=60_000) for sp in specs])
+    finally:
+        await client.close()
+    scraped = await asyncio.to_thread(scrape_lease_grants, d)
+    out = {"keys": keys, "admissions": keys * admits, "lost": lost,
+           "grant_rpcs": rpcs["grant"], "sync_rpcs": rpcs["sync"],
+           "session_grants": sess.stats().grants,
+           "probe_mismatches": sum(r.remaining != limit - admits
+                                   for r in probes),
+           "metrics_lease_grants": scraped, "seconds": seconds}
+    assert lost == 0 and out["probe_mismatches"] == 0, out
+    assert rpcs["grant"] == keys == out["session_grants"], out
+    assert scraped - g0 == keys, out
     return out
 
 
@@ -3525,17 +4032,20 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         tiers, tier_launches = tier_phase(torch, dev, root)
     print("phase5 " + json.dumps(tiers), flush=True)
-    serve, serve_launches = serve_phase(torch, dev)
+    serve, serve_launches, leases, lease_launches = serve_phase(torch, dev)
     print("phase6 " + json.dumps(serve), flush=True)
     cluster, cluster_launches = cluster_phase(torch, dev)
     print("phase7 " + json.dumps(cluster), flush=True)
+    print("phase8 " + json.dumps(leases), flush=True)
     for name in launches:
         launches[name] += (mesh_launches[name] + tier_launches[name]
-                           + serve_launches[name] + cluster_launches[name])
+                           + serve_launches[name] + cluster_launches[name]
+                           + lease_launches[name])
         assert launches[name] > 0, f"{name} was not launched on the main path"
-    # The ticks' launches by lane width over the five phases' paths.
+    # The ticks' and the lease window's launches by lane width over the
+    # six phases' paths.
     widths = {}
-    for phase in (info, mesh, tiers, serve, cluster):
+    for phase in (info, mesh, tiers, serve, cluster, leases):
         for per_path in phase["launches_by_width"].values():
             for name, counts in per_path.items():
                 for w, c in counts.items():
@@ -3546,7 +4056,8 @@ def main(argv=None) -> int:
 
     table = []
     for name in ("fused_tick", "fused_merged_tick", "fused_ragged_tick",
-                 "fused_sorted_tick", "gather_rows", "scatter_rows"):
+                 "fused_sorted_tick", "gather_rows", "scatter_rows",
+                 "lease_apply"):
         k = kernels[name]
         table.append({
             "name": name, "route": k["route"], "source": k["source"],

@@ -37,36 +37,40 @@ def kernel_launches() -> dict:
     from gubernator_tpu_torch.ops import rowtable
 
     return {
-        **{name: w.launches for name, w in _tick_wrappers().items()},
+        **{name: w.launches for name, w in _lane_wrappers().items()},
         "gather_rows": rowtable.gather_rows.launches,
         "scatter_rows": rowtable.scatter_rows.launches,
     }
 
 
-def _tick_wrappers() -> dict:
-    from gubernator_tpu_torch.ops import fusedtick, raggedtick, sortedtick
+def _lane_wrappers() -> dict:
+    """The wrappers that also count their launches by lane width: the
+    ticks and the lease-column window."""
+    from gubernator_tpu_torch.ops import (
+        fusedtick, leasecols, raggedtick, sortedtick)
 
     return {
         "fused_tick": fusedtick.fused_tick,
         "fused_merged_tick": fusedtick.fused_merged_tick,
         "fused_ragged_tick": raggedtick.fused_ragged_tick,
         "fused_sorted_tick": sortedtick.fused_sorted_tick,
+        "lease_apply": leasecols.lease_apply,
     }
 
 
 def kernel_launches_by_width() -> dict:
-    """Launch counts of each tick kernel by lane width: ``{kernel:
-    {bucket: count}}``, a bucket being the least power of two at or above
-    a launch's width."""
+    """Launch counts of each tick kernel and of the lease-column window by
+    lane width: ``{kernel: {bucket: count}}``, a bucket being the least
+    power of two at or above a launch's width."""
     return {name: dict(sorted(w.launches_by_width.items()))
-            for name, w in _tick_wrappers().items()}
+            for name, w in _lane_wrappers().items()}
 
 
 def reset_kernel_launches() -> None:
-    """Every kernel's launch count, and the ticks' counts by width, to 0."""
+    """Every kernel's launch count, and the counts by width, to 0."""
     from gubernator_tpu_torch.ops import rowtable
 
-    for w in _tick_wrappers().values():
+    for w in _lane_wrappers().values():
         w.launches = 0
         w.launches_by_width = {}
     rowtable.gather_rows.launches = 0

@@ -48,6 +48,7 @@ LIBS = {
     "fused_ragged_tick": ("nvcc", ("fused_ragged_tick.cu",)),
     "fused_sorted_tick": ("nvcc", ("fused_sorted_tick.cu",)),
     "rows": ("nvcc", ("rows.cu",)),
+    "lease_apply": ("nvcc", ("lease_apply.cu",)),
     "empty": ("nvcc", ("empty.cu",)),
     "fused_tick_host": ("cxx", ("fused_tick_host.cc",)),
 }

@@ -8,7 +8,7 @@ variable, and an optional ``key=value`` file is loaded into the
 environment first.
 
 Only the knobs of ported modules are read.  A knob of a module that is
-not ported yet (leases, federation, resharding, the autoscaler, edge
+not ported yet (federation, resharding, the autoscaler, edge
 workers, the GLOBAL mesh, the metric-flag collectors) or of the JAX
 package's TPU/XLA path raises a ``ValueError`` that names it, so no
 setting is silently ignored.
@@ -75,6 +75,13 @@ ENV_REGISTRY: Dict[str, str] = {
     "GUBER_K8S_POD_IP": "k8s discovery: this pod's IP",
     "GUBER_K8S_POD_PORT": "k8s discovery: this pod's port",
     "GUBER_K8S_WATCH_MECHANISM": "k8s discovery: 'endpoints' or 'pods'",
+    "GUBER_LEASE_BUDGET_FRACTION": "limit fraction delegated per lease grant",
+    "GUBER_LEASE_CREDIT_BACK": "credit unused lease budget back on release (0/1)",
+    "GUBER_LEASE_ENABLED": "cooperative quota-lease tier on/off",
+    "GUBER_LEASE_MAX_BUDGET": "hard cap on admissions per lease grant",
+    "GUBER_LEASE_OFFLINE_GRACE": "client lease extension window when owner unreachable",
+    "GUBER_LEASE_SECRET": "shared HMAC lease-signing secret ('' = per-process)",
+    "GUBER_LEASE_TTL": "lease validity window (duration)",
     "GUBER_LOG_FORMAT": "log format: text or json",
     "GUBER_LOG_LEVEL": "log level: debug/info/warning/error",
     "GUBER_MEMBERLIST_ADDRESS": "member-list discovery: bind address",
@@ -123,11 +130,6 @@ _TPU = "a knob of the JAX package's TPU/XLA path with no counterpart here"
 
 # Knobs of modules that are not ported yet -> where they belong.
 UNPORTED: Dict[str, str] = {
-    **{k: "quota leases" for k in (
-        "GUBER_LEASE_BUDGET_FRACTION", "GUBER_LEASE_CREDIT_BACK",
-        "GUBER_LEASE_ENABLED", "GUBER_LEASE_MAX_BUDGET",
-        "GUBER_LEASE_OFFLINE_GRACE", "GUBER_LEASE_SECRET",
-        "GUBER_LEASE_TTL")},
     **{k: "multi-region federation" for k in (
         "GUBER_FEDERATION_BATCH_LIMIT", "GUBER_FEDERATION_ENABLED",
         "GUBER_FEDERATION_INTERVAL", "GUBER_FEDERATION_TIMEOUT")},

@@ -48,7 +48,7 @@ import torch
 from gubernator_tpu_torch import DeviceLike, resolve_device
 from gubernator_tpu_torch.native import NativeSlotMap
 from gubernator_tpu_torch.ops.buckets import WORD, zeros_table
-from gubernator_tpu_torch.ops import rowtable, tick
+from gubernator_tpu_torch.ops import leasecols, rowtable, tick
 from gubernator_tpu_torch.ops.fusedtick import (  # noqa: F401
     REQ32_INDEX, REQ32_ROWS, REQ32_WIDE, fused_tick)
 from gubernator_tpu_torch.ops.reqcols import (
@@ -929,6 +929,9 @@ class TickEngine(BatchFront):
         self._lease_expire = torch.zeros_like(self._lease_budget)
         self._lease_gen = torch.zeros(self.capacity + 1, dtype=torch.int32,
                                       device=self.device)
+        # Slots whose lease budget is negative (a set window or a load
+        # wrote it; normally none): a delta window clamps them too.
+        self._lease_negative: set = set()
         self.metric_lease_dispatches = 0
         self.metric_lease_windows = 0
         self.metric_lease_ops = 0
@@ -1493,43 +1496,49 @@ class TickEngine(BatchFront):
     def lease_window(self, keys: Sequence[bytes], budgets: Sequence[int],
                      expires: Sequence[int], gens: Sequence[int],
                      is_set: bool = True) -> int:
-        """Apply one window of quota-lease column updates in one device
-        dispatch (docs/leases.md).  ``is_set`` installs the (budget,
-        expiry, generation) triple, the last in window order for a key
-        that repeats; otherwise budgets add as deltas clamped at 0 and
-        expiry and generation only move forward.  Keys without a slot are
-        skipped.  Returns the number of updates applied."""
+        """Apply one window of quota-lease column updates (docs/leases.md):
+        the lanes cross to the device in one copy and land in one
+        ``lease_apply`` launch (kernel B.9, ops/leasecols.py).  ``is_set``
+        installs the (budget, expiry, generation) triple, the last in
+        window order for a key that repeats; otherwise budgets add as
+        deltas, every budget in the column is clamped at 0, and expiry and
+        generation only move forward.  Keys without a slot are skipped.
+        Returns the number of updates applied; ``metric_lease_dispatches``
+        counts the launches (the plain version's passes on the CPU)."""
         n = len(keys)
         if n == 0:
             return 0
         with self._locked():
             slots = self.slots.lookup_blob(*pack_blob(list(keys)))
             live = np.flatnonzero(slots >= 0)
-            cols = np.stack([
-                slots, np.asarray(budgets, np.int64),
-                np.asarray(expires, np.int64),
-                np.asarray(gens, np.int64).astype(np.int32)])[:, live]
+            lanes = leasecols.pack_lanes(
+                slots[live], np.asarray(budgets, np.int64)[live],
+                np.asarray(expires, np.int64)[live],
+                np.asarray(gens, np.int64)[live], is_set,
+                sorted(self._lease_negative))
+            if lanes.shape[1]:
+                leasecols.lease_apply(
+                    self._lease_budget, self._lease_expire, self._lease_gen,
+                    torch.from_numpy(lanes).to(self.device), is_set)
+                self.metric_lease_dispatches += 1
             if is_set:
-                s = cols[0]
-                _, ridx = np.unique(s[::-1], return_index=True)
-                cols = cols[:, len(s) - 1 - ridx]
-            idx, bud, exp, gen = torch.from_numpy(
-                np.ascontiguousarray(cols)).to(self.device)
-            gen = gen.to(torch.int32)
-            if is_set:
-                self._lease_budget[idx] = bud
-                self._lease_expire[idx] = exp
-                self._lease_gen[idx] = gen
+                self._note_lease_budgets(lanes[leasecols.SLOT],
+                                         lanes[leasecols.BUDGET])
             else:
-                self._lease_budget.index_put_((idx,), bud, accumulate=True)
-                self._lease_budget.clamp_(min=0)
-                self._lease_expire.scatter_reduce_(0, idx, exp, "amax")
-                self._lease_gen.scatter_reduce_(0, idx, gen, "amax")
-            self.metric_lease_dispatches += 1
+                self._lease_negative.clear()  # every one was a lane
             self.metric_lease_windows += 1
             self.metric_lease_ops += len(live)
             self._dirty[slots[live]] = True
             return len(live)
+
+    def _note_lease_budgets(self, slots: np.ndarray,
+                            budgets: np.ndarray) -> None:
+        """Remember which of ``slots`` now hold a negative lease budget:
+        the next delta window adds them as zero lanes, so its clamp
+        reaches them as the reference's clamp of the whole column does."""
+        neg = budgets < 0
+        self._lease_negative.difference_update(slots[~neg].tolist())
+        self._lease_negative.update(slots[neg].tolist())
 
     def lease_columns(self, keys: Sequence[bytes]):
         """The lease columns of a batch of keys: (budget, expire_ms,
@@ -1679,6 +1688,7 @@ class TickEngine(BatchFront):
                 lease = np.stack([cols[f][sel].astype(np.int64)
                                   for f in LEASE_SNAP_FIELDS])
                 nbytes += tgt.nbytes + lease.nbytes
+                self._note_lease_budgets(tgt, lease[0])
                 idx = torch.from_numpy(tgt).to(self.device)
                 lease = torch.from_numpy(lease).to(self.device)
                 self._lease_budget[idx] = lease[0]

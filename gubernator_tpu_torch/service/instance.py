@@ -12,9 +12,10 @@ are submitted together.  A node with no peers, or only its own entry
 (discovery ``none``), treats every key as local and may take the columns
 fast path.
 
-Not ported: the mesh-resident GLOBAL engine, federation, quota leases,
-live resharding, the autoscaler and the edge plane (their knobs raise in
-``config``).
+Quota leases (docs/leases.md) are minted and reconciled by the
+instance's :class:`LeaseManager` over its engine and tick loop.  Not
+ported: the mesh-resident GLOBAL engine, federation, live resharding, the
+autoscaler and the edge plane (their knobs raise in ``config``).
 
 Create the instance inside a running event loop (the GLOBAL manager
 starts its loops at once, as the reference's ``NewV1Instance`` does), or
@@ -40,6 +41,7 @@ from gubernator_tpu_torch.admission import (
 )
 from gubernator_tpu_torch.algos import algorithm_error, invalid_algorithm_mask
 from gubernator_tpu_torch.config import BehaviorConfig, Config, env_knob
+from gubernator_tpu_torch.leases import LeaseManager
 from gubernator_tpu_torch.ops.engine import masked_over_limit
 from gubernator_tpu_torch.ops.reqcols import ColumnArena, ReqColumns
 from gubernator_tpu_torch.parallel.hashring import (
@@ -242,6 +244,12 @@ class V1Instance:
         self._peer_shutdown_tasks: set = set()
         self._transfer_tasks: set = set()
         self._forward_tasks: set = set()
+        # Cooperative quota leases (docs/leases.md): signed TTL-bounded
+        # budget delegations, reconciled as batched decisions through the
+        # tick loop, degraded to cheap TTL extension under pressure.
+        # Always built: with GUBER_LEASE_ENABLED=0 every grant is declined.
+        self.lease_mgr = LeaseManager(
+            self.engine, tick_loop=self.tick_loop, metrics=self.metrics)
         self._snapshot_writer = None
         self.restore_stats: dict = {}
         self._closed = False
@@ -690,6 +698,22 @@ class V1Instance:
         the event loop (it is device work: one row scatter)."""
         await asyncio.get_running_loop().run_in_executor(
             None, self.engine.install_globals, list(updates))
+
+    # ------------------------------------------------------------------
+    # Cooperative quota leases (docs/leases.md)
+    # ------------------------------------------------------------------
+    async def lease_grant(self, specs):
+        """Mint quota leases: [LeaseSpec] -> [Optional[LeaseToken]].  A
+        grant is an ordinary batched decision through the tick loop
+        (UNDER_LIMIT charges the slice up front; OVER_LIMIT declines with
+        None)."""
+        return await self.lease_mgr.grant(list(specs))
+
+    async def lease_sync(self, syncs):
+        """Reconcile lease consumption: [LeaseSync] -> [LeaseSyncAck].
+        Credit-backs and excess force-charges go through the tick loop in
+        the peer class."""
+        return await self.lease_mgr.sync(list(syncs))
 
     # ------------------------------------------------------------------
     # Health / peers

@@ -16,8 +16,9 @@ Fault tolerance (docs/resilience.md): every client owns a per-peer
 circuit breaker (open = fail fast with :class:`BreakerOpenError`, no
 dial), consults the optional fault injector before each RPC (chaos
 hook), runs its batch loop under a crash supervisor, and drains — never
-strands — futures enqueued around shutdown.  The lease and federation
-RPCs are not ported; their methods raise with their name.
+strands — futures enqueued around shutdown.  The quota-lease RPCs send
+fastwire's raw lease frames through the same breaker and fault hook; the
+federation RPC is not ported and its method raises with its name.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from gubernator_tpu_torch.resilience import (
     ResilienceConfig,
     spawn_supervised,
 )
-from gubernator_tpu_torch.transport import convert
+from gubernator_tpu_torch.transport import convert, fastwire
 from gubernator_tpu_torch.transport.grpc_api import PeersV1Stub
 from gubernator_tpu_torch.types import (
     Behavior,
@@ -324,15 +325,53 @@ class PeerClient:
             raise
         self.breaker.record_success()
 
+    async def _lease_call(self, method: str, frame: bytes, what: str):
+        """One breaker-gated raw-bytes call of a V1 lease method on this
+        peer's channel (both services share the peer's port): an open
+        breaker raises :class:`BreakerOpenError` (the client's LeaseCache
+        answers it by extending its held lease locally, docs/leases.md);
+        an RPC error is recorded against the breaker and raised."""
+        addr = self._info.grpc_address
+        if not self.breaker.allow():
+            msg_ = f"circuit breaker open for peer {addr}"
+            self.last_errs.record(msg_)
+            raise BreakerOpenError(msg_)
+        self._ensure_channel()
+        rpc = self._channel.unary_unary(
+            f"/pb.gubernator.V1/{method}",
+            request_serializer=lambda b: b,
+            response_deserializer=lambda b: b)
+        try:
+            if self.faults is not None:
+                await self.faults.before_rpc(
+                    addr, method, from_peer=self.self_address)
+            out = await rpc(frame, timeout=self.behaviors.batch_timeout)
+        except grpc.aio.AioRpcError as e:
+            self.breaker.record_failure()
+            self.last_errs.record(f"while {what} peer {addr}: {e.details()}")
+            raise
+        self.breaker.record_success()
+        return out
+
     async def lease_grant(self, specs):
-        """Quota leases are not ported yet (ROADMAP A): raises."""
-        raise NotImplementedError(
-            "PeerClient.lease_grant is not ported yet: quota leases")
+        """Request quota leases from this peer (the key owner)."""
+        out = await self._lease_call(
+            "LeaseGrant", fastwire.encode_lease_grant_req(list(specs)),
+            "granting leases from")
+        tokens = fastwire.parse_lease_grant_resp(out)
+        if tokens is None:
+            raise RuntimeError("malformed LeaseGrant response frame")
+        return tokens
 
     async def lease_sync(self, syncs):
-        """Quota leases are not ported yet (ROADMAP A): raises."""
-        raise NotImplementedError(
-            "PeerClient.lease_sync is not ported yet: quota leases")
+        """Report lease consumption to this peer (the key owner)."""
+        out = await self._lease_call(
+            "LeaseSync", fastwire.encode_lease_sync_req(list(syncs)),
+            "syncing leases to")
+        acks = fastwire.parse_lease_sync_resp(out)
+        if acks is None:
+            raise RuntimeError("malformed LeaseSync response frame")
+        return acks
 
     async def federation_sync(self, env, timeout: Optional[float] = None):
         """Multi-region federation is not ported yet (ROADMAP A): raises."""

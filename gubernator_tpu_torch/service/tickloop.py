@@ -35,6 +35,7 @@ from gubernator_tpu_torch.admission import (
     AdmissionQueue,
     AimdLimiter,
     QueueItem,
+    under_pressure,
 )
 from gubernator_tpu_torch.config import env_knob
 from gubernator_tpu_torch.ops.engine import resolve_ticks
@@ -145,6 +146,15 @@ class TickLoop:
         """Queue a columnar batch; the future resolves to the
         ``((5, n) matrix, errors)`` pair."""
         return self._enqueue("cols", cols, len(cols), deadline, klass)
+
+    def under_pressure(self) -> bool:
+        """True while the overload plane is backing off: the lease tier's
+        cue to answer grants with cheap TTL extension instead of full
+        decisions (admission.under_pressure)."""
+        return under_pressure(
+            self.limiter, self._pending_count,
+            self.admission.effective_pending_limit(self.batch_limit),
+            self.batch_limit)
 
     def _enqueue(self, kind: str, payload, n: int, deadline: float = None,
                  klass: int = CLASS_CLIENT) -> Future:

@@ -1,7 +1,8 @@
 """Daemon: gRPC server + HTTP-JSON gateway + metrics + lifecycle.
 
 The port's copy of the JAX package's ``transport/daemon`` (reference
-``daemon.go``): one grpc.aio server exposing ``V1`` and ``PeersV1``, an
+``daemon.go``): one grpc.aio server exposing ``V1`` (with the raw-frame
+quota-lease methods ``LeaseGrant`` / ``LeaseSync``) and ``PeersV1``, an
 aiohttp JSON gateway with grpc-gateway's snake_case marshaling
 (``/v1/GetRateLimits``, ``/v1/HealthCheck``, ``/healthz`` (503 when a
 majority of peers sit behind open breakers), ``/readyz``, ``/metrics``,
@@ -262,6 +263,27 @@ class V1Servicer:
         h = self.instance.health_check()
         return pb.HealthCheckResp(
             status=h.status, message=h.message, peer_count=h.peer_count)
+
+    async def LeaseGrant(self, raw: bytes, context):
+        """Quota-lease grant edge (docs/leases.md): raw frame in, raw
+        frame out; lease traffic never touches protobuf."""
+        specs = fastwire.parse_lease_grant_req(raw)
+        if specs is None:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "malformed LeaseGrant frame")
+        tokens = await self.instance.lease_grant(specs)
+        return fastwire.encode_lease_grant_resp(tokens)
+
+    async def LeaseSync(self, raw: bytes, context):
+        """Quota-lease reconcile edge: consumed counts in, acks out."""
+        syncs = fastwire.parse_lease_sync_req(raw)
+        if syncs is None:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "malformed LeaseSync frame")
+        acks = await self.instance.lease_sync(syncs)
+        return fastwire.encode_lease_sync_resp(acks)
 
 
 class PeersServicer:
@@ -796,6 +818,28 @@ class DaemonClient:
 
     async def health_check(self, timeout: float = 30.0):
         return await self.stub.HealthCheck(pb.HealthCheckReq(), timeout=timeout)
+
+    async def lease_grant(self, specs, timeout: float = 5.0):
+        """Request quota leases (docs/leases.md): [LeaseSpec] ->
+        [Optional[LeaseToken]] (None: the server declined; fall back to
+        per-request decisions)."""
+        out = await self.stub.LeaseGrant(
+            fastwire.encode_lease_grant_req(specs), timeout=timeout,
+            metadata=self._metadata(None))
+        tokens = fastwire.parse_lease_grant_resp(out)
+        if tokens is None:
+            raise RuntimeError("malformed LeaseGrant response frame")
+        return tokens
+
+    async def lease_sync(self, syncs, timeout: float = 5.0):
+        """Report lease consumption: [LeaseSync] -> [LeaseSyncAck]."""
+        out = await self.stub.LeaseSync(
+            fastwire.encode_lease_sync_req(syncs), timeout=timeout,
+            metadata=self._metadata(None))
+        acks = fastwire.parse_lease_sync_resp(out)
+        if acks is None:
+            raise RuntimeError("malformed LeaseSync response frame")
+        return acks
 
     async def close(self) -> None:
         await self.channel.close()

@@ -13,17 +13,28 @@ Request-side semantics match :func:`transport.convert.columns_from_pb`
 ``special``, ``created_at`` 0 or absent -> the server stamps now);
 response bytes are identical to protobuf's for items without an error or
 metadata.
+
+The quota-lease frames (``GLR2`` / ``GLT1`` / ``GSY2`` / ``GSA1``, and the
+v1 request frames ``GLR1`` / ``GSY1`` that parsers still accept) are the
+reference's pure-Python struct codecs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from gubernator_tpu_torch import _build
 from gubernator_tpu_torch.algos import algorithm_error, invalid_algorithm_mask
+from gubernator_tpu_torch.leases.protocol import (
+    LeaseSpec,
+    LeaseSync,
+    LeaseSyncAck,
+    LeaseToken,
+)
 from gubernator_tpu_torch.native import as_char_p
 from gubernator_tpu_torch.ops.reqcols import (
     CREATED_UNSET,
@@ -212,3 +223,195 @@ def encode_resp(mat: np.ndarray) -> bytes:
     if wrote < 0:
         raise RuntimeError(f"encode_resp: codec returned {wrote}")
     return out[:wrote].tobytes()
+
+
+# ----------------------------------------------------------------------
+# Quota-lease frames (docs/leases.md).
+#
+# Lease traffic happens at lease EDGES (grant, expiry, exhaustion,
+# release) — orders of magnitude rarer than decisions — so these frames
+# are pure-Python struct codecs, not native: the codec cost is
+# irrelevant, while the native library must stay optional.  All frames
+# are little-endian with a 4-byte magic + u32 count header; parsers
+# return None on a magic/length mismatch (callers treat that exactly
+# like a malformed protobuf: reject the RPC).
+
+# Request frames are v2: they carry the leaseholder identity (the
+# server accounts per-holder slices — docs/leases.md).  Parsers still
+# accept the v1 frames (no holder field → the shared "" identity) so a
+# not-yet-upgraded client keeps working against a v2 server.
+_LEASE_GRANT_REQ_MAGIC = b"GLR2"
+_LEASE_GRANT_REQ_MAGIC_V1 = b"GLR1"
+_LEASE_GRANT_RESP_MAGIC = b"GLT1"
+_LEASE_SYNC_REQ_MAGIC = b"GSY2"
+_LEASE_SYNC_REQ_MAGIC_V1 = b"GSY1"
+_LEASE_SYNC_RESP_MAGIC = b"GSA1"
+
+
+def _pack_str(s: str) -> bytes:
+    b = s.encode()
+    return struct.pack("<H", len(b)) + b
+
+
+def _unpack_str(data: bytes, off: int):
+    (ln,) = struct.unpack_from("<H", data, off)
+    off += 2
+    return data[off : off + ln].decode(), off + ln
+
+
+def encode_lease_grant_req(specs) -> bytes:
+    """[LeaseSpec] → LeaseGrant request frame."""
+    parts = [_LEASE_GRANT_REQ_MAGIC, struct.pack("<I", len(specs))]
+    for s in specs:
+        parts.append(struct.pack(
+            "<qqqqq", s.limit, s.duration, s.algorithm, s.burst, s.want))
+        parts.append(_pack_str(s.name))
+        parts.append(_pack_str(s.key))
+        parts.append(_pack_str(s.holder))
+    return b"".join(parts)
+
+
+def parse_lease_grant_req(data: bytes):
+    """LeaseGrant request frame → [LeaseSpec] (None when malformed)."""
+    try:
+        magic = data[:4]
+        if magic not in (_LEASE_GRANT_REQ_MAGIC,
+                         _LEASE_GRANT_REQ_MAGIC_V1):
+            return None
+        v1 = magic == _LEASE_GRANT_REQ_MAGIC_V1
+        (n,) = struct.unpack_from("<I", data, 4)
+        off = 8
+        out = []
+        for _ in range(n):
+            limit, duration, algo, burst, want = struct.unpack_from(
+                "<qqqqq", data, off)
+            off += 40
+            name, off = _unpack_str(data, off)
+            key, off = _unpack_str(data, off)
+            holder = ""
+            if not v1:
+                holder, off = _unpack_str(data, off)
+            out.append(LeaseSpec(
+                name=name, key=key, limit=limit, duration=duration,
+                algorithm=algo, burst=burst, want=want, holder=holder))
+        return out if off == len(data) else None
+    except (struct.error, IndexError, UnicodeDecodeError):
+        return None
+
+
+def encode_lease_grant_resp(tokens) -> bytes:
+    """[Optional[LeaseToken]] → LeaseGrant response frame (a None slot
+    is an explicit declined marker: the bucket was too hot to delegate
+    and the client must fall back to per-request decisions)."""
+    parts = [_LEASE_GRANT_RESP_MAGIC, struct.pack("<I", len(tokens))]
+    for t in tokens:
+        if t is None:
+            parts.append(b"\x00")
+            continue
+        parts.append(b"\x01")
+        parts.append(struct.pack("<qqq", t.budget, t.expires_ms,
+                                  t.generation))
+        parts.append(_pack_str(t.name))
+        parts.append(_pack_str(t.key))
+        parts.append(struct.pack("<H", len(t.signature)))
+        parts.append(t.signature)
+    return b"".join(parts)
+
+
+def parse_lease_grant_resp(data: bytes):
+    """LeaseGrant response frame → [Optional[LeaseToken]]."""
+    try:
+        if data[:4] != _LEASE_GRANT_RESP_MAGIC:
+            return None
+        (n,) = struct.unpack_from("<I", data, 4)
+        off = 8
+        out = []
+        for _ in range(n):
+            present = data[off]
+            off += 1
+            if not present:
+                out.append(None)
+                continue
+            budget, expires_ms, gen = struct.unpack_from("<qqq", data, off)
+            off += 24
+            name, off = _unpack_str(data, off)
+            key, off = _unpack_str(data, off)
+            (siglen,) = struct.unpack_from("<H", data, off)
+            off += 2
+            sig = data[off : off + siglen]
+            off += siglen
+            out.append(LeaseToken(
+                name=name, key=key, budget=budget, expires_ms=expires_ms,
+                generation=gen, signature=sig))
+        return out if off == len(data) else None
+    except (struct.error, IndexError, UnicodeDecodeError):
+        return None
+
+
+def encode_lease_sync_req(syncs) -> bytes:
+    """[LeaseSync] → LeaseSync request frame."""
+    parts = [_LEASE_SYNC_REQ_MAGIC, struct.pack("<I", len(syncs))]
+    for s in syncs:
+        parts.append(struct.pack(
+            "<qqB", s.consumed, s.generation, 1 if s.release else 0))
+        parts.append(_pack_str(s.name))
+        parts.append(_pack_str(s.key))
+        parts.append(_pack_str(s.holder))
+    return b"".join(parts)
+
+
+def parse_lease_sync_req(data: bytes):
+    """LeaseSync request frame → [LeaseSync]."""
+    try:
+        magic = data[:4]
+        if magic not in (_LEASE_SYNC_REQ_MAGIC,
+                         _LEASE_SYNC_REQ_MAGIC_V1):
+            return None
+        v1 = magic == _LEASE_SYNC_REQ_MAGIC_V1
+        (n,) = struct.unpack_from("<I", data, 4)
+        off = 8
+        out = []
+        for _ in range(n):
+            consumed, gen, release = struct.unpack_from("<qqB", data, off)
+            off += 17
+            name, off = _unpack_str(data, off)
+            key, off = _unpack_str(data, off)
+            holder = ""
+            if not v1:
+                holder, off = _unpack_str(data, off)
+            out.append(LeaseSync(
+                name=name, key=key, consumed=consumed, generation=gen,
+                release=bool(release), holder=holder))
+        return out if off == len(data) else None
+    except (struct.error, IndexError, UnicodeDecodeError):
+        return None
+
+
+def encode_lease_sync_resp(acks) -> bytes:
+    """[LeaseSyncAck] → LeaseSync response frame."""
+    parts = [_LEASE_SYNC_RESP_MAGIC, struct.pack("<I", len(acks))]
+    for a in acks:
+        parts.append(struct.pack(
+            "<Bqqq", 1 if a.accepted else 0, a.generation,
+            a.credited, a.charged))
+    return b"".join(parts)
+
+
+def parse_lease_sync_resp(data: bytes):
+    """LeaseSync response frame → [LeaseSyncAck]."""
+    try:
+        if data[:4] != _LEASE_SYNC_RESP_MAGIC:
+            return None
+        (n,) = struct.unpack_from("<I", data, 4)
+        off = 8
+        out = []
+        for _ in range(n):
+            accepted, gen, credited, charged = struct.unpack_from(
+                "<Bqqq", data, off)
+            off += 25
+            out.append(LeaseSyncAck(
+                accepted=bool(accepted), generation=gen,
+                credited=credited, charged=charged))
+        return out if off == len(data) else None
+    except (struct.error, IndexError, UnicodeDecodeError):
+        return None

@@ -1,8 +1,8 @@
 """gRPC service and client bindings of the V1 and PeersV1 services.
 
 The port's copy of the JAX package's hand-written bindings, for the
-methods a node and its peers serve (the lease and federation methods are
-not ported).  Method paths match the reference's
+methods a node and its peers serve, the quota-lease methods included (the
+federation method is not ported).  Method paths match the reference's
 generated code (``/pb.gubernator.V1/GetRateLimits`` etc., reference
 gubernator_grpc.pb.go / peers_grpc.pb.go), so reference clients and
 servers interoperate on the wire.
@@ -25,9 +25,19 @@ def _raw_or_message(m) -> bytes:
     return m if isinstance(m, bytes) else m.SerializeToString()
 
 
+def _raw(method) -> grpc.RpcMethodHandler:
+    """A unary method that takes and returns raw bytes."""
+    return grpc.unary_unary_rpc_method_handler(
+        method, request_deserializer=lambda b: b,
+        response_serializer=lambda m: m)
+
+
 def v1_handler(servicer) -> grpc.GenericRpcHandler:
     """Generic handler of the public V1 service.  ``GetRateLimits`` takes
-    the raw request bytes (the servicer runs the native codec)."""
+    the raw request bytes (the servicer runs the native codec).  The
+    quota-lease methods (docs/leases.md) pass raw frames both ways (the
+    servicer runs fastwire's lease codecs) and are registered only when
+    the servicer has them, as in the reference."""
     return grpc.method_handlers_generic_handler(
         V1_SERVICE,
         {
@@ -41,6 +51,10 @@ def v1_handler(servicer) -> grpc.GenericRpcHandler:
                 request_deserializer=pb.HealthCheckReq.FromString,
                 response_serializer=pb.HealthCheckResp.SerializeToString,
             ),
+            **({
+                "LeaseGrant": _raw(servicer.LeaseGrant),
+                "LeaseSync": _raw(servicer.LeaseSync),
+            } if hasattr(servicer, "LeaseGrant") else {}),
         },
     )
 
@@ -78,6 +92,17 @@ class V1Stub:
             f"/{V1_SERVICE}/HealthCheck",
             request_serializer=pb.HealthCheckReq.SerializeToString,
             response_deserializer=pb.HealthCheckResp.FromString,
+        )
+        # Raw-bytes lease methods (frame codecs in transport/fastwire.py).
+        self.LeaseGrant = channel.unary_unary(
+            f"/{V1_SERVICE}/LeaseGrant",
+            request_serializer=lambda b: b,
+            response_deserializer=lambda b: b,
+        )
+        self.LeaseSync = channel.unary_unary(
+            f"/{V1_SERVICE}/LeaseSync",
+            request_serializer=lambda b: b,
+            response_deserializer=lambda b: b,
         )
 
 

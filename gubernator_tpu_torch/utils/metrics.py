@@ -608,6 +608,37 @@ class Metrics:
             "Must stay 0; gated by the overload_shed bench rung.",
             registry=reg)
 
+        # Cooperative quota-lease families (docs/leases.md).
+        self.lease_grants = Counter(
+            "gubernator_tpu_lease_grants",
+            "Quota leases minted: budget delegated to a client for "
+            "TTL-bounded local self-enforcement.",
+            registry=reg)
+        self.lease_renewals = Counter(
+            "gubernator_tpu_lease_renewals",
+            "Cheap lease extensions: held budget re-signed with a "
+            "pushed-out TTL instead of a fresh decision (the overload "
+            "degrade path).",
+            registry=reg)
+        self.lease_revocations = Counter(
+            "gubernator_tpu_lease_revocations",
+            "Lease generations bumped (limit config changed or explicit "
+            "revoke); outstanding tokens die at their next sync.",
+            registry=reg)
+        self.lease_sync_loss = Counter(
+            "gubernator_tpu_lease_sync_loss",
+            "Admissions reported by lease syncs beyond the granted "
+            "budget (stale-generation or misbehaving clients); "
+            "force-charged to the bucket on reconcile.",
+            registry=reg)
+        self.lease_sync_dropped = Counter(
+            "gubernator_tpu_lease_sync_dropped",
+            "Lease reconcile accounting that never reached the bucket: "
+            "credit/charge decisions shed under overload, force-charges "
+            "bounced off the bucket floor, or excess synced against a "
+            "key with no known config.",
+            registry=reg)
+
     def sample(self, name: str, labels: Optional[dict] = None) -> float:
         """One sample's value (0.0 when unobserved); summaries expose
         ``<name>_count`` / ``<name>_sum``, counters ``<name>_total``."""

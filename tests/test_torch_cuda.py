@@ -537,6 +537,7 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
     assert eng.metric_grouped_ticks == 3
     launches = gt.kernel_launches()
     assert launches.pop("fused_ragged_tick") == 0
+    assert launches.pop("lease_apply") == 0  # no lease window here
     assert launches["fused_sorted_tick"] == eng.metric_sorted_ticks
     assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)
@@ -686,6 +687,7 @@ def test_mesh_engine_on_the_card_matches_the_cpu_engine(dev):
     # The mesh's duplicate tiles run rank rounds of the fused tick.
     assert launches.pop("fused_merged_tick") == 0
     assert launches.pop("fused_sorted_tick") == 0
+    assert launches.pop("lease_apply") == 0  # the mesh has no lease columns
     assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)
 
@@ -819,3 +821,53 @@ def test_global_convergence_on_the_card_is_exact(dev):
     assert out["non_owner_disagreements"] == 0
     assert out["hits"] == 6 * 1000 and min(out["owners"]) > 0
     assert launches["fused_tick"] > 0 and launches["scatter_rows"] > 0
+
+
+@pytest.mark.parametrize("lanes", [4096, 65536])
+@pytest.mark.parametrize("is_set", [True, False])
+def test_lease_apply_matches_plain(dev, lanes, is_set):
+    """B.9 on packed lanes (repeats in the raw window, negative budgets
+    outside it) against the plain version: on the same lanes for a set
+    window, on the raw lanes (the whole-column clamp) for a delta one."""
+    from gubernator_tpu_torch.ops import leasecols as LC
+
+    gt.reset_kernel_launches()
+    rng = np.random.default_rng(lanes + is_set)
+    cap = 1 << 20
+    neg = rng.choice(cap, 9, replace=False)
+    budget = rng.integers(0, 1000, cap + 1)
+    budget[neg] = -5
+    cols = [torch.from_numpy(budget).to(dev),
+            torch.from_numpy(rng.integers(0, 10**6, cap + 1)).to(dev),
+            torch.from_numpy(rng.integers(0, 99, cap + 1).astype(
+                np.int32)).to(dev)]
+    for c in cols:
+        c[cap] = 0
+    raw = cs.lease_lanes(rng, cap, lanes)
+    raw[0][:3] = [cap, cap + 7, -1]  # lanes outside the table: dropped
+    packed = torch.from_numpy(LC.pack_lanes(
+        *raw, is_set, () if is_set else neg)).to(dev)
+    unpacked = torch.from_numpy(np.stack([
+        raw[0], raw[1], raw[2],
+        np.asarray(raw[3]).astype(np.int32).astype(np.int64)])).to(dev)
+    k = [c.clone() for c in cols]
+    p = [c.clone() for c in cols]
+    LC.lease_apply(*k, packed, is_set)
+    LC.lease_apply_plain(*p, packed if is_set else unpacked, is_set)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    if not is_set:
+        assert int(k[0].min()) == 0
+    assert gt.kernel_launches()["lease_apply"] == 1
+    assert sum(gt.kernel_launches_by_width()["lease_apply"].values()) == 1
+
+
+def test_lease_manager_on_the_card_matches_the_cpu_one(dev):
+    """``chip_smoke.lease_sequence`` on a 2^14-slot card engine and on the
+    same engine on the CPU: tokens, acks, stats, lease columns, probes and
+    exports equal; every lease window one launch."""
+    gt.reset_kernel_launches()
+    out = cs.lease_compare(torch, dev)
+    assert out["equal"]
+    assert gt.kernel_launches()["lease_apply"] == out["lease_windows"] > 0

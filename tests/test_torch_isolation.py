@@ -24,6 +24,7 @@ from gubernator_tpu_torch.carry import table_from_columns
 from gubernator_tpu_torch.ops import rowtable
 from gubernator_tpu_torch.ops.engine import TickEngine
 from gubernator_tpu_torch.ops.fusedtick import fused_tick
+from gubernator_tpu_torch.ops.leasecols import lease_apply
 from gubernator_tpu_torch.ops.raggedtick import fused_ragged_tick
 from gubernator_tpu_torch.ops.sortedtick import fused_sorted_tick
 from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
@@ -75,7 +76,16 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "gubernator_tpu_torch.discovery.dnspool",
             "gubernator_tpu_torch.transport.tlsutil",
             "gubernator_tpu_torch.cluster",
-            "gubernator_tpu_torch.cmd.cluster_main"} <= set(mods)
+            "gubernator_tpu_torch.cmd.cluster_main",
+            "gubernator_tpu_torch.leases",
+            "gubernator_tpu_torch.leases.protocol",
+            "gubernator_tpu_torch.leases.signing",
+            "gubernator_tpu_torch.leases.cache",
+            "gubernator_tpu_torch.leases.manager",
+            "gubernator_tpu_torch.ops.leasecols",
+            "gubernator_tpu_torch.client",
+            "gubernator_tpu_torch.cmd.cli",
+            "gubernator_tpu_torch.cmd.healthcheck"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -164,7 +174,8 @@ def test_cpu_tensors_take_the_plain_paths_and_launch_no_kernel():
     assert mesh.metric_unexpired_evictions > 0
     assert gt.kernel_launches() == {
         "fused_tick": 0, "fused_merged_tick": 0, "fused_ragged_tick": 0,
-        "fused_sorted_tick": 0, "gather_rows": 0, "scatter_rows": 0}
+        "fused_sorted_tick": 0, "gather_rows": 0, "scatter_rows": 0,
+        "lease_apply": 0}
 
 
 def test_wrappers_refuse_tensors_on_other_devices():
@@ -183,6 +194,11 @@ def test_wrappers_refuse_tensors_on_other_devices():
     with pytest.raises(ValueError):
         fused_sorted_tick(table, torch.zeros((19, 4), dtype=torch.int32,
                                              device="meta"), 0)
+    col = torch.zeros(9, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        lease_apply(col, col.clone(), col.to(torch.int32),
+                    torch.zeros((4, 2), dtype=torch.int64, device="meta"),
+                    True)
 
 
 SERVING_CORE = (
@@ -191,6 +207,7 @@ SERVING_CORE = (
     "utils.tracing", "utils.metrics", "service.tickloop",
     "service.instance", "transport.wire", "transport.fastwire",
     "parallel.hashring", "resilience", "service.global_manager",
+    "leases", "ops.leasecols",
 )
 
 

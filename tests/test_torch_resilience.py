@@ -189,11 +189,31 @@ async def test_peer_client_rejects_after_closed_and_unported_rpcs_raise():
     await asyncio.wait_for(client.shutdown(), 30)
     with pytest.raises(RuntimeError, match="shut down"):
         await client.get_peer_rate_limit(req())
-    for name, call in (("lease_grant", client.lease_grant([])),
-                       ("lease_sync", client.lease_sync([])),
-                       ("federation_sync", client.federation_sync(None))):
-        with pytest.raises(NotImplementedError, match=name):
-            await call
+    # The lease RPCs check no closed state, as the reference's: on a closed
+    # client both dial, fail against the dead address and record it as
+    # the JAX PeerClient does.
+    from gubernator_tpu.service.peer_client import PeerClient as JPeerClient
+    from gubernator_tpu.types import PeerInfo as JPeerInfo
+
+    ref = JPeerClient(JPeerInfo(grpc_address="127.0.0.1:1"))
+    await asyncio.wait_for(ref.shutdown(), 30)
+    try:
+        for name in ("lease_grant", "lease_sync"):
+            outcomes = []
+            for c in (client, ref):
+                with pytest.raises(grpc.aio.AioRpcError) as err:
+                    await asyncio.wait_for(getattr(c, name)([]), 30)
+                outcomes.append((err.value.code(), c.breaker.state.name,
+                                 [e.split(": ")[0]
+                                  for e in c.get_last_err()]))
+            assert outcomes[0] == outcomes[1], name
+            assert outcomes[0][0] == grpc.StatusCode.UNAVAILABLE
+    finally:
+        for c in (client, ref):
+            if c._channel is not None:
+                await c._channel.close()
+    with pytest.raises(NotImplementedError, match="federation_sync"):
+        await client.federation_sync(None)
 
 
 async def test_peer_client_breaker_open_fails_fast_without_dial():

@@ -165,4 +165,5 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     rowtable.row_evict(table, slots[:2])
     assert gt.kernel_launches() == {
         "fused_tick": 0, "fused_merged_tick": 0, "fused_ragged_tick": 0,
-        "fused_sorted_tick": 0, "gather_rows": 0, "scatter_rows": 0}
+        "fused_sorted_tick": 0, "gather_rows": 0, "scatter_rows": 0,
+        "lease_apply": 0}

@@ -191,6 +191,88 @@ def test_lease_windows_match_jax():
         np.testing.assert_array_equal(got, want)
 
 
+def test_lease_delta_clamps_every_negative_budget_like_jax():
+    """The reference clamps the whole budget column after a delta window;
+    B.9 clamps the lanes' slots, with the engine adding a zero lane for
+    every slot a set window or a load left negative.  Windows of 17-32
+    lanes: the JAX program shape test_lease_windows_match_jax builds."""
+    j, t, rng, now = warm(67)
+    keys = keyset(range(45))
+    a, rest = keys[0], keys[1:]
+    for eng in (j, t):
+        # Key A set to -5; then a delta window (repeats) without A.
+        eng.lease_window([a] + rest[:19], [-5] + [7] * 19, [now] * 20,
+                         [1] * 20)
+        eng.lease_window(rest[10:30] + rest[10:12], [3, -9] * 11,
+                         [now + 1] * 22, [2, 0] * 11, is_set=False)
+    for got, want in zip(t.lease_columns(keys), j.lease_columns(keys)):
+        np.testing.assert_array_equal(got, want)
+    assert t.lease_columns([a])[0].tolist() == [0]
+    # A negative budget loaded from a snapshot is clamped by the next
+    # delta window too, in both packages.
+    snap = t.export_columns()
+    snap["lease_budget"] = np.where(
+        np.arange(len(snap["lease_budget"])) % 3 == 0, -4,
+        snap["lease_budget"])
+    j2, t2 = engines(256)
+    for eng in (j2, t2):
+        eng.load_columns(snap, NOW - 10**6)
+    assert t2._lease_negative
+    for got, want in zip(t2.lease_columns(keys), j2.lease_columns(keys)):
+        np.testing.assert_array_equal(got, want)
+    for eng in (j2, t2):
+        eng.lease_window(rest[20:40], [1] * 20, [now] * 20, [1] * 20,
+                         is_set=False)
+    for got, want in zip(t2.lease_columns(keys), j2.lease_columns(keys)):
+        np.testing.assert_array_equal(got, want)
+    assert (t2.lease_columns(keys)[0] >= 0).all()
+    assert t2._lease_negative == set()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_packed_lanes_equal_the_eager_window(seed):
+    """B.9's host packing and its plain version on the packed lanes equal
+    the eager window on the raw lanes (repeats unmerged, the whole budget
+    column clamped), with negative slots outside the window."""
+    import torch
+
+    from gubernator_tpu_torch.ops import leasecols as LC
+
+    rng = np.random.default_rng(seed)
+    cap, n = 512, 300
+    neg = rng.choice(cap, 7, replace=False)
+    budget = rng.integers(0, 50, cap + 1)
+    budget[neg] = -3
+    budget[cap] = 0
+    cols = [torch.from_numpy(budget),
+            torch.from_numpy(rng.integers(0, 10**6, cap + 1)),
+            torch.from_numpy(rng.integers(0, 99, cap + 1).astype(np.int32))]
+    for c in cols:
+        c[cap] = 0
+    slots = rng.integers(0, cap, n)
+    raw = (slots, rng.integers(-20, 20, n), rng.integers(0, 10**6, n),
+           rng.integers(-2**33, 2**33, n))
+    for is_set in (True, False):
+        lanes = LC.pack_lanes(*raw, is_set, () if is_set else neg)
+        assert len(np.unique(lanes[LC.SLOT])) == lanes.shape[1]
+        k = [c.clone() for c in cols]
+        e = [c.clone() for c in cols]
+        LC.lease_apply(*k, torch.from_numpy(lanes), is_set)
+        if is_set:
+            # The last lane of a repeated slot wins.
+            last = {s: j for j, s in enumerate(slots)}
+            for s, j in last.items():
+                e[0][s] = int(raw[1][j])
+                e[1][s] = int(raw[2][j])
+                e[2][s] = int(np.int64(raw[3][j]).astype(np.int32))
+        else:
+            unpacked = np.stack([raw[0], raw[1], raw[2], np.asarray(
+                raw[3]).astype(np.int32).astype(np.int64)])
+            LC.lease_apply_plain(*e, torch.from_numpy(unpacked), False)
+        for x, y in zip(k, e):
+            assert torch.equal(x, y)
+
+
 def test_items_and_old_snapshots_load_like_jax():
     j, t, rng, now = warm(65)
     items = t.export_items()
