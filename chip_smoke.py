@@ -152,12 +152,33 @@ Phases, one output line each:
    grants.  ``lease_compare``: the seeded edge-case ``lease_sequence`` on
    a 2^14-slot card engine and a CPU one, equal.
 
+9. the GLOBAL mesh (``MeshGlobalEngine``, 8 nodes as 8 replicas in one
+   table): A, the reference's ``global_mesh_8`` rung (256 GLOBAL hits a
+   node a window over 4096 keys) at the default 2^16 slots, 25 windows
+   each followed by a dense reconcile (decisions/s, reconciles/s,
+   dispatches a step, launches by kernel; every replica row-equal after
+   every reconcile, each key's count its limit less the hits sent); B,
+   ``global_sparse_reconcile`` (64 hits a node) at 2^18 and 2^22 slots
+   with sparse_k 4096 (loaded and empty step ms), the dense step at 2^18,
+   and a window wider than sparse_k against a dense engine (2
+   dispatches, one fallback, equal state); C, a 4-node
+   ``Cluster(global_mesh=True)`` over gRPC (``global_converge_ms`` beside
+   phase 7 C's, exact counts, no peer RPC); D, a card engine against a
+   CPU one at 2^14 slots, sparse_k 64 and 0, on a seeded sequence (all
+   five algorithms, negative hits, RESET, overdraw, evictions,
+   overflowing steps).
+
 Phase 2 also times one launch of an empty kernel (``empty_launch_ms``,
 ``csrc/empty.cu``) and B.9, the lease-column window
 (``csrc/lease_apply.cu``), on set and delta windows of 4096 and 65536
 lanes over a 10M-slot column triple, bit for bit against its plain
-version, beside the pre-B.9 eager sequence (``library_ms``).  Phases
-3-8 also report each path's tick and lease-window launches by lane
+version, beside the pre-B.9 eager sequence (``library_ms``), and the
+GLOBAL mesh's kernels bit for bit against their plain versions: B.8a
+(accumulate) and B.8b (dense reconcile) at 8 nodes x 2^16 slots on
+global_mesh_8's windows, B.8c (sparse probe) and B.8d (sparse apply) at
+8 x 2^22 with 512 union slots (a reconcile consumes its accumulators, so
+B.8b and B.8d are timed with a restore before each call and the
+restore's own time taken off).  Phases 3-9 also report each path's tick and lease-window launches by lane
 width (``launches_by_width``, power-of-two buckets), summed over them on
 the ``launch_widths`` line.  Then the kernel table as one JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -1292,6 +1313,8 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
     # Its own generator: the draws above stay those of earlier runs.
     out["lease_apply"] = lease_entry(
         torch, dev, np.random.default_rng(SEED + 5))
+    out.update(global_kernel_entries(torch, dev,
+                                     np.random.default_rng(SEED + 6)))
     out["empty_launch_ms"] = empty_launch_ms(torch, dev)
     return out
 
@@ -3987,6 +4010,648 @@ async def compare_clusters(capacity, window, steps, nodes=CLUSTER_NODES,
     return out
 
 
+# ----------------------------------------------------------------------
+# The GLOBAL mesh: kernels B.8a-B.8d (phase 2) and phase 9
+# ----------------------------------------------------------------------
+GM_NODES = 8                 # global_mesh_8 / global_sparse_reconcile
+GM_CAPACITY = 1 << 16        # GUBER_TPU_GLOBAL_MESH_CAPACITY's default
+GM_BATCH = 256               # global_mesh_8: GLOBAL hits a node a window
+GM_KEYS = 4096               # both rungs' key space
+GM_WINDOWS = 25              # global_mesh_8's timed windows
+GM_SPARSE_CAPACITIES = (1 << 18, 1 << 22)
+GM_SPARSE_K = 4096           # sparse_k past 2^16 slots
+GM_PER_NODE = 64             # global_sparse_reconcile's hits a node a step
+GM_REPS = 5                  # its timed steps a measurement
+GM_UNION = 512               # phase 2's union slots for B.8c / B.8d
+GM_LIMIT = 1_000_000
+GM_DURATION = 3_600_000
+GM_COMPARE_CAPACITY = 1 << 14
+GM_COMPARE_NODES = 4
+GM_COMPARE_K = 64
+GM_CLUSTER_NODES = 4
+
+
+def gm_blocks(types, rng, n, per_node, keys, name="g", now=None):
+    """One window of a rung's traffic: ``per_node`` GLOBAL hits a node on
+    keys drawn from ``keys`` (limit 1M, one-hour buckets)."""
+    return [[types.RateLimitRequest(
+        name=name, unique_key=str(int(k)), hits=1, limit=GM_LIMIT,
+        duration=GM_DURATION, behavior=types.Behavior.GLOBAL,
+        created_at=now) for k in rng.integers(0, keys, per_node)]
+        for _ in range(n)]
+
+
+def gm_window(E, rng, n, cap, per_node, keys):
+    """A global_mesh_8 window as the engine packs it, for the kernel
+    timings: ``per_node`` token hits a node on keys drawn from ``keys``,
+    slots handed out in first-seen order (the slot map's), flattened to
+    ``d * cap + s`` and stably sorted.  Returns the (19, n * per_node)
+    REQ32 matrix."""
+    ids = rng.integers(0, keys, (n, per_node)).ravel()
+    uniq, first = np.unique(ids, return_index=True)
+    slot_of = np.zeros(keys, np.int64)
+    slot_of[uniq[np.argsort(first)]] = np.arange(len(uniq))
+    lanes = n * per_node
+    R = E.REQ32_INDEX
+    m = np.zeros((E.REQ32_ROWS, lanes), np.int32)
+    m[R["slot"]] = np.repeat(np.arange(n), per_node) * cap + slot_of[ids]
+    m[R["known"]] = 1
+    m[R["behavior"]] = GLOBAL_BIT
+    m[R["valid"]] = 1
+    for name, v in (("hits", 1), ("limit", GM_LIMIT),
+                    ("duration", GM_DURATION), ("created_at", NOW)):
+        E.pack_wide_rows(m, name, np.full(lanes, v, np.int64), slice(None))
+    E.sort_packed_by_slot(m, lanes, n * cap)
+    return m
+
+
+def time_restored(torch, fns, restores) -> dict:
+    """Time a step that consumes its input (a reconcile zeroes the
+    accumulators): each call restores the input first, and the restore is
+    timed alone and taken off.  ``fns`` / ``restores`` rotate together."""
+    both = time_ms(torch, [lambda f=f, r=r: (r(), f())
+                           for f, r in zip(fns, restores)])
+    restore = time_ms(torch, restores)
+    return {"ms": max(both - restore, 0.0), "with_restore_ms": both,
+            "restore_ms": restore}
+
+
+def gm_fold_bytes(acc, slots, n) -> tuple:
+    """``(bytes, active)`` a fold of the given slots reads beyond the
+    owner's row: each node's count, and for every (node, slot) with a
+    window its hits, RESET count and 9 aux words."""
+    active = int((acc[:, 2][:, slots] > 0).sum())
+    return len(slots) * n * 8 + active * (16 + 72), active
+
+
+def global_kernel_entries(torch, dev, rng, n=GM_NODES, cap=GM_CAPACITY,
+                          big=GM_SPARSE_CAPACITIES[1], union=GM_UNION,
+                          rotate=8) -> dict:
+    """B.8a-B.8d against their plain versions bit for bit, and timed.
+    B.8a and B.8b at ``n`` nodes x ``cap`` slots on global_mesh_8's
+    windows (B.8b's accumulators and stamps those of two windows; random
+    rows of all five algorithms); B.8c and B.8d at ``n`` x ``big`` slots
+    with ``union`` slots touched (random rows there, random parameters,
+    windows with negative hits and RESET counts on the non-owners).
+    ``library_ms``: for B.8a, two ``index_put_`` calls (the aux words,
+    then the accumulators with ``accumulate=True``) on precomputed indices;
+    none for the others."""
+    from gubernator_tpu_torch.carry import table_from_columns
+    from gubernator_tpu_torch.ops import engine as E
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    src = "gubernator_tpu_torch/csrc/global_mesh.cu"
+    ref = "gubernator_tpu/parallel/global_mesh.py"
+    out = {}
+    # --- B.8a on global_mesh_8's windows ---
+    wins = [torch.from_numpy(gm_window(E, rng, n, cap, GM_BATCH, GM_KEYS))
+            .to(dev) for _ in range(rotate)]
+    aux = torch.zeros((n, 9, cap), dtype=torch.int64, device=dev)
+    acc = torch.zeros((n, 4, cap), dtype=torch.int64, device=dev)
+    err = 0
+    for touch in (False, True):
+        ak, ck, ap, cp = aux.clone(), acc.clone(), aux.clone(), acc.clone()
+        for stamp, w in enumerate(wins[:2], 1):
+            GM.global_accumulate(w, ak, ck, n, stamp, touch)
+            GM.global_accumulate_plain(w, ap, cp, n, stamp, touch)
+        torch.cuda.synchronize()
+        assert torch.equal(ak, ap) and torch.equal(ck, cp), \
+            f"global_accumulate differs from plain (touch {touch})"
+        err = max(err, _max_abs(torch, ak, ap), _max_abs(torch, ck, cp))
+    b8b_aux, b8b_acc = ak, ck.clone()  # two windows' stamps and hits
+    b8b_acc[:, GM.ACC_TOUCH] = 0       # a dense engine keeps no touch row
+    terms = [GM.lane_terms(w, n, cap) for w in wins]
+    lib_ix = []
+    for r, d, s, live, tail, queue, reset in terms:
+        vals = (r["limit"], r["duration"], r["algorithm"], r["behavior"],
+                r["burst"], r["greg_exp"], r["greg_dur"], r["created_at"],
+                torch.full_like(r["limit"], 3))
+        ai = torch.cat([(d[tail] * 9 + k) * cap + s[tail] for k in range(9)])
+        av = torch.cat([v[tail] for v in vals])
+        ci = torch.cat([(d[m] * 4 + row) * cap + s[m] for row, m in
+                        ((0, queue), (1, reset), (2, queue))])
+        cv = torch.cat([r["hits"][queue], torch.ones_like(r["hits"][reset]),
+                        torch.ones_like(r["hits"][queue])])
+        lib_ix.append((ai, av, ci, cv))
+    fa, fc = aux.view(-1), acc.view(-1)
+
+    def library(ix):
+        fa.index_put_((ix[0],), ix[1])
+        fc.index_put_((ix[2],), ix[3], accumulate=True)
+
+    r, d, s, live, tail, queue, reset = terms[0]
+    lanes = wins[0].shape[1]
+    nbytes = (lanes * 76 + int(tail.sum()) * 72 + int(queue.sum()) * 32
+              + int(reset.sum()) * 16)
+    out["global_accumulate"] = _entry(
+        "global_accumulate", src, f"{ref}:213", err,
+        time_ms(torch, [lambda w=w: GM.global_accumulate(w, aux, acc, n, 3,
+                                                         False)
+                        for w in wins]),
+        time_ms(torch, [lambda w=w: GM.global_accumulate_plain(
+            w, aux, acc, n, 3, False) for w in wins]),
+        time_ms(torch, [lambda ix=ix: library(ix) for ix in lib_ix]),
+        nbytes, 0)
+    out["global_accumulate"].update(
+        lanes=lanes, tails=int(tail.sum()), queued=int(queue.sum()))
+    del aux, acc
+
+    # --- B.8b: the dense step at n x cap ---
+    table = table_from_columns(random_state(rng, n * cap), n * cap, dev)
+    err = 0
+    for strict in (True, False):
+        tk, ck, tp, cp = (table.clone(), b8b_acc.clone(), table.clone(),
+                          b8b_acc.clone())
+        GM.global_dense_reconcile(tk, b8b_aux, ck, n, NOW, strict)
+        GM.global_dense_reconcile_plain(tp, b8b_aux, cp, n, NOW, strict)
+        torch.cuda.synchronize()
+        assert torch.equal(tk, tp) and torch.equal(ck, cp), \
+            f"global_dense_reconcile differs from plain (strict {strict})"
+        err = max(err, _max_abs(torch, tk, tp))
+        del tk, tp
+    work = b8b_acc.clone()
+
+    def restore():
+        work.copy_(b8b_acc)
+
+    acc_h = b8b_acc.cpu().numpy()
+    fold_b, active = gm_fold_bytes(acc_h, np.arange(cap), n)
+    havep = int((b8b_aux[:, GM.AUX["stamp"]] > 0).any(dim=0).sum())
+    t = time_restored(torch, [lambda: GM.global_dense_reconcile(
+        table, b8b_aux, work, n, NOW, True)], [restore])
+    tp = time_restored(torch, [lambda: GM.global_dense_reconcile_plain(
+        table, b8b_aux, work, n, NOW, True)], [restore])
+    nbytes = cap * (128 + n * 8 + n * 128 + n * 32) + havep * 64 + fold_b
+    out["global_dense_reconcile"] = _entry(
+        "global_dense_reconcile", src, f"{ref}:577", err, t["ms"], tp["ms"],
+        None, nbytes, active * FUSED_TICK_INT32_OPS_PER_LANE)
+    out["global_dense_reconcile"].update(
+        slots=cap, nodes=n, windows_folded=active, restore_ms=t["restore_ms"])
+    del table, work, b8b_aux, b8b_acc
+
+    # --- B.8c and B.8d at n x big with `union` slots touched ---
+    u = np.sort(rng.choice(big, union, replace=False))
+    owner = u // (big // n)
+    table = torch.zeros((n * big + 1, 16), dtype=torch.int64, device=dev)
+    rows = table_from_columns(random_state(rng, n * union), n * union, dev)
+    flat = (np.arange(n)[:, None] * big + u[None, :]).ravel()
+    table[torch.from_numpy(flat).to(dev)] = rows[:-1]
+    aux = torch.zeros((n, 9, big), dtype=torch.int64, device=dev)
+    req = random_requests(rng, n * union)
+    params = np.stack([req[f] for f in ("limit", "duration", "algorithm",
+                                        "behavior", "burst", "greg_exp",
+                                        "greg_dur", "created_at")]
+                      + [np.where(rng.random(n * union) < 0.8,
+                                  rng.integers(1, 40, n * union), 0)])
+    params = params.reshape(9, n, union).transpose(1, 0, 2)
+    ut = torch.from_numpy(u).to(dev)
+    aux[:, :, ut] = torch.from_numpy(np.ascontiguousarray(params)).to(dev)
+    nodes = np.arange(n)[:, None]
+    win = (rng.random((n, union)) < 0.5) & (nodes != owner[None, :])
+    accu = np.zeros((n, 4, union), np.int64)
+    accu[:, 2] = np.where(win, rng.integers(1, 4, (n, union)), 0)
+    accu[:, 0] = np.where(win, rng.integers(-3, 40, (n, union)), 0)
+    accu[:, 1] = np.where(win & (rng.random((n, union)) < 0.1), 1, 0)
+    accu[:, 3] = accu[:, 2] + (rng.random((n, union)) < 0.3)
+    accu[0, 3] = np.maximum(accu[0, 3], 1)  # every slot in the union
+    acc = torch.zeros((n, 4, big), dtype=torch.int64, device=dev)
+    acc_u = torch.from_numpy(accu).to(dev)
+    acc[:, :, ut] = acc_u
+    po, ps, pscr = GM.probe_buffers(n, big, dev)
+    qo, qs, _ = GM.probe_buffers(n, big, dev)
+    GM.global_sparse_probe(acc, n, GM_SPARSE_K, po, ps, pscr)
+    GM.global_sparse_probe_plain(acc, n, GM_SPARSE_K, qo, qs)
+    torch.cuda.synchronize()
+    size = int(qo[1])
+    assert torch.equal(po, qo) and size == union, "probe verdict differs"
+    assert torch.equal(torch.sort(ps[:size]).values, qs[:size]), \
+        "probe union differs"
+    nbytes = n * big * 16 + union * 4 + (2 + 3 * n) * 4 + 16
+    out["global_sparse_probe"] = _entry(
+        "global_sparse_probe", src, f"{ref}:400", 0,
+        time_ms(torch, lambda: GM.global_sparse_probe(
+            acc, n, GM_SPARSE_K, po, ps, pscr)),
+        time_ms(torch, lambda: GM.global_sparse_probe_plain(
+            acc, n, GM_SPARSE_K, qo, qs)), None, nbytes, 0)
+    out["global_sparse_probe"].update(slots=big, nodes=n, union=union,
+                                      design="scan")
+    tk, ck = table.clone(), acc.clone()
+    GM.global_sparse_apply(tk, aux, ck, n, ps, po, 2 * n * GM_SPARSE_K, NOW)
+    GM.global_sparse_apply_plain(table, aux, acc, n, qs, qo, NOW)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, table) and torch.equal(ck, acc), \
+        "global_sparse_apply differs from plain"
+    err = _max_abs(torch, tk, table)
+    del tk, ck
+
+    def restore_u():
+        acc[:, :, ut] = acc_u
+
+    fold_b, active = gm_fold_bytes(accu, np.arange(union), n)
+    t = time_restored(torch, [lambda: GM.global_sparse_apply(
+        table, aux, acc, n, ps, po, 2 * n * GM_SPARSE_K, NOW)], [restore_u])
+    tp = time_restored(torch, [lambda: GM.global_sparse_apply_plain(
+        table, aux, acc, n, qs, qo, NOW)], [restore_u])
+    nbytes = union * (4 + 128 + n * 128 + n * 32) + fold_b
+    out["global_sparse_apply"] = _entry(
+        "global_sparse_apply", src, f"{ref}:442", err, t["ms"], tp["ms"],
+        None, nbytes, active * FUSED_TICK_INT32_OPS_PER_LANE)
+    out["global_sparse_apply"].update(
+        slots=big, nodes=n, union=union, windows_folded=active,
+        restore_ms=t["restore_ms"])
+    for e in out.values():
+        e["share"] = e["bound_ms"] / e["ms"] if e["ms"] else None
+    return out
+
+
+def gm_random_buffers(torch, dev, rng, n, cap, touched=0.3):
+    """Random mesh buffers for the card tests: replicas of random rows
+    (all five algorithms), aux parameters with stamps on 70% of (node,
+    slot) pairs, and on a ``touched`` share of them windows (counts 1-3,
+    hits -5..19, RESET on a fifth) on non-owned slots and touch counts."""
+    from gubernator_tpu_torch.carry import table_from_columns
+
+    table = table_from_columns(random_state(rng, n * cap), n * cap, dev)
+    req = random_requests(rng, n * cap)
+    aux = np.stack([req[f] for f in ("limit", "duration", "algorithm",
+                                     "behavior", "burst", "greg_exp",
+                                     "greg_dur", "created_at")]
+                   + [np.where(rng.random(n * cap) < 0.7,
+                               rng.integers(1, 50, n * cap), 0)])
+    aux = np.ascontiguousarray(aux.reshape(9, n, cap).transpose(1, 0, 2))
+    hot = rng.random((n, cap)) < touched
+    owned = (np.arange(cap)[None, :] // (cap // n)) == np.arange(n)[:, None]
+    win = hot & ~owned & (rng.random((n, cap)) < 0.6)
+    acc = np.zeros((n, 4, cap), np.int64)
+    acc[:, 2] = np.where(win, rng.integers(1, 4, (n, cap)), 0)
+    acc[:, 0] = np.where(win, rng.integers(-5, 20, (n, cap)), 0)
+    acc[:, 1] = np.where(win & (rng.random((n, cap)) < 0.2), 1, 0)
+    acc[:, 3] = np.where(hot, acc[:, 2] + rng.integers(1, 3, (n, cap)), 0)
+    return (table, torch.from_numpy(aux).to(dev),
+            torch.from_numpy(acc).to(dev))
+
+
+def replicas_equal(torch, eng) -> bool:
+    """Every node's replica row-equal to node 0's."""
+    rows = eng.table[:-1].view(eng.n_nodes, eng.capacity, -1)
+    return bool((rows == rows[0]).all())
+
+
+def gm_key_rows(eng, name: str, keys) -> np.ndarray:
+    """Node 0's rows of keys ``name_<k>`` (one gather)."""
+    import torch
+
+    from gubernator_tpu_torch.ops import rowtable
+    from gubernator_tpu_torch.ops.reqcols import pack_blob
+
+    slots = eng.slots.lookup_blob(*pack_blob(
+        [f"{name}_{int(k)}".encode() for k in keys]))
+    assert (slots >= 0).all()
+    return rowtable.gather_rows(
+        eng.table, torch.from_numpy(slots).to(eng.device)).cpu().numpy()
+
+
+def gm_sparse_measure(torch, dev, types, rng, capacity, sparse_k,
+                      reps=GM_REPS) -> dict:
+    """global_sparse_reconcile's measurement: a step's time loaded with
+    one window (64 hits a node over 4096 keys) and empty, medians of
+    ``reps`` steps, the card synchronized around each step."""
+    from gubernator_tpu_torch.parallel.global_mesh import MeshGlobalEngine
+
+    eng = MeshGlobalEngine(n_nodes=GM_NODES, capacity=capacity,
+                           max_batch=GM_PER_NODE, sparse_k=sparse_k,
+                           device=dev)
+    eng.process_blocks(gm_blocks(types, rng, GM_NODES, GM_PER_NODE, GM_KEYS,
+                                 "gs"), now=NOW)
+    eng.reconcile(now=NOW)
+
+    def step(load, i):
+        if load:
+            eng.process_blocks(gm_blocks(types, rng, GM_NODES, GM_PER_NODE,
+                                         GM_KEYS, "gs"), now=NOW + i + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.reconcile(now=NOW + i + 1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    d0, r0 = eng.metric_reconcile_dispatches, eng.metric_reconciles
+    loaded = [step(True, i) for i in range(reps)]
+    empty = [step(False, reps + i) for i in range(reps)]
+    assert replicas_equal(torch, eng)
+    out = {"capacity": capacity, "sparse_k": eng.sparse_k,
+           "loaded_ms": float(np.median(loaded)),
+           "empty_ms": float(np.median(empty)),
+           "loaded_ms_all": loaded, "empty_ms_all": empty,
+           "dispatches_per_step": (eng.metric_reconcile_dispatches - d0)
+           / max(1, eng.metric_reconciles - r0),
+           "dense_fallbacks": eng.metric_dense_fallbacks}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def gm_wide_window(torch, dev, types, rng) -> dict:
+    """A sparse engine (2^18 slots, sparse_k 4096) and a dense one fed the
+    same windows: two of global_sparse_reconcile's, then one where node 0
+    sends more than sparse_k distinct keys.  The wide step must dispatch
+    twice (the probe's overflow, then the dense fallback) and both engines
+    must hold the same table, aux and accumulators after every step."""
+    from gubernator_tpu_torch.parallel.global_mesh import MeshGlobalEngine
+
+    cap = GM_SPARSE_CAPACITIES[0]
+    engs = [MeshGlobalEngine(n_nodes=GM_NODES, capacity=cap, max_batch=8192,
+                             sparse_k=k, device=dev)
+            for k in (GM_SPARSE_K, 0)]
+    wide = GM_SPARSE_K + 904
+    steps = []
+    for i in range(3):
+        blocks = gm_blocks(types, rng, GM_NODES, GM_PER_NODE, GM_KEYS, "gw")
+        if i == 2:
+            blocks[0] = [types.RateLimitRequest(
+                name="gw", unique_key=f"wide{k}", hits=1 + k % 3,
+                limit=GM_LIMIT, duration=GM_DURATION,
+                behavior=types.Behavior.GLOBAL) for k in range(wide)]
+        d0 = engs[0].metric_reconcile_dispatches
+        for e in engs:
+            e.process_blocks(blocks, now=NOW + 10 * i)
+            e.reconcile(now=NOW + 10 * i + 5)
+        steps.append(engs[0].metric_reconcile_dispatches - d0)
+        a, b = engs
+        assert torch.equal(a.table, b.table), f"wide: tables differ at {i}"
+        assert torch.equal(a.aux, b.aux) and torch.equal(a.accum, b.accum)
+    assert steps == [1, 1, 2], steps
+    assert engs[0].metric_dense_fallbacks == 1
+    assert replicas_equal(torch, engs[0])
+    return {"capacity": cap, "wide_keys": wide,
+            "dispatches_by_step": steps,
+            "dense_fallbacks": engs[0].metric_dense_fallbacks,
+            "same_as_dense": True}
+
+
+def gm_compare_blocks(types, rng, step: int, now: int) -> list:
+    """Step ``step`` of phase 9 D's seeded sequence on a 4-node engine:
+    steps 0-5 random windows over 48 keys (all five algorithms, negative
+    and zero hits, RESET, limits small enough to overdraw), step 6 a
+    window where node 0 sends 100 distinct keys (past sparse_k 64), steps
+    7-8 2500 fresh keys a node, which fill the 2^14-slot table: the second
+    reclaims the buckets that expired, then evicts live ones."""
+    GLOBAL = int(types.Behavior.GLOBAL)
+    RESET = int(types.Behavior.RESET_REMAINING)
+    n = GM_COMPARE_NODES
+
+    def r(key, **kw):
+        return types.RateLimitRequest(name="cmp", unique_key=key,
+                                      created_at=now, **kw)
+
+    if step <= 5:
+        return [[r(f"k{int(rng.integers(0, 48))}",
+                   hits=int(rng.choice([-3, -1, 0, 1, 2, 5, 9])),
+                   limit=int(rng.choice([4, 10, 100])),
+                   duration=int(rng.choice([1_000, 4_000, 60_000])),
+                   algorithm=int(rng.integers(0, 5)),
+                   behavior=GLOBAL | (RESET if rng.random() < 0.1 else 0),
+                   burst=int(rng.choice([0, 3])))
+                 for _ in range(int(rng.integers(4, 20)))]
+                for _ in range(n)]
+    if step == 6:
+        blocks = [[r(f"k{int(rng.integers(0, 48))}", hits=1, limit=10,
+                     duration=60_000, behavior=GLOBAL) for _ in range(4)]
+                  for _ in range(n)]
+        blocks[0] = [r(f"ov{k}", hits=1, limit=10, duration=60_000,
+                       behavior=GLOBAL) for k in range(100)]
+        return blocks
+    return [[r(f"f{step}-{d}-{k}", hits=1, limit=5,
+               duration=500 if k % 5 == 0 and step > 7 else 60_000,
+               behavior=GLOBAL)
+             for k in range(2500)] for d in range(n)]
+
+
+def global_compare(torch, dev, types, seed=SEED + 21, steps=9) -> dict:
+    """Phase 9 D: a card engine and a CPU engine at 2^14 slots and 4
+    nodes, with sparse_k 64 and with sparse_k 0, take the seeded sequence
+    of ``gm_compare_blocks``, each window followed by a reconcile;
+    responses and ``state_fields()`` (and aux and accumulators) must be
+    equal after every step."""
+    from gubernator_tpu_torch.parallel.global_mesh import MeshGlobalEngine
+
+    out = {}
+    for k in (GM_COMPARE_K, 0):
+        engs = [MeshGlobalEngine(n_nodes=GM_COMPARE_NODES,
+                                 capacity=GM_COMPARE_CAPACITY,
+                                 max_batch=4096, sparse_k=k, device=d)
+                for d in (dev, "cpu")]
+        rng = np.random.default_rng(seed)
+        answers = 0
+        for step in range(steps):
+            now = NOW + 1_000 * step
+            blocks = gm_compare_blocks(types, rng, step, now)
+            got = [e.process_blocks(blocks, now=now) for e in engs]
+            assert [[(x.status, x.limit, x.remaining, x.reset_time, x.error)
+                     for x in blk] for blk in got[0]] == [
+                [(x.status, x.limit, x.remaining, x.reset_time, x.error)
+                 for x in blk] for blk in got[1]], f"answers differ ({k}, {step})"
+            answers += sum(len(b) for b in blocks)
+            for e in engs:
+                e.reconcile(now=now + 500)
+            fa, fb = (e.state_fields() for e in engs)
+            for f in fa:
+                np.testing.assert_array_equal(fa[f], fb[f],
+                                              err_msg=f"{f} ({k}, {step})")
+            assert torch.equal(engs[0].aux.cpu(), engs[1].aux)
+            assert torch.equal(engs[0].accum.cpu(), engs[1].accum)
+        a, b = engs
+        for name in ("metric_reconciles", "metric_reconcile_dispatches",
+                     "metric_dense_fallbacks", "metric_evictions",
+                     "metric_sorted_windows"):
+            assert getattr(a, name) == getattr(b, name), name
+        assert a.metric_evictions > 0
+        if k:
+            assert a.metric_dense_fallbacks > 0
+            assert a.metric_reconcile_dispatches > a.metric_reconciles
+        out[f"sparse_k_{k}"] = {
+            "answers": answers, "steps": steps, "equal": True,
+            "dense_fallbacks": a.metric_dense_fallbacks,
+            "evictions": a.metric_evictions,
+            "sorted_windows": a.metric_sorted_windows}
+    return out
+
+
+async def gm_cluster(torch, types, rng, keys=GLOBAL_KEYS, batches=16,
+                     limit=SERVE_LIMIT) -> dict:
+    """Phase 9 C: ``Cluster(global_mesh=True)`` with 4 daemons on the card.
+    ``batches`` batches of 1000 GLOBAL hits on ``keys`` keys round robin
+    over the nodes by gRPC; ``global_converge_ms`` from the last hit to
+    every node answering every key's exact count (limit less the hits
+    sent), polled with hits=0 probes.  No peer RPC may carry a GLOBAL item
+    (no PeersV1 call, no GLOBAL flush or broadcast)."""
+    import asyncio
+    import re
+
+    from gubernator_tpu_torch.cluster import Cluster
+
+    c = await Cluster.start(GM_CLUSTER_NODES, global_mesh=True,
+                            cache_size=1 << 16)
+    try:
+        n = len(c.daemons)
+        gid = (np.arange(keys) * 2_654_435_761) % 10**8
+        sent = np.zeros(keys, np.int64)
+        t0 = time.perf_counter()
+        for j in range(batches):
+            ids = rng.integers(0, keys, SERVE_BATCH)
+            np.add.at(sent, ids, 1)
+            await ask(c.daemons[j % n], raw_batch(
+                b"mglob", gid[ids], behavior=GLOBAL_BIT, limit=limit))
+        t_last = time.perf_counter()
+        polls = 0
+        while True:
+            polls += 1
+            exact = True
+            for d in c.daemons:
+                for s in range(0, keys, SERVE_BATCH):
+                    got = [r.remaining for r in await ask(d, raw_batch(
+                        b"mglob", gid[s:s + SERVE_BATCH], hits=0,
+                        behavior=GLOBAL_BIT, limit=limit))]
+                    exact = exact and got == (
+                        limit - sent[s:s + SERVE_BATCH]).tolist()
+            if exact:
+                break
+            assert time.perf_counter() - t_last < 60, "mesh did not converge"
+            await asyncio.sleep(0.005)
+        converge = (time.perf_counter() - t_last) * 1e3
+        eng = c.daemons[0].instance.global_mesh
+        peer_calls = 0
+        for d in c.daemons:
+            text = d.metrics.expose().decode()
+            peer_calls += sum(float(v) for v in re.findall(
+                r'gubernator_grpc_request_counts_total\{[^}]*PeersV1[^}]*\} '
+                r'(\S+)', text))
+            peer_calls += d.metrics.sample(
+                "gubernator_global_send_duration_count")
+            peer_calls += d.metrics.sample(
+                "gubernator_broadcast_duration_count")
+        assert peer_calls == 0, f"{peer_calls} GLOBAL peer calls"
+        assert replicas_equal(torch, eng)
+        return {"nodes": n, "keys": keys, "hits": int(sent.sum()),
+                "send_s": t_last - t0, "global_converge_ms": converge,
+                "polls": polls, "counts_exact": True, "peer_rpcs": 0,
+                "reconciles": eng.metric_reconciles,
+                "capacity": eng.capacity, "sparse_k": eng.sparse_k}
+    finally:
+        await c.stop()
+
+
+def global_phase(torch, dev, grpc_converge_ms=None):
+    """Phase 9, the GLOBAL mesh.  A: global_mesh_8 at its own size on the
+    card (8 nodes, 256 GLOBAL hits a node a window over 4096 keys) at the
+    default 2^16 slots, 25 windows each followed by a dense reconcile:
+    decisions/s, reconciles/s, dispatches a step, launches by kernel;
+    every replica row-equal after every reconcile and each key's count
+    its limit less the hits sent.  B: global_sparse_reconcile (8 nodes,
+    64 hits a node) at 2^18 and 2^22 slots with sparse_k 4096, loaded and
+    empty step ms, the dense step at 2^18 for contrast, and a window wider
+    than sparse_k against a dense engine.  C: the mesh cluster over gRPC.
+    D: card against CPU.  Returns ``(info, launches summed over the
+    phase's paths)``."""
+    import asyncio
+
+    from gubernator_tpu_torch import types
+    from gubernator_tpu_torch.ops.buckets import WORD
+    from gubernator_tpu_torch.parallel.global_mesh import MeshGlobalEngine
+
+    info, launches, widths = {}, {}, {}
+
+    def path(name):
+        return counted(torch, launches, name, widths)
+
+    rng = np.random.default_rng(SEED + 20)
+    # A: dense, global_mesh_8.
+    eng = MeshGlobalEngine(n_nodes=GM_NODES, capacity=GM_CAPACITY,
+                           max_batch=GM_BATCH, device=dev)
+    windows = [gm_blocks(types, rng, GM_NODES, GM_BATCH, GM_KEYS)
+               for _ in range(8)]
+    sent = np.zeros(GM_KEYS, np.int64)
+
+    def count(blocks):
+        for blk in blocks:
+            np.add.at(sent, [int(r.unique_key) for r in blk], 1)
+
+    eng.process_blocks(windows[0], now=NOW)   # warm, as the rung
+    eng.reconcile(now=NOW)
+    count(windows[0])
+    d0, r0 = eng.metric_reconcile_dispatches, eng.metric_reconciles
+    elapsed, unequal = 0.0, 0
+    with path("dense"):
+        for i in range(GM_WINDOWS):
+            blocks = windows[i % len(windows)]
+            t0 = time.perf_counter()
+            eng.process_blocks(blocks, now=NOW + i + 1)
+            eng.reconcile(now=NOW + i + 1)
+            torch.cuda.synchronize()
+            elapsed += time.perf_counter() - t0
+            count(blocks)
+            unequal += not replicas_equal(torch, eng)
+    steps = eng.metric_reconciles - r0
+    seen = np.flatnonzero(sent)
+    rows = gm_key_rows(eng, "g", seen)
+    wrong = int((rows[:, WORD["remaining"]] != GM_LIMIT - sent[seen]).sum())
+    la = launches["dense"]
+    info["dense"] = {
+        "nodes": GM_NODES, "capacity": GM_CAPACITY, "per_node": GM_BATCH,
+        "keys": GM_KEYS, "windows": GM_WINDOWS,
+        "decisions_per_s": GM_WINDOWS * GM_NODES * GM_BATCH / elapsed,
+        "reconciles_per_s": GM_WINDOWS / elapsed,
+        "window_ms": elapsed / GM_WINDOWS * 1e3,
+        "dispatches_per_step": (eng.metric_reconcile_dispatches - d0)
+        / max(steps, 1),
+        "unique_windows": eng.metric_unique_windows,
+        "sorted_windows": eng.metric_sorted_windows,
+        "replica_mismatches": unequal, "count_errors": wrong,
+        "launches": la}
+    assert unequal == 0 and wrong == 0, info["dense"]
+    assert info["dense"]["dispatches_per_step"] == 1.0
+    assert la["global_accumulate"] == GM_WINDOWS
+    assert la["global_dense_reconcile"] == GM_WINDOWS
+    assert la["fused_tick"] + la["fused_sorted_tick"] == GM_WINDOWS
+    assert la["fused_merged_tick"] == 0
+    del eng
+    # B: sparse, global_sparse_reconcile.
+    sparse = {}
+    for cap in GM_SPARSE_CAPACITIES:
+        with path(f"sparse_{cap}"):
+            sparse[str(cap)] = gm_sparse_measure(torch, dev, types, rng, cap,
+                                                 GM_SPARSE_K)
+        ls = launches[f"sparse_{cap}"]
+        sparse[str(cap)]["launches"] = ls
+        assert sparse[str(cap)]["dispatches_per_step"] == 1.0
+        assert ls["global_sparse_probe"] == ls["global_sparse_apply"] > 0
+        assert ls["global_dense_reconcile"] == 0
+    with path(f"dense_{GM_SPARSE_CAPACITIES[0]}"):
+        sparse[f"dense_{GM_SPARSE_CAPACITIES[0]}"] = gm_sparse_measure(
+            torch, dev, types, rng, GM_SPARSE_CAPACITIES[0], 0)
+    with path("wide"):
+        sparse["wide"] = gm_wide_window(torch, dev, types, rng)
+    info["sparse"] = sparse
+    # C: the mesh cluster over gRPC.
+    with path("service"):
+        info["service"] = asyncio.run(gm_cluster(torch, types, rng))
+    info["service"]["grpc_global_converge_ms"] = grpc_converge_ms
+    info["global_converge_ms"] = info["service"]["global_converge_ms"]
+    # D: card against CPU.
+    with path("compare"):
+        info["card_vs_cpu"] = global_compare(torch, dev, types)
+    info["launches_by_path"] = launches
+    info["launches_by_width"] = widths
+    total = {}
+    for per in launches.values():
+        for name, c in per.items():
+            total[name] = total.get(name, 0) + c
+    for name in ("global_accumulate", "global_dense_reconcile",
+                 "global_sparse_probe", "global_sparse_apply"):
+        assert total[name] > 0, f"no {name} launch in phase 9"
+    return info, total
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4037,15 +4702,18 @@ def main(argv=None) -> int:
     cluster, cluster_launches = cluster_phase(torch, dev)
     print("phase7 " + json.dumps(cluster), flush=True)
     print("phase8 " + json.dumps(leases), flush=True)
+    gmesh, gmesh_launches = global_phase(
+        torch, dev, grpc_converge_ms=cluster["global_converge_ms"])
+    print("phase9 " + json.dumps(gmesh), flush=True)
     for name in launches:
         launches[name] += (mesh_launches[name] + tier_launches[name]
                            + serve_launches[name] + cluster_launches[name]
-                           + lease_launches[name])
+                           + lease_launches[name] + gmesh_launches[name])
         assert launches[name] > 0, f"{name} was not launched on the main path"
-    # The ticks' and the lease window's launches by lane width over the
-    # six phases' paths.
+    # The ticks', the lease window's and the GLOBAL mesh kernels' launches
+    # by lane width over the seven phases' paths.
     widths = {}
-    for phase in (info, mesh, tiers, serve, cluster, leases):
+    for phase in (info, mesh, tiers, serve, cluster, leases, gmesh):
         for per_path in phase["launches_by_width"].values():
             for name, counts in per_path.items():
                 for w, c in counts.items():
@@ -4057,7 +4725,8 @@ def main(argv=None) -> int:
     table = []
     for name in ("fused_tick", "fused_merged_tick", "fused_ragged_tick",
                  "fused_sorted_tick", "gather_rows", "scatter_rows",
-                 "lease_apply"):
+                 "lease_apply", "global_accumulate", "global_dense_reconcile",
+                 "global_sparse_probe", "global_sparse_apply"):
         k = kernels[name]
         table.append({
             "name": name, "route": k["route"], "source": k["source"],

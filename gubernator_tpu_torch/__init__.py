@@ -45,9 +45,10 @@ def kernel_launches() -> dict:
 
 def _lane_wrappers() -> dict:
     """The wrappers that also count their launches by lane width: the
-    ticks and the lease-column window."""
+    ticks, the lease-column window and the GLOBAL mesh's kernels (a
+    reconcile's width is the capacity, a sparse apply's its grid)."""
     from gubernator_tpu_torch.ops import (
-        fusedtick, leasecols, raggedtick, sortedtick)
+        fusedtick, globalmesh, leasecols, raggedtick, sortedtick)
 
     return {
         "fused_tick": fusedtick.fused_tick,
@@ -55,12 +56,13 @@ def _lane_wrappers() -> dict:
         "fused_ragged_tick": raggedtick.fused_ragged_tick,
         "fused_sorted_tick": sortedtick.fused_sorted_tick,
         "lease_apply": leasecols.lease_apply,
+        **globalmesh.WRAPPERS,
     }
 
 
 def kernel_launches_by_width() -> dict:
-    """Launch counts of each tick kernel and of the lease-column window by
-    lane width: ``{kernel: {bucket: count}}``, a bucket being the least
+    """Launch counts of each tick kernel, of the lease-column window and
+    of the GLOBAL mesh's kernels by lane width: ``{kernel: {bucket: count}}``, a bucket being the least
     power of two at or above a launch's width."""
     return {name: dict(sorted(w.launches_by_width.items()))
             for name, w in _lane_wrappers().items()}

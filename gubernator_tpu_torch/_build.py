@@ -14,8 +14,9 @@ processes that build the same library never load a half-written file.
   exactly that of the plain PyTorch versions: no contraction of a
   multiply and an add into one rounding.  ``-Xptxas -v`` reports each
   kernel's registers and spills into ``<library>.log``.
-* Host C++ (the slot map, the wire codec, and the test-only host build
-  of the tick's lane function): ``c++ -O2 -shared``.
+* Host C++ (the slot map, the wire codec, and the test-only host builds
+  of the ticks' lane code and of the GLOBAL mesh's slot code):
+  ``c++ -O2 -shared``.
 """
 
 from __future__ import annotations
@@ -49,8 +50,10 @@ LIBS = {
     "fused_sorted_tick": ("nvcc", ("fused_sorted_tick.cu",)),
     "rows": ("nvcc", ("rows.cu",)),
     "lease_apply": ("nvcc", ("lease_apply.cu",)),
+    "global_mesh": ("nvcc", ("global_mesh.cu",)),
     "empty": ("nvcc", ("empty.cu",)),
     "fused_tick_host": ("cxx", ("fused_tick_host.cc",)),
+    "global_mesh_host": ("cxx", ("global_mesh_host.cc",)),
 }
 CUDA_LIBS = tuple(n for n, (kind, _) in LIBS.items() if kind == "nvcc")
 

@@ -6,8 +6,11 @@ process on loopback with statically injected peer lists
 (``cluster/cluster.go:123-189``); this is the same harness for the port:
 real gRPC over loopback, real consistent hashing, real batching and
 broadcast loops, each node's engine on the card (or, with
-``tpu_platform="cpu"``, on the CPU's plain versions).  The JAX harness's
-``global_mesh`` and ``federation`` options are not ported and raise.
+``tpu_platform="cpu"``, on the CPU's plain versions).  With
+``global_mesh=True`` the nodes share one ``MeshGlobalEngine``
+(parallel/global_mesh.py), node i its replica i, and GLOBAL items
+reconcile on it instead of over the gRPC loops.  The JAX harness's
+``federation`` option is not ported and raises.
 
 Ownership introspection helpers (``FindOwningDaemon``,
 ``ListNonOwningDaemons``, ``cluster/cluster.go:81-110``) let tests target
@@ -135,27 +138,38 @@ class Cluster:
         shared, so one schedule partitions a peer cluster-wide).
 
         ``tpu_platform`` "" puts every node's engine on the card (raising
-        without one), "cpu" on the plain versions.  ``global_mesh`` and
-        ``federation`` are not ported and raise.  A failed start stops
-        the daemons already up.
+        without one), "cpu" on the plain versions.  ``global_mesh`` builds
+        one ``MeshGlobalEngine`` over the ``n`` nodes (capacity
+        ``min(cache_size, 2^16)``, reconciles at most every half
+        ``global_sync_wait``) on the same platform, shared by every
+        daemon.  ``federation`` is not ported and raises.  A failed start
+        stops the daemons already up.
         """
-        if global_mesh:
-            raise ValueError("Cluster(global_mesh=True) is not ported yet: "
-                             "the GLOBAL mesh (ROADMAP A.4)")
         if federation:
             raise ValueError("Cluster(federation=True) is not ported yet: "
                              "multi-region federation")
         c = cls()
         datacenters = list(datacenters or [""] * n)
         assert len(datacenters) == n
+        mesh_engine = None
+        if global_mesh:
+            from gubernator_tpu_torch.parallel.global_mesh import (
+                MeshGlobalEngine)
+
+            sync_ms = int((behaviors or BehaviorConfig()).global_sync_wait
+                          * 500)
+            mesh_engine = MeshGlobalEngine(
+                n_nodes=n, capacity=min(cache_size, 1 << 16),
+                min_reconcile_ms=sync_ms, device=tpu_platform or None)
         try:
-            for dc in datacenters:
+            for idx, dc in enumerate(datacenters):
                 conf = _daemon_config(dc, behaviors, cache_size,
                                       resilience, fault_injector,
                                       tpu_platform, tpu_max_batch)
                 if http_gateway:
                     conf.http_listen_address = "127.0.0.1:0"
-                d = Daemon(conf)
+                d = Daemon(conf, global_mesh=mesh_engine,
+                           global_mesh_node=idx)
                 await d.start()
                 c.daemons.append(d)
         except BaseException:

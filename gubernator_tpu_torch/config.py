@@ -9,13 +9,14 @@ environment first.
 
 Only the knobs of ported modules are read.  A knob of a module that is
 not ported yet (federation, resharding, the autoscaler, edge
-workers, the GLOBAL mesh, the metric-flag collectors) or of the JAX
+workers, the metric-flag collectors) or of the JAX
 package's TPU/XLA path raises a ``ValueError`` that names it, so no
 setting is silently ignored.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import random
 import socket
@@ -24,6 +25,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 from gubernator_tpu_torch.resilience import ResilienceConfig
+
+log = logging.getLogger("gubernator.config")
 
 # The ported ``GUBER_*`` surface: name -> what it sets.
 ENV_REGISTRY: Dict[str, str] = {
@@ -121,6 +124,9 @@ ENV_REGISTRY: Dict[str, str] = {
     "GUBER_TLS_KEY": "TLS server key file",
     "GUBER_TLS_MIN_VERSION": "minimum TLS version",
     "GUBER_TPU_BG_RECLAIM": "background reclaim: auto/on/off",
+    "GUBER_TPU_GLOBAL_MESH_CAPACITY": "GLOBAL mesh slot capacity",
+    "GUBER_TPU_GLOBAL_MESH_NODE": "this node's mesh index (-1 = auto: 0, one process drives the card)",
+    "GUBER_TPU_GLOBAL_MESH_NODES": "GLOBAL mesh size (0 = gRPC loops only; the mesh lives in this process, which holds all its nodes)",
     "GUBER_TPU_MAX_BATCH": "request columns per device tick",
     "GUBER_TPU_MESH_SHARDS": "table shards (row ranges of one table on the card)",
     "GUBER_TPU_PLATFORM": "device: '' or 'cuda' (the card), 'cpu' (plain versions)",
@@ -146,9 +152,6 @@ UNPORTED: Dict[str, str] = {
     **{k: "the edge ingest plane" for k in (
         "GUBER_EDGE_RING_DEPTH", "GUBER_EDGE_SHM_SLABS",
         "GUBER_EDGE_WORKERS")},
-    **{k: "the GLOBAL mesh (ROADMAP A.4)" for k in (
-        "GUBER_TPU_GLOBAL_MESH_CAPACITY", "GUBER_TPU_GLOBAL_MESH_NODE",
-        "GUBER_TPU_GLOBAL_MESH_NODES")},
     "GUBER_METRIC_FLAGS": "the process and runtime metric collectors",
     **{k: _TPU for k in (
         "GUBER_COMPILE_CACHE_DIR", "GUBER_SANITIZERS",
@@ -240,6 +243,14 @@ class Config:
     snapshot_interval: float = 5.0
     snapshot_deltas_per_base: int = 64
     drain_timeout: float = 2.0       # graceful-shutdown GLOBAL flush budget
+    # GLOBAL reconciliation over the mesh's collectives data plane
+    # (parallel/global_mesh.py): N logical peer-nodes, replicas in one
+    # table on the card; 0 = gRPC loops only.  Node index -1 = auto,
+    # which is 0 here: one process drives the card (the JAX package takes
+    # jax.process_index(), a multi-host identity).
+    tpu_global_mesh_nodes: int = 0
+    tpu_global_mesh_node: int = -1
+    tpu_global_mesh_capacity: int = 1 << 16
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     # A FaultInjector the peer clients consult before every RPC
     # (GUBER_FAULT_* builds one; tests install theirs directly).
@@ -254,6 +265,34 @@ class Config:
                 for _ in range(10))
         if self.cache_size <= 0:
             self.cache_size = 50_000
+
+
+# GLOBAL-mesh capacity envelope (parallel/global_mesh.py): the dense
+# reconcile rewrites every slot of every replica each sync interval,
+# independent of traffic, so the config surface warns past the soft bound
+# and refuses the hard one instead of letting a typo configure a mesh that
+# cannot keep its cadence.  Above 2^16 slots the sparse reconcile takes
+# over on its own.
+GLOBAL_MESH_CAPACITY_SOFT = 1 << 20
+GLOBAL_MESH_CAPACITY_HARD = 1 << 24
+
+
+def validate_global_mesh_capacity(capacity: int) -> None:
+    """Raise past GLOBAL_MESH_CAPACITY_HARD, warn past _SOFT."""
+    if capacity > GLOBAL_MESH_CAPACITY_HARD:
+        raise ValueError(
+            f"GUBER_TPU_GLOBAL_MESH_CAPACITY={capacity} exceeds "
+            f"{GLOBAL_MESH_CAPACITY_HARD} (2^24); the dense reconcile "
+            "rewrites O(capacity * nodes) rows every sync interval and "
+            "cannot serve tables this large; GLOBAL limits are a small "
+            "hot subset, so shard the serving table instead "
+            "(parallel/global_mesh.py)")
+    if capacity > GLOBAL_MESH_CAPACITY_SOFT:
+        log.warning(
+            "GUBER_TPU_GLOBAL_MESH_CAPACITY=%d is past the documented "
+            "envelope (2^14-2^20): a dense reconcile rewrites every slot "
+            "on every node, so expect the sync cadence to stretch "
+            "(parallel/global_mesh.py)", capacity)
 
 
 @dataclass
@@ -465,6 +504,10 @@ def setup_daemon_config(
         tpu_bg_reclaim=r.str_("GUBER_TPU_BG_RECLAIM", "auto"),
         tpu_mesh_shards=r.int_("GUBER_TPU_MESH_SHARDS", 0),
         tpu_platform=r.str_("GUBER_TPU_PLATFORM"),
+        tpu_global_mesh_nodes=r.int_("GUBER_TPU_GLOBAL_MESH_NODES", 0),
+        tpu_global_mesh_node=r.int_("GUBER_TPU_GLOBAL_MESH_NODE", -1),
+        tpu_global_mesh_capacity=r.int_(
+            "GUBER_TPU_GLOBAL_MESH_CAPACITY", 1 << 16),
     )
     conf.set_defaults()
 
@@ -522,6 +565,7 @@ def setup_daemon_config(
         raise ValueError(
             f"GUBER_REDELIVERY_LIMIT must be >= 0; "
             f"got {resilience.redelivery_limit}")
+    validate_global_mesh_capacity(conf.tpu_global_mesh_capacity)
     if conf.local_picker_hash not in ("fnv1", "fnv1a"):
         raise ValueError(
             "GUBER_PEER_PICKER_HASH is invalid; choose one of 'fnv1', "

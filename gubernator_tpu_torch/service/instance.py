@@ -13,9 +13,14 @@ are submitted together.  A node with no peers, or only its own entry
 fast path.
 
 Quota leases (docs/leases.md) are minted and reconciled by the
-instance's :class:`LeaseManager` over its engine and tick loop.  Not
-ported: the mesh-resident GLOBAL engine, federation, live resharding, the
-autoscaler and the edge plane (their knobs raise in ``config``).
+instance's :class:`LeaseManager` over its engine and tick loop.  With a
+mesh-resident GLOBAL engine (``parallel/global_mesh.py``, shared through
+``InstanceConfig.global_mesh`` or built from the
+``GUBER_TPU_GLOBAL_MESH_*`` knobs) GLOBAL items ride that engine instead
+of the gRPC hits and broadcast loops, and a reconcile loop drives it on
+the ``GlobalSyncWait`` cadence.  Not ported: federation, live
+resharding, the autoscaler and the edge plane (their knobs raise in
+``config``).
 
 Create the instance inside a running event loop (the GLOBAL manager
 starts its loops at once, as the reference's ``NewV1Instance`` does), or
@@ -75,6 +80,13 @@ from gubernator_tpu_torch.utils.metrics import Metrics
 
 log = logging.getLogger("gubernator.instance")
 
+MESH_ALONE = (
+    "GUBER_TPU_GLOBAL_MESH_NODES builds a GLOBAL mesh that lives in this "
+    "process alone: its GLOBAL items never reach another daemon, so with "
+    "other peers each GLOBAL limit would hold per process. One process "
+    "holds every node of the mesh: start the daemons with "
+    "Cluster.start(n, global_mesh=True) or Daemon(global_mesh=...)")
+
 
 class BatchTooLargeError(ValueError):
     """Maps to gRPC OutOfRange at the transport edge (gubernator.go:189-193)."""
@@ -103,6 +115,14 @@ class InstanceConfig:
     snapshot_interval: float = 5.0
     snapshot_deltas_per_base: int = 64
     drain_timeout: float = 2.0           # GlobalManager.close's budget
+    # GLOBAL collectives data plane (parallel/global_mesh.py): a shared
+    # MeshGlobalEngine and this node's index on it.  When set, GLOBAL
+    # requests bypass the gRPC hits/broadcast loops.
+    global_mesh: Optional[object] = None
+    global_mesh_node: int = 0
+    tpu_global_mesh_nodes: int = 0       # > 0: build an engine at startup
+    tpu_global_mesh_node: int = -1       # -1 = auto: 0 (one process)
+    tpu_global_mesh_capacity: int = 1 << 16
     loader: Optional[object] = None
     store: Optional[object] = None
     metrics: Optional[Metrics] = None
@@ -137,6 +157,9 @@ class InstanceConfig:
             snapshot_interval=conf.snapshot_interval,
             snapshot_deltas_per_base=conf.snapshot_deltas_per_base,
             drain_timeout=conf.drain_timeout,
+            tpu_global_mesh_nodes=conf.tpu_global_mesh_nodes,
+            tpu_global_mesh_node=conf.tpu_global_mesh_node,
+            tpu_global_mesh_capacity=conf.tpu_global_mesh_capacity,
             loader=conf.loader,
             store=conf.store,
             **kw,
@@ -238,6 +261,37 @@ class V1Instance:
             hash_fn, conf.replicas)
         self.global_mgr = GlobalManager(
             self, conf.behaviors, self.metrics, resilience=conf.resilience)
+        # GLOBAL collectives data plane: the shared engine if one is
+        # given, else one built when GUBER_TPU_GLOBAL_MESH_NODES asks.
+        self.global_mesh = conf.global_mesh
+        # A mesh built from the knobs lives in this process alone: its
+        # GLOBAL items never reach another daemon (see set_peers).
+        self.owns_global_mesh = (
+            self.global_mesh is None and conf.tpu_global_mesh_nodes > 0)
+        if self.owns_global_mesh:
+            from gubernator_tpu_torch.parallel.global_mesh import (
+                MeshGlobalEngine)
+
+            self.global_mesh = MeshGlobalEngine(
+                n_nodes=conf.tpu_global_mesh_nodes,
+                capacity=conf.tpu_global_mesh_capacity,
+                max_batch=conf.tpu_max_batch,
+                min_reconcile_ms=int(conf.behaviors.global_sync_wait * 500),
+                device=conf.tpu_platform or None)
+            if conf.global_mesh_node == 0 and conf.tpu_global_mesh_node != 0:
+                # Env-configured: -1 (auto) is node 0, since one process
+                # drives the card (the JAX package takes its process
+                # index on a multi-host mesh).
+                conf.global_mesh_node = max(0, conf.tpu_global_mesh_node)
+        self._mesh_task: Optional[asyncio.Task] = None
+        if self.global_mesh is not None:
+            if not 0 <= conf.global_mesh_node < self.global_mesh.n_nodes:
+                raise ValueError(
+                    f"global mesh node {conf.global_mesh_node} is outside "
+                    f"the mesh's {self.global_mesh.n_nodes} nodes "
+                    f"(GUBER_TPU_GLOBAL_MESH_NODE)")
+            self._mesh_task = asyncio.get_running_loop().create_task(
+                self._mesh_reconcile_loop(), name="global-mesh-reconcile")
         # Doomed-peer shutdowns, ring-change ownership transfers and
         # per-item forwards run as tasks; tracked so close() awaits them
         # and no failure is swallowed with its task.
@@ -359,6 +413,7 @@ class V1Instance:
         local_idx: List[int] = []
         global_idx: List[tuple] = []   # (i, owner_addr)
         forward: List[tuple] = []      # (i, peer, req, key)
+        mesh_idx: List[int] = []       # GLOBAL items on the mesh engine
         for i, req in enumerate(requests):
             err = self._invalid(req)
             if err is not None:
@@ -371,6 +426,13 @@ class V1Instance:
             if self.conf.behaviors.force_global:
                 req.behavior = set_behavior(req.behavior, Behavior.GLOBAL,
                                             True)
+            if self.global_mesh is not None and has_behavior(
+                    req.behavior, Behavior.GLOBAL):
+                # Mesh-resident GLOBAL: ownership is the slot range on the
+                # mesh, not the ring; every node answers from its replica
+                # and the reconcile loop folds the hits.
+                mesh_idx.append(i)
+                continue
             key = req.hash_key()
             peer = self.get_peer(key)
             if peer is None or peer.info.is_owner:
@@ -395,6 +457,13 @@ class V1Instance:
             globals_done = asyncio.ensure_future(
                 self._get_global_rate_limits(
                     [requests[i] for i, _ in global_idx]))
+        # GLOBAL items on the mesh data plane: one window, no RPC.
+        mesh_done = None
+        if mesh_idx:
+            mesh_reqs = [requests[i] for i in mesh_idx]
+            node = self.conf.global_mesh_node
+            mesh_done = asyncio.get_running_loop().run_in_executor(
+                None, lambda: self.global_mesh.process(mesh_reqs, node))
         # Forwarded items: a tracked task each, with retries.
         fwd_tasks = [self._spawn_forward(peer, req, key)
                      for _, peer, req, key in forward]
@@ -406,6 +475,13 @@ class V1Instance:
             for (i, owner), resp in zip(global_idx, await globals_done):
                 resp.metadata = {"owner": owner}
                 out[i] = resp
+        if mesh_done is not None:
+            for i, resp in zip(mesh_idx, await mesh_done):
+                self.metrics.getratelimit_counter.labels(
+                    calltype="global").inc()
+                if resp.status == Status.OVER_LIMIT:
+                    self.metrics.over_limit_counter.inc()
+                out[i] = resp
         for (i, _, _, _), t in zip(forward, fwd_tasks):
             out[i] = await t
         return out  # type: ignore[return-value]
@@ -414,9 +490,11 @@ class V1Instance:
         """Whether GetRateLimits may run wire -> columns -> device with no
         request objects: every key local (no remote peer installed), no
         server-forced GLOBAL and no Store (whose read-through takes
-        request objects).  The transport takes the object path for a
-        batch with GLOBAL items, metadata or per-item errors."""
+        request objects), and no mesh GLOBAL engine.  The transport takes
+        the object path for a batch with GLOBAL items, metadata or
+        per-item errors."""
         return (self._standalone
+                and self.global_mesh is None
                 and not self.conf.behaviors.force_global
                 and self.conf.store is None)
 
@@ -531,6 +609,33 @@ class V1Instance:
             self.global_mgr.queue_hit(r)
             self.metrics.getratelimit_counter.labels(calltype="global").inc()
         return resps
+
+    async def _mesh_reconcile_loop(self) -> None:
+        """Drive the mesh engine's reconcile on the GlobalSyncWait cadence
+        (global.go:193-283's loops, one device step).  Every node on the
+        mesh runs this; the engine's min-interval gate collapses
+        concurrent callers into one step."""
+        loop = asyncio.get_running_loop()
+        while not self._closed:
+            await asyncio.sleep(self.conf.behaviors.global_sync_wait)
+            try:
+                await loop.run_in_executor(None, self._mesh_reconcile_once)
+            except Exception:
+                self.log.exception("global mesh reconcile failed")
+
+    def _mesh_reconcile_once(self) -> None:
+        """One cadence tick: reconcile, and export the deltas of the
+        engine's step counters that this call made (the engine is shared
+        by the nodes on the mesh)."""
+        eng = self.global_mesh
+        before = (eng.metric_reconcile_dispatches, eng.metric_dense_fallbacks)
+        if not eng.maybe_reconcile():
+            return
+        self.metrics.mesh_reconcile_count.inc()
+        self.metrics.mesh_reconcile_dispatches.inc(
+            max(0, eng.metric_reconcile_dispatches - before[0]))
+        self.metrics.mesh_dense_fallbacks.inc(
+            max(0, eng.metric_dense_fallbacks - before[1]))
 
     def _spawn_forward(self, peer, req: RateLimitRequest,
                        key: str) -> "asyncio.Task":
@@ -651,8 +756,10 @@ class V1Instance:
         relayed batch is processed here whatever the ring says (the
         reference's peer side, gubernator.go:497-536), so unlike the
         public gate this holds on a clustered node; GLOBAL, metadata and
-        error batches still take the object path."""
+        error batches still take the object path.  Off on a node with a
+        mesh GLOBAL engine."""
         return (self.conf.store is None
+                and self.global_mesh is None
                 and not self.conf.behaviors.force_global)
 
     async def get_peer_rate_limits_columns(self, cols: ReqColumns,
@@ -760,7 +867,15 @@ class V1Instance:
         """Install a new peer set (gubernator.go:616-711): reuse clients of
         unchanged peers, re-dial peers whose info changed, mark this
         node's own entry owner, drain removed peers, and hand the GLOBAL
-        keys this node owned to their new owners."""
+        keys this node owned to their new owners.
+
+        A node whose GLOBAL mesh was built from the knobs refuses any
+        peer but itself: the mesh lives in this process, so its GLOBAL
+        limits would be enforced per process across such a cluster."""
+        if self.owns_global_mesh and any(
+                p.grpc_address != self.conf.advertise_address
+                for p in peer_info):
+            raise ValueError(MESH_ALONE)
         local = self.local_picker.new()
         region = self.region_picker.new()
         replaced: list = []
@@ -870,6 +985,12 @@ class V1Instance:
             await asyncio.gather(*list(self._transfer_tasks),
                                  return_exceptions=True)
         await self.global_mgr.close(drain_timeout=self.conf.drain_timeout)
+        if self._mesh_task is not None:
+            self._mesh_task.cancel()
+            try:
+                await self._mesh_task
+            except (asyncio.CancelledError, Exception):
+                pass
         if self._forward_tasks:
             await asyncio.gather(*list(self._forward_tasks),
                                  return_exceptions=True)

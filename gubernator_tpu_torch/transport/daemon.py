@@ -38,6 +38,7 @@ from gubernator_tpu_torch.pb import gubernator_pb2 as pb
 from gubernator_tpu_torch.pb import peers_pb2 as peers_pb
 from gubernator_tpu_torch.resilience.supervisor import spawn_supervised
 from gubernator_tpu_torch.service.instance import (
+    MESH_ALONE,
     BatchTooLargeError,
     InstanceConfig,
     V1Instance,
@@ -345,7 +346,8 @@ def _json(msg) -> dict:
 class Daemon:
     """One running node: instance + listeners + discovery."""
 
-    def __init__(self, conf: DaemonConfig, engine=None):
+    def __init__(self, conf: DaemonConfig, engine=None, global_mesh=None,
+                 global_mesh_node: int = 0):
         if conf.peer_discovery_type not in DISCOVERY_TYPES:
             raise ValueError(
                 f"unknown peer discovery type {conf.peer_discovery_type!r}; "
@@ -354,6 +356,10 @@ class Daemon:
         self.metrics = Metrics()
         self.instance: Optional[V1Instance] = None
         self._engine = engine
+        # A shared MeshGlobalEngine (parallel/global_mesh.py) and this
+        # node's index on it: GLOBAL items ride the mesh, not the loops.
+        self._global_mesh = global_mesh
+        self._global_mesh_node = global_mesh_node
         self._grpc_server: Optional[grpc.aio.Server] = None
         self._http_runner: Optional[web.AppRunner] = None
         self._status_runner: Optional[web.AppRunner] = None
@@ -441,7 +447,13 @@ class Daemon:
                 self.tls.channel_credentials() if self.tls else None))
         iconf.data_center = (self.conf.data_center
                              or self.conf.config.data_center)
+        if self._global_mesh is not None:
+            iconf.global_mesh = self._global_mesh
+            iconf.global_mesh_node = self._global_mesh_node
         self.instance = await V1Instance.create(iconf, engine=self._engine)
+        if self.instance.owns_global_mesh \
+                and self.conf.peer_discovery_type != "none":
+            raise ValueError(MESH_ALONE)
         server.add_generic_rpc_handlers((
             v1_handler(V1Servicer(self.instance)),
             peers_handler(PeersServicer(self.instance)),

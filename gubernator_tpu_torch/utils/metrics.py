@@ -399,6 +399,26 @@ class Metrics:
             "gubernator_tpu_algorithm_requests",
             "Rate-limit items accepted for ticking, by algorithm.",
             ["algorithm"], registry=reg)
+        # GLOBAL mesh reconcile telemetry: steps this daemon drove, the
+        # reconcile programs those steps dispatched, and dense-fallback
+        # steps.  One dispatch a step is the normal case; 2 means an
+        # envelope overflow ran the dense fallback, so a sustained ratio
+        # near 2.0 means the sparse envelope is too small for the traffic.
+        self.mesh_reconcile_count = Counter(
+            "gubernator_tpu_mesh_reconcile_count",
+            "GLOBAL mesh reconcile steps driven by this daemon.",
+            registry=reg)
+        self.mesh_reconcile_dispatches = Counter(
+            "gubernator_tpu_mesh_reconcile_dispatches",
+            "Jitted mesh programs launched by this daemon's reconcile "
+            "steps (1 per fused sparse or dense step; +1 when an "
+            "envelope overflow runs the dense fallback).",
+            registry=reg)
+        self.mesh_dense_fallbacks = Counter(
+            "gubernator_tpu_mesh_dense_fallbacks",
+            "Sparse reconcile steps that overflowed the envelope and "
+            "fell back to the dense program.",
+            registry=reg)
         self.mesh_routed_windows = Counter(
             "gubernator_tpu_mesh_routed_windows",
             "Serving windows dispatched through the ragged flat tick "

@@ -278,10 +278,22 @@ async def test_transfer_ownership_on_a_ring_change(cluster):
 
 
 def test_unported_cluster_options_raise():
-    with pytest.raises(ValueError, match="GLOBAL mesh"):
-        asyncio.run(Cluster.start(1, global_mesh=True))
+    """Federation is not ported and raises; the GLOBAL mesh is (a 1-node
+    CPU mesh cluster starts, shares its engine and stops)."""
     with pytest.raises(ValueError, match="federation"):
         asyncio.run(Cluster.start(1, federation=True))
+
+    async def mesh_cluster():
+        c = await Cluster.start(1, global_mesh=True, tpu_platform="cpu",
+                                cache_size=64, tpu_max_batch=16)
+        try:
+            eng = c.daemons[0].instance.global_mesh
+            assert eng is not None and eng.n_nodes == 1
+            assert eng.device.type == "cpu" and eng.capacity == 64
+        finally:
+            await c.stop()
+
+    asyncio.run(mesh_cluster())
 
 
 # ----------------------------------------------------------------------

@@ -45,6 +45,9 @@ PORTED = {
     "GUBER_TPU_MAX_BATCH": {"GUBER_TPU_MAX_BATCH": "1024"},
     "GUBER_TPU_MESH_SHARDS": {"GUBER_TPU_MESH_SHARDS": "4"},
     "GUBER_TPU_PLATFORM": {"GUBER_TPU_PLATFORM": "cpu"},
+    "GUBER_TPU_GLOBAL_MESH": {"GUBER_TPU_GLOBAL_MESH_NODES": "4",
+                              "GUBER_TPU_GLOBAL_MESH_NODE": "2",
+                              "GUBER_TPU_GLOBAL_MESH_CAPACITY": "8192"},
     # The cluster, its resilience knobs, discovery and TLS.
     "GUBER_BATCH_TIMEOUT": {"GUBER_BATCH_TIMEOUT": "250ms"},
     "GUBER_DISABLE_BATCHING": {"GUBER_DISABLE_BATCHING": "1"},
@@ -120,6 +123,8 @@ INVALID = [
     {"GUBER_PEER_PICKER_HASH": "md5"},
     {"GUBER_PEER_PICKER": "round-robin"},
     {"GUBER_PEER_DISCOVERY_TYPE": "consul"},
+    {"GUBER_TPU_GLOBAL_MESH_CAPACITY": str((1 << 24) + 1)},
+    {"GUBER_TPU_GLOBAL_MESH_NODES": "many"},
 ]
 
 
@@ -235,3 +240,34 @@ def test_env_knob_reads_only_ported_knobs():
                            config.parse_duration, env) == 0.05
     for value in ("250ms", "2s", "1m", "100us", "0.5"):
         assert config.parse_duration(value) == jconfig.parse_duration(value)
+
+
+def test_global_mesh_capacity_guard(caplog):
+    """The reference's guard (tests/test_config.py:124-161): silent in the
+    envelope, a warning past 2^20, refused past 2^24, by the config
+    surface and by the engine's constructor."""
+    import logging
+
+    from gubernator_tpu_torch.parallel.global_mesh import MeshGlobalEngine
+
+    assert (config.GLOBAL_MESH_CAPACITY_SOFT,
+            config.GLOBAL_MESH_CAPACITY_HARD) == (
+        jconfig.GLOBAL_MESH_CAPACITY_SOFT, jconfig.GLOBAL_MESH_CAPACITY_HARD)
+    env = {**BASE, "GUBER_TPU_GLOBAL_MESH_CAPACITY": str(1 << 16)}
+    with caplog.at_level(logging.WARNING, logger="gubernator"):
+        config.setup_daemon_config(environ=env)
+    assert "GLOBAL_MESH_CAPACITY" not in caplog.text
+    soft = config.GLOBAL_MESH_CAPACITY_SOFT * 2
+    env["GUBER_TPU_GLOBAL_MESH_CAPACITY"] = str(soft)
+    with caplog.at_level(logging.WARNING, logger="gubernator"):
+        c = config.setup_daemon_config(environ=env)
+    assert c.config.tpu_global_mesh_capacity == soft
+    assert "GLOBAL_MESH_CAPACITY" in caplog.text
+    env["GUBER_TPU_GLOBAL_MESH_CAPACITY"] = str(
+        config.GLOBAL_MESH_CAPACITY_HARD * 2)
+    with pytest.raises(ValueError, match="GLOBAL_MESH_CAPACITY"):
+        config.setup_daemon_config(environ=env)
+    with pytest.raises(ValueError, match="GLOBAL_MESH_CAPACITY"):
+        MeshGlobalEngine(n_nodes=2,
+                         capacity=config.GLOBAL_MESH_CAPACITY_HARD * 2,
+                         device="cpu")

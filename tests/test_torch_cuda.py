@@ -20,7 +20,10 @@ an items round trip) against the CPU mesh, the
 tiered engine (Store, cold and SSD tiers) against the same engine on the
 CPU, background reclaim under concurrent ticks, and a 3-node cluster
 of card engines (against one of CPU engines on a seeded sequence, and
-GLOBAL counts reconciled exactly).  They import nothing of JAX, so
+GLOBAL counts reconciled exactly), and the GLOBAL mesh's kernels B.8a-
+B.8d at phase 9's shapes and on small meshes (odd node counts, padding
+lanes, overflowing probes) and a card ``MeshGlobalEngine`` against a CPU
+one on phase 9 D's sequence.  They import nothing of JAX, so
 they run where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -46,6 +49,9 @@ from gubernator_tpu_torch.types import GlobalUpdate, RateLimitResponse
 from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
 
 pytestmark = pytest.mark.cuda
+
+GLOBAL_KERNELS = ("global_accumulate", "global_dense_reconcile",
+                  "global_sparse_probe", "global_sparse_apply")
 
 # The unique-slot ticks' tile shapes (csrc/tile.cuh): one lane, the edges
 # of the one-thread-a-lane path (8 / 9 lanes) and of the 64-lane tile,
@@ -538,6 +544,8 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
     launches = gt.kernel_launches()
     assert launches.pop("fused_ragged_tick") == 0
     assert launches.pop("lease_apply") == 0  # no lease window here
+    for name in GLOBAL_KERNELS:  # no GLOBAL mesh here
+        assert launches.pop(name) == 0
     assert launches["fused_sorted_tick"] == eng.metric_sorted_ticks
     assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)
@@ -688,6 +696,8 @@ def test_mesh_engine_on_the_card_matches_the_cpu_engine(dev):
     assert launches.pop("fused_merged_tick") == 0
     assert launches.pop("fused_sorted_tick") == 0
     assert launches.pop("lease_apply") == 0  # the mesh has no lease columns
+    for name in GLOBAL_KERNELS:  # nor a GLOBAL mesh
+        assert launches.pop(name) == 0
     assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)
 
@@ -871,3 +881,135 @@ def test_lease_manager_on_the_card_matches_the_cpu_one(dev):
     out = cs.lease_compare(torch, dev)
     assert out["equal"]
     assert gt.kernel_launches()["lease_apply"] == out["lease_windows"] > 0
+
+
+# ----------------------------------------------------------------------
+# The GLOBAL mesh: kernels B.8a-B.8d and the engine
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("n,cap,per_node", [
+    (8, 1 << 16, 256), (8, 1 << 16, 1), (3, 96, 85), (8, 1 << 10, 32)])
+@pytest.mark.parametrize("touch", [False, True])
+def test_global_accumulate_matches_plain(dev, n, cap, per_node, touch):
+    """B.8a on sorted windows (global_mesh_8's at 8 x 2^16, a lane a node,
+    255 lanes over 3 nodes) and on a window with padding lanes."""
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    rng = np.random.default_rng(n * per_node + cap)
+    m = cs.gm_window(E, rng, n, cap, per_node, min(cs.GM_KEYS, cap))
+    pad = np.zeros((19, m.shape[1] + 7), np.int32)
+    pad[:, :m.shape[1]] = m
+    pad[E.REQ32_INDEX["slot"], m.shape[1]:] = n * cap
+    for win in (m, pad):
+        w = torch.from_numpy(win).to(dev)
+        aux = torch.zeros((n, 9, cap), dtype=torch.int64, device=dev)
+        acc = torch.zeros((n, 4, cap), dtype=torch.int64, device=dev)
+        ap, cp = aux.clone(), acc.clone()
+        gt.reset_kernel_launches()
+        for stamp in (1, 2):
+            GM.global_accumulate(w, aux, acc, n, stamp, touch)
+            GM.global_accumulate_plain(w, ap, cp, n, stamp, touch)
+        assert gt.kernel_launches()["global_accumulate"] == 2
+        assert torch.equal(aux, ap) and torch.equal(acc, cp)
+
+
+@pytest.mark.parametrize("n,cap", [(8, 1 << 16), (3, 96), (1, 64)])
+@pytest.mark.parametrize("strict", [True, False])
+def test_global_dense_reconcile_matches_plain(dev, n, cap, strict):
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    rng = np.random.default_rng(n + cap + strict)
+    table, aux, acc = cs.gm_random_buffers(torch, dev, rng, n, cap)
+    tp, cp = table.clone(), acc.clone()
+    GM.global_dense_reconcile(table, aux, acc, n, cs.NOW, strict)
+    GM.global_dense_reconcile_plain(tp, aux, cp, n, cs.NOW, strict)
+    assert torch.equal(table, tp) and torch.equal(acc, cp)
+    assert not acc.any()
+
+
+@pytest.mark.parametrize("n,cap,k,touched", [
+    (8, 1 << 22, 4096, 512 / (1 << 22)), (8, 1 << 16, 4096, 0.01),
+    (4, 256, 4, 0.1), (3, 96, 96, 0.5), (16, 16 << 10, 8, 0.05),
+    (16, 16 << 10, 4096, 0.05), (24, 24 << 10, 16, 0.02),
+    (24, 24 << 10, 4096, 0.02)])
+def test_global_sparse_probe_and_apply_match_plain(dev, n, cap, k, touched):
+    """B.8c's verdict, union size and union (as a set) and B.8d's rows and
+    accumulators against the plain versions, at phase 9's 8 x 2^22 with
+    ~512 union slots, on small meshes where the verdict overflows, and on
+    16- and 24-node meshes (3n counters past one warp) both ways.  An
+    overflowing union is applied whole, past the engine's 2nk lanes."""
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    rng = np.random.default_rng(n + cap + k)
+    if cap > 1 << 20:
+        table = torch.zeros((n * cap + 1, 16), dtype=torch.int64,
+                            device=dev)
+        aux = torch.zeros((n, 9, cap), dtype=torch.int64, device=dev)
+        acc = torch.zeros((n, 4, cap), dtype=torch.int64, device=dev)
+        u = torch.from_numpy(np.sort(rng.choice(cap, 512, replace=False)))
+        t2, a2, c2 = cs.gm_random_buffers(torch, dev, rng, n, 512, 1.0)
+        u = u.to(dev)
+        for d in range(n):
+            table[d * cap + u] = t2[d * 512:(d + 1) * 512]
+        aux[:, :, u] = a2
+        acc[:, :, u] = c2
+    else:
+        table, aux, acc = cs.gm_random_buffers(torch, dev, rng, n, cap,
+                                               touched)
+    out, slots, scratch = GM.probe_buffers(n, cap, dev)
+    po, ps, _ = GM.probe_buffers(n, cap, dev)
+    for _ in range(2):  # the scratch counters are zeroed each launch
+        GM.global_sparse_probe(acc, n, k, out, slots, scratch)
+    GM.global_sparse_probe_plain(acc, n, k, po, ps)
+    size = int(po[1])
+    assert torch.equal(out, po)
+    assert torch.equal(torch.sort(slots[:size]).values, ps[:size])
+    tp, cp = table.clone(), acc.clone()
+    GM.global_sparse_apply(table, aux, acc, n, slots, out,
+                           cap if int(po[0]) else min(cap, 2 * n * k), cs.NOW)
+    GM.global_sparse_apply_plain(tp, aux, cp, n, ps, po, cs.NOW)
+    assert torch.equal(table, tp) and torch.equal(acc, cp)
+
+
+@pytest.mark.parametrize("n", [16, 24])
+def test_global_sparse_probe_verdict_at_its_edge(dev, n):
+    """B.8c's verdict where one count decides it: the envelope one below
+    and at the least k that does not overflow, on 16- and 24-node meshes
+    of 4096 slots a node (the 3n counters span warps, hundreds of blocks
+    finish in any order), 50 launches each, every verdict and union size
+    equal to the plain version's."""
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    cap = n << 12
+    rng = np.random.default_rng(n)
+    _, _, acc = cs.gm_random_buffers(torch, dev, rng, n, cap, 0.03)
+    w = acc[:, GM.ACC_COUNT] > 0
+    t = acc[:, GM.ACC_TOUCH] > 0
+    share = (w | t).any(dim=0).view(n, cap // n).sum(dim=1)
+    edge = max(int(w.sum(dim=1).max()), int(t.sum(dim=1).max()),
+               (int(share.max()) + 1) // 2)
+    out, slots, scratch = GM.probe_buffers(n, cap, dev)
+    for k, over in ((edge - 1, 1), (edge, 0)):
+        po, ps, _ = GM.probe_buffers(n, cap, dev)
+        GM.global_sparse_probe_plain(acc, n, k, po, ps)
+        assert int(po[0]) == over
+        seen = []
+        for _ in range(50):
+            GM.global_sparse_probe(acc, n, k, out, slots, scratch)
+            seen.append(out.clone())
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, po) for o in seen), (k, seen[:3], po)
+
+
+def test_global_mesh_card_engine_matches_the_cpu_engine(dev):
+    """Phase 9 D's seeded sequence: 4 nodes at 2^14 slots, sparse_k 64 and
+    0, responses and every replica's fields equal after every step."""
+    from gubernator_tpu_torch import types
+
+    gt.reset_kernel_launches()
+    out = cs.global_compare(torch, dev, types)
+    assert out["sparse_k_64"]["dense_fallbacks"] > 0
+    launches = gt.kernel_launches()
+    for name in GLOBAL_KERNELS + ("scatter_rows", "gather_rows",
+                                  "fused_sorted_tick"):
+        assert launches[name] > 0, name
+    assert launches["fused_merged_tick"] == 0

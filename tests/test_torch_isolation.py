@@ -27,6 +27,7 @@ from gubernator_tpu_torch.ops.fusedtick import fused_tick
 from gubernator_tpu_torch.ops.leasecols import lease_apply
 from gubernator_tpu_torch.ops.raggedtick import fused_ragged_tick
 from gubernator_tpu_torch.ops.sortedtick import fused_sorted_tick
+from gubernator_tpu_torch.parallel.global_mesh import MeshGlobalEngine
 from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
 from gubernator_tpu_torch.types import (
     GlobalUpdate, RateLimitRequest, RateLimitResponse)
@@ -85,7 +86,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "gubernator_tpu_torch.ops.leasecols",
             "gubernator_tpu_torch.client",
             "gubernator_tpu_torch.cmd.cli",
-            "gubernator_tpu_torch.cmd.healthcheck"} <= set(mods)
+            "gubernator_tpu_torch.cmd.healthcheck",
+            "gubernator_tpu_torch.ops.globalmesh",
+            "gubernator_tpu_torch.parallel.global_mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -129,6 +132,8 @@ def test_no_device_means_the_card_and_raises_without_one():
         TickEngine(capacity=16, max_batch=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MeshTickEngine(n_shards=2, local_capacity=8, max_batch=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MeshGlobalEngine(n_nodes=2, capacity=16)
     with pytest.raises(RuntimeError):
         table_from_columns({"limit": np.zeros(2, np.int64)}, 4)
     assert gt.resolve_device("cpu") == torch.device("cpu")
@@ -172,10 +177,26 @@ def test_cpu_tensors_take_the_plain_paths_and_launch_no_kernel():
     mesh.process(more[:16], now=1_700_000_000_006)     # unique: ragged tick
     assert mesh.metric_rank_rounds > 0
     assert mesh.metric_unexpired_evictions > 0
+    # The GLOBAL mesh: a window with repeats (the chained tick), a sparse
+    # step and an overflowing one (the dense fallback), and an eviction.
+    gmesh = MeshGlobalEngine(n_nodes=2, capacity=16, max_batch=16,
+                             sparse_k=2, device="cpu")
+    greqs = [RateLimitRequest(name="iso", unique_key=f"g{i % 5}", hits=1,
+                              limit=3, duration=60_000, behavior=2)
+             for i in range(8)]
+    gmesh.process_blocks([greqs[:2], greqs[2:4]], now=1_700_000_000_007)
+    gmesh.reconcile(now=1_700_000_000_008)
+    gmesh.process_blocks([greqs, greqs], now=1_700_000_000_009)
+    gmesh.reconcile(now=1_700_000_000_010)
+    gmesh.evict(np.array([0]))
+    assert gmesh.metric_sorted_windows == 1
+    assert gmesh.metric_dense_fallbacks == 1
     assert gt.kernel_launches() == {
         "fused_tick": 0, "fused_merged_tick": 0, "fused_ragged_tick": 0,
         "fused_sorted_tick": 0, "gather_rows": 0, "scatter_rows": 0,
-        "lease_apply": 0}
+        "lease_apply": 0, "global_accumulate": 0,
+        "global_dense_reconcile": 0, "global_sparse_probe": 0,
+        "global_sparse_apply": 0}
 
 
 def test_wrappers_refuse_tensors_on_other_devices():
@@ -281,7 +302,7 @@ def test_instance_and_daemon_without_a_platform_raise_without_a_card():
         Daemon(config.DaemonConfig(peer_discovery_type="consul"))
     from gubernator_tpu_torch.cluster import Cluster
 
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         asyncio.run(Cluster.start(1, global_mesh=True))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         asyncio.run(Cluster.start(1))
