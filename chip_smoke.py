@@ -41,7 +41,11 @@ Phases, one output line each:
    their lanes is one link of a segment's chain (``link_us`` by class;
    ``longest_chain_ms``: the longest segment's links at the mixed rate, a
    chain length measured in this kernel, not a bound), with its build's
-   chunk, shared memory and ``ptxas`` registers and spills.
+   chunk, shared memory and ``ptxas`` registers and spills; and the
+   mesh's duplicate tile tick (B.6) on phase 4's herd window (32768
+   Zipf(1.2) lanes over 8 x 1.25M slots) and on a 4096-lane window whose
+   runs cross the walk's chunk boundaries (8 x 2^14 random rows), bit
+   for bit with its rank rounds, timed beside its plain version.
    ``--against CHECKOUT`` times that checkout's tick kernels, B.5
    included, and its row gather at every sweep shape in turns with these
    (``against_ms``, the gather's ``against_share``);
@@ -67,11 +71,13 @@ Phases, one output line each:
    shard 0), then a prefill of every shard to capacity (10M keys), 32
    pipelined unique windows (decisions/s and the host split: CRC-32
    routing, per-shard resolve, packing, sort), a Zipf(1.2) herd of the
-   prefill's token requests (the merge tick, checked against the scalar
-   token-bucket model), a skewed unique window of 32768 keys on shard 0
-   and a window of fresh keys (per-shard reclaim).  A unique window and
-   the skewed window must each take one ``fused_ragged_tick`` launch and
-   no other; every path reports its launches.  Then the mesh's state
+   prefill's token requests (one ``mesh_tile_tick`` launch, checked
+   against the scalar token-bucket model), a skewed unique window of
+   32768 keys on shard 0 and a window of fresh keys (per-shard reclaim).
+   A unique window and the skewed window must each take one
+   ``fused_ragged_tick`` launch and no other, a window with repeated keys
+   one ``mesh_tile_tick`` launch and no other; every path reports its
+   launches.  Then the mesh's state
    paths on fresh meshes of the same size, each held against a CPU mesh
    of 8 x 2^17 slots on a seeded sequence: 4096 GLOBAL installs over
    every shard (one scatter a STATE_CHUNK; installed keys answer alike),
@@ -168,6 +174,19 @@ Phases, one output line each:
    five algorithms, negative hits, RESET, overdraw, evictions,
    overflowing steps).
 
+10. live resharding (the reference's ``reshard_live`` rung): phase 4's
+   mesh (8 x 1.25M slots) prefilled with 10M keys at the wall clock,
+   behind a ``TickLoop``; a load thread sends 4096-wide Zipf(1.2)
+   windows while a ``ReshardCoordinator`` runs 8 -> 4 -> 8.  Per
+   transition: committed, ``state_loss``, ``double_served``,
+   ``parity_errors`` (all 0), an independent sweep of 65536 keys the
+   load thread never sends (rows equal, each key where its route puts it),
+   seconds, frozen seconds, the p99 of windows served while it ran, the
+   retriable sheds, the B.2 launches and the card's peak allocated bytes.
+   Part B: a card mesh and a CPU mesh of 8 x 2^14 slots, filled, on the
+   same windows and transitions (8 -> 4 -> 8 -> 3 -> 8), equal answers,
+   tables and slot maps after every step.
+
 Phase 2 also times one launch of an empty kernel (``empty_launch_ms``,
 ``csrc/empty.cu``) and B.9, the lease-column window
 (``csrc/lease_apply.cu``), on set and delta windows of 4096 and 65536
@@ -178,7 +197,7 @@ GLOBAL mesh's kernels bit for bit against their plain versions: B.8a
 global_mesh_8's windows, B.8c (sparse probe) and B.8d (sparse apply) at
 8 x 2^22 with 512 union slots (a reconcile consumes its accumulators, so
 B.8b and B.8d are timed with a restore before each call and the
-restore's own time taken off).  Phases 3-9 also report each path's tick and lease-window launches by lane
+restore's own time taken off).  Phases 3-10 also report each path's tick and lease-window launches by lane
 width (``launches_by_width``, power-of-two buckets), summed over them on
 the ``launch_widths`` line.  Then the kernel table as one JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -591,6 +610,84 @@ def ragged_window(engine_mod, rng, n_shards: int, local_capacity: int,
     return m, offsets, n
 
 
+# Windows of the mesh's duplicate tile tick (B.6): their kinds (a mixed
+# Zipf window, one key over a whole extent, runs that cross the walk's
+# chunk boundaries, every lane on shard 0, RESET rows, expired heads,
+# invalid lanes inside the extents, and one algorithm each).
+TILE_KINDS = ("mixed", "herd", "cross", "skewed", "reset", "expired",
+              "invalid") + ALGORITHMS
+
+
+def tile_window(engine_mod, rng, n_shards: int, local_capacity: int,
+                lanes: int, state: dict, kind: str = "mixed"):
+    """A slot-sorted (19, lanes) window of GLOBAL slots whose slots repeat,
+    for the mesh's duplicate tile tick over ``n_shards`` shards of
+    ``local_capacity`` slots, and the walk's chunk width
+    (``choose_tile``).  Runs of one slot (Zipf(1.2) over the table, one
+    slot for the whole live window with ``herd``, runs of half a chunk to
+    two chunks with ``cross``, all on shard 0 with ``skewed``) carry
+    random requests over all five algorithms and flags, or (most runs)
+    their head's request on every lane, known, so that their groups fold;
+    ``reset`` puts RESET_REMAINING on a share of lanes, ``expired``
+    expires the stored rows and dates the requests before now, ``invalid``
+    clears ``valid`` on a few lanes inside the extents, an algorithm kind
+    gives every lane that algorithm.  The last ``lanes // 16`` lanes are
+    padding past every extent.  Returns ``(m, offsets, tile)``."""
+    from gubernator_tpu_torch.ops.raggedtick import choose_tile
+
+    L = local_capacity
+    cap = n_shards * L
+    tile = choose_tile(lanes, n_shards)
+    n = lanes - lanes // 16
+    if kind == "herd":
+        slots = np.full(n, rng.integers(0, cap))
+    elif kind == "cross":
+        runs, total = [], 0
+        while total < n:
+            runs.append(int(rng.integers(max(1, tile // 2), 2 * tile + 2)))
+            total += runs[-1]
+        heads = np.sort(rng.choice(cap, len(runs), replace=False))
+        slots = np.repeat(heads, runs)[:n]
+    elif kind == "skewed":
+        slots = np.sort((rng.zipf(1.2, n) - 1) % L)
+    else:
+        slots = np.sort((rng.zipf(1.2, n) - 1) % cap)
+    req = random_requests(rng, n)
+    start = np.ones(n, bool)
+    start[1:] = slots[1:] != slots[:-1]
+    head = np.maximum.accumulate(np.where(start, np.arange(n), 0))
+    same = (rng.random(n) < 0.8)[head]   # a run's head decides
+    hits = req["hits"]
+    hits[start] = np.where(hits[start] > 0, hits[start], 1 + slots[start] % 3)
+    req["algorithm"][start] = np.where(same[start], slots[start] % 2,
+                                       req["algorithm"][start])
+    req["behavior"][start & same] &= ~(8 | 4)
+    for f in ("hits", "limit", "duration", "algorithm", "behavior",
+              "created_at", "burst"):
+        req[f] = np.where(same, req[f][head], req[f])
+    req["known"] = np.where(same & ~start, True, req["known"])
+    req["greg_exp"] = np.where(same, 0, req["greg_exp"])
+    req["greg_dur"] = np.where(same, 0, req["greg_dur"])
+    if kind == "reset":
+        req["behavior"] |= np.where(rng.random(n) < 0.05, 8, 0)
+    elif kind == "expired":
+        state["expire_at"][slots] = NOW - rng.integers(1, 5_000, n)
+        req["created_at"] = np.where(same, NOW - 1_000,
+                                     NOW - rng.integers(1, 9_000, n))
+        req["duration"] = np.where(req["duration"][head] == 0, 0,
+                                   rng.choice([500, 1_000], n)[head])
+    elif kind in ALGORITHMS:
+        req["algorithm"][:] = ALGORITHMS.index(kind)
+    m = _pack(engine_mod, cap, lanes, slots, req)
+    if kind == "invalid":
+        m[engine_mod.REQ32_INDEX["valid"], rng.choice(n, 1 + n // 64,
+                                                      replace=False)] = 0
+    counts = np.bincount(slots // L, minlength=n_shards)
+    offsets = np.zeros(n_shards + 1, np.int32)
+    offsets[1:] = np.cumsum(counts)
+    return m, offsets, tile
+
+
 def key_blob(prefix: bytes, ids) -> tuple[bytes, np.ndarray]:
     """Fixed-width keys ``prefix + 8 decimal digits``, built without a
     per-key Python loop."""
@@ -987,6 +1084,139 @@ def ragged_entry(torch, dev, rng, lanes: int, table_slots: int,
     return e
 
 
+# The mesh's duplicate tile tick (B.6) in phase 2: phase 4's mesh (8
+# shards of 1.25M slots) and herd window width, and a smaller mesh for the
+# window whose runs cross the walk's chunk boundaries (its plain version
+# runs a rank round for each lane of a chain).
+TILE_SHARDS, TILE_LOCAL, TILE_LANES = 8, 1_250_000, 32768
+TILE_CROSS_LOCAL, TILE_CROSS_LANES = 1 << 14, 4096
+# int32 operations of a follower answered in closed form
+# (csrc/mesh_tile_tick.cuh fold_answer: ~40 int64 operations, a float64
+# division left out): an estimate.
+TILE_FOLD_INT32_OPS_PER_LANE = 80
+
+
+def herd_tile_window(engine_mod, rng, n_shards: int, local_capacity: int,
+                     lanes: int):
+    """Phase 4's mesh herd as the tile tick gets it: Zipf(1.2) keys, each
+    at a random global slot of the table, every request the prefill's
+    token request (one hit on a one-hour bucket of 100), known,
+    server-stamped at NOW.  Returns ``(m, offsets, slots)`` with the
+    distinct slots."""
+    cap = n_shards * local_capacity
+    rank = rng.zipf(1.2, lanes) - 1
+    uniq, inv = np.unique(rank, return_inverse=True)
+    slot_of = rng.choice(cap, len(uniq), replace=False)
+    slots = np.sort(slot_of[inv])
+    one = np.ones(lanes, np.int64)
+    req = {"known": one.astype(bool), "algorithm": one * 0,
+           "behavior": one * 0, "hits": one, "limit": one * 100,
+           "duration": one * 3_600_000, "created_at": one * NOW,
+           "burst": one * 0, "greg_exp": one * 0, "greg_dur": one * 0}
+    m = _pack(engine_mod, cap, lanes, slots, req)
+    counts = np.bincount(slots // local_capacity, minlength=n_shards)
+    offsets = np.zeros(n_shards + 1, np.int32)
+    offsets[1:] = np.cumsum(counts)
+    return m, offsets, np.unique(slots)
+
+
+def tile_entry(torch, dev, rng, rotate: int = 4):
+    """Kernel B.6, the mesh's duplicate tile tick, held bit for bit against
+    its plain version (the tile walk through the plain merge tick, on the
+    card's tensors): responses, table and rank rounds, on phase 4's herd
+    window (32768 lanes over 8 x 1.25M slots whose touched rows hold the
+    prefill's token buckets) and on a window whose runs cross the walk's
+    chunk boundaries (4096 lanes of tile_window's ``cross`` kind over
+    8 x 2^14 random rows).  Timed on both (the herd rotating over
+    ``rotate`` windows); the bound counts each lane's request and
+    response, each distinct slot's row read and written, a transition a
+    distinct slot and a closed-form answer for every other lane.  No
+    library call computes it."""
+    from gubernator_tpu_torch.carry import sharded_table_from_columns
+    from gubernator_tpu_torch.ops import engine as E
+    from gubernator_tpu_torch.ops.raggedtick import choose_tile
+    from gubernator_tpu_torch.ops.tiletick import (
+        mesh_tile_tick, mesh_tile_tick_plain)
+
+    n, L, lanes = TILE_SHARDS, TILE_LOCAL, TILE_LANES
+    herds = [herd_tile_window(E, rng, n, L, lanes) for _ in range(rotate)]
+    touched = np.unique(np.concatenate([h[2] for h in herds]))
+    table = torch.zeros((n * (L + 1), 16), dtype=torch.int64, device=dev)
+    k = len(touched)
+    prefill = np.zeros((k, 16), np.int64)
+    for f, v in (("algorithm", 0), ("limit", 100), ("remaining", 99),
+                 ("duration", 3_600_000), ("created_at", NOW - 1_000),
+                 ("expire_at", NOW + 3_599_000), ("in_use", 1)):
+        prefill[:, E.WORD[f]] = v
+    flat = touched + touched // L
+    table[torch.from_numpy(flat).to(dev)] = torch.from_numpy(prefill).to(dev)
+    tile = choose_tile(lanes, n)
+
+    crng = np.random.default_rng(SEED + 7)
+    cstate = random_state(crng, n * TILE_CROSS_LOCAL)
+    cm, coffs, ctile = tile_window(E, crng, n, TILE_CROSS_LOCAL,
+                                   TILE_CROSS_LANES, cstate, "cross")
+    ctable = sharded_table_from_columns(cstate, n, TILE_CROSS_LOCAL, dev)
+
+    def check(tbl, m, offs, local, tl, what):
+        mt = torch.from_numpy(m).to(dev)
+        ot = torch.from_numpy(offs).to(dev)
+        t_k, t_p = tbl.clone(), tbl.clone()
+        r_k = torch.zeros(1, dtype=torch.int64, device=dev)
+        r_p = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = mesh_tile_tick(t_k, mt, ot, n, local, tl, NOW, r_k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = mesh_tile_tick_plain(t_p, mt, ot, n, local, tl, NOW, r_p,
+                                    torch.empty_like(got))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(_max_abs(torch, got, want), _max_abs(torch, t_k, t_p))
+        assert torch.equal(got, want), f"mesh_tile_tick {what}: response"
+        assert torch.equal(t_k, t_p), f"mesh_tile_tick {what}: table"
+        assert int(r_k) == int(r_p), f"mesh_tile_tick {what}: rank rounds"
+        del t_k, t_p
+        return err, plain_ms, int(r_p), (mt, ot)
+
+    err, plain_ms, rounds, _ = check(table, *herds[0][:2], L, tile, "herd")
+    cerr, cplain_ms, crounds, cdev = check(ctable, cm, coffs,
+                                           TILE_CROSS_LOCAL, ctile, "cross")
+    work = table.clone()
+    dwins = [(torch.from_numpy(m).to(dev), torch.from_numpy(o).to(dev))
+             for m, o, _ in herds]
+    resps = [torch.empty((6, lanes), dtype=torch.int32, device=dev)
+             for _ in range(rotate)]
+    cnt = torch.zeros(1, dtype=torch.int64, device=dev)
+    ms = time_ms(torch, [lambda x=x, r=r: mesh_tile_tick(
+        work, *x, n, L, tile, NOW, cnt, out=r) for x, r in zip(dwins, resps)])
+    cwork = ctable.clone()
+    cms = time_ms(torch, lambda: mesh_tile_tick(
+        cwork, *cdev, n, TILE_CROSS_LOCAL, ctile, NOW, cnt))
+    distinct = len(herds[0][2])
+
+    def work_of(d, w):
+        return w * (76 + 24) + d * 256 + (n + 1) * 4, (
+            d * FUSED_TICK_INT32_OPS_PER_LANE
+            + (w - d) * TILE_FOLD_INT32_OPS_PER_LANE)
+
+    e = _entry("mesh_tile_tick", "gubernator_tpu_torch/csrc/mesh_tile_tick.cu",
+               "gubernator_tpu/ops/engine.py:1139", max(err, cerr), ms,
+               plain_ms, None, *work_of(distinct, lanes))
+    e["herd"] = {"lanes": lanes, "distinct_slots": distinct, "tile": tile,
+                 "longest_run": int(np.unique(
+                     herds[0][0][E.REQ32_INDEX["slot"]],
+                     return_counts=True)[1].max()),
+                 "rank_rounds": rounds, "touched_rows": k}
+    cd = int(len(np.unique(cm[E.REQ32_INDEX["slot"], :int(coffs[-1])])))
+    cb, co = work_of(cd, TILE_CROSS_LANES)
+    e["cross"] = {"lanes": TILE_CROSS_LANES, "shards": n,
+                  "local_capacity": TILE_CROSS_LOCAL, "tile": ctile,
+                  "distinct_slots": cd, "rank_rounds": crounds, "ms": cms,
+                  "plain_ms": cplain_ms, **_bound(cb, co)}
+    e["checked"] = ["herd", "cross"]
+    return e
+
+
 # Lanes of the one-segment windows phase 2 times the chained duplicate
 # tick on: its time over these lanes is one link of a segment's chain.
 CHAIN_LANES = 4096
@@ -1259,6 +1489,10 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
         against)
     out["fused_ragged_tick"] = ragged_entry(torch, dev, rng, lanes,
                                             table_slots, rotate, against)
+    # Its own generator: the draws of the other kernels' inputs stay
+    # those of earlier runs.
+    out["mesh_tile_tick"] = tile_entry(torch, dev,
+                                       np.random.default_rng(SEED + 8))
     out["gather_rows"] = check_gather(slot_sets(lanes), str(lanes))
     rows = torch.from_numpy(
         rng.integers(-2**62, 2**62, (lanes, 16)).astype(np.int64)).to(dev)
@@ -1993,6 +2227,9 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
                 == ref.metric_rank_rounds - r0[1]), name
         if name in ("unique", "revisit", "skewed"):
             only_ragged("compare_" + name)
+        else:   # duplicates: one mesh_tile_tick launch, no rank round
+            got = launches["compare_" + name]
+            assert got["mesh_tile_tick"] == sum(got.values()) == 1, got
     L_ref = ref_local_capacity
     for s in range(n_shards):
         mapped = ref.slots[s].mapped_mask()
@@ -2079,9 +2316,10 @@ def mesh_phase(torch, dev, n_shards=8, local_capacity=1_250_000,
     np.testing.assert_array_equal(mat[[0, 2, 3]], want, err_msg="mesh herd")
     info["herd_unique_keys"] = int(len(np.unique(hids)))
     info["herd_rank_rounds"] = eng.metric_rank_rounds - r0
+    # One mesh_tile_tick launch and nothing else.
     got = launches["herd"]
-    assert got["fused_ragged_tick"] == 0 and got["fused_tick"] >= 1
-    assert got["gather_rows"] >= 1 and got["scatter_rows"] >= 1
+    assert got["mesh_tile_tick"] == sum(got.values()) == 1, got
+    info["herd_launches"] = {k: v for k, v in got.items() if v}
 
     # Every key of one window on shard 0: one extent covers the batch.
     shard0 = ids[shard_of(b"p", ids) == 0]
@@ -2595,7 +2833,8 @@ def tier_phase(torch, dev, root: str, capacity=10_000_000, width=32768,
     background reclaim at its default (on at this size): eight probe keys
     take ``PROBE_HITS`` of ``PROBE_LIMIT``; ``prefill_windows`` windows of
     fresh keys fill a working set of ``prefill_windows * width`` keys (1.5x
-    the table: hot, cold and SSD); ``windows`` churn windows of distinct
+    the table: hot, cold and SSD); top-up windows of keys outside it until
+    the free slots are under the reclaim watermark; ``windows`` churn windows of distinct
     keys drawn uniformly from it (each a B.1 window); the probes again with
     hits 0.  Every answer is the key's exact count (continuity through the
     tiers), one promote scatter a window, no SSD read on the tick path, no
@@ -2643,6 +2882,21 @@ def tier_phase(torch, dev, root: str, capacity=10_000_000, width=32768,
                 assert not errs and (mat[2] == TOKEN_LIMIT - 1).all()
         info["prefill_s"] = time.perf_counter() - t0
         info["working_set"] = ws
+        # The churn must evict.  A sync reclaim late in the prefill frees
+        # capacity // 16 slots, more than the churn's promotions take, so
+        # fresh keys outside the working set bring the free count under
+        # the reclaim watermark first.  The churn starts with at most
+        # 2 * _reclaim_low free slots (a background round's refill) and
+        # its promotions cross the watermark again.
+        fill = 0
+        with counted(torch, launches, "top_up", widths):
+            while eng.capacity - len(eng.slots) >= eng._reclaim_low:
+                ids = np.arange(ws + fill * width, ws + (fill + 1) * width)
+                mat, errs = eng.process_columns(
+                    token_columns(reqcols, b"w", ids), now + 1)
+                assert not errs and (mat[2] == TOKEN_LIMIT - 1).all()
+                fill += 1
+        info["top_up_windows"] = fill
         info["after_prefill"] = {"hot": eng.cache_size(),
                                  "cold": eng.cold_size(),
                                  "ssd": len(eng.ssd)}
@@ -4652,6 +4906,317 @@ def global_phase(torch, dev, grpc_converge_ms=None):
     return info, total
 
 
+# Phase 10: live resharding of phase 4's mesh (8 x 1.25M slots, 10M keys)
+# behind a tick loop, the reference's reshard_live rung at a deployment's
+# size; 4096-wide Zipf(1.2) windows from a load thread; 8 -> 4 -> 8.
+RESHARD_SHARDS, RESHARD_LOCAL = 8, 1_250_000
+RESHARD_WIDTH = 4096
+RESHARD_STEPS = (4, 8)
+RESHARD_SWEEP = 1 << 16        # keys the load never sends, swept around
+RESHARD_SETTLE_S = 1.0         # load before each transition
+RESHARD_BACKOFF_S = 0.01       # the load's wait after a retriable shed
+# Part B: the card mesh against the CPU one at 8 x 2^14, filled.
+RESHARD_COMPARE_LOCAL = 1 << 14
+RESHARD_COMPARE_STEPS = (4, 8, 3, 8)
+
+
+def wall_ms() -> int:
+    return int(time.time() * 1000)
+
+
+def route_ids(prefix: bytes, n_shards: int, need) -> np.ndarray:
+    """Sorted ids whose keys ``prefix + id`` fill each shard s with
+    ``need[s]`` keys by their CRC-32 route."""
+    from gubernator_tpu_torch.native import crc32_batch
+
+    cand = np.arange(int(sum(need) * 1.05) + 4096)
+    sh = (crc32_batch(*key_blob(prefix, cand))
+          % np.uint32(n_shards)).astype(np.int64)
+    ids = np.sort(np.concatenate(
+        [cand[sh == s][:need[s]] for s in range(n_shards)]))
+    assert len(ids) == sum(need)
+    return ids
+
+
+def prefill_mesh(reqcols, eng, prefix: bytes, ids, chunk: int) -> float:
+    """Every key ``prefix + id`` gets one token hit on a one-hour bucket of
+    100 at the wall clock; returns the seconds it took."""
+    from gubernator_tpu_torch.ops.engine import resolve_ticks
+
+    t0 = time.perf_counter()
+    pending = []
+    for a in range(0, len(ids), chunk):
+        pending.append(eng.submit_columns(herd_columns(
+            reqcols, prefix, ids[a:a + chunk], token_prefill=True)))
+        if len(pending) == 4:
+            resolve_ticks(pending)
+            for h in pending:
+                mat, errs = h.result()
+                assert not errs and (mat[2] == 99).all()
+            pending = []
+    resolve_ticks(pending)
+    for h in pending:
+        mat, errs = h.result()
+        assert not errs and (mat[2] == 99).all()
+    return time.perf_counter() - t0
+
+
+def sweep_rows(eng, prefix: bytes, ids) -> np.ndarray:
+    """The rows of keys ``prefix + id`` where their CRC-32 route and the
+    route's slot map place them, through the gather kernel; -1 rows for a
+    key that is not there."""
+    from gubernator_tpu_torch.native import crc32_batch
+    from gubernator_tpu_torch.ops.engine import gather_chunked
+    from gubernator_tpu_torch.ops.reqcols import compact_blob
+
+    blob, off = key_blob(prefix, ids)
+    sh = (crc32_batch(blob, off) % np.uint32(eng.n_shards)).astype(np.int64)
+    g = np.full(len(ids), -1, np.int64)
+    for d in range(eng.n_shards):
+        at = np.flatnonzero(sh == d)
+        if len(at):
+            loc = eng.slots[d].lookup_blob(*compact_blob(blob, off, at))
+            g[at] = np.where(loc >= 0, d * eng.local_capacity + loc, -1)
+    rows = np.full((len(ids), 16), -1, np.int64)
+    ok = g >= 0
+    rows[ok] = gather_chunked(eng.table, g[ok] + g[ok] // eng.local_capacity)
+    return rows
+
+
+def reshard_compare(torch, dev, reqcols, rng, local: int, steps,
+                    width: int) -> dict:
+    """Part B: a card mesh and a CPU mesh of 8 x ``local`` slots, filled to
+    capacity, fed the same windows (a Zipf(1.2) herd and a Zipf window of
+    random requests) at the same now, resharded through ``steps`` at the
+    same now: equal answers, tables, slot maps and reclaim stamps after
+    every step."""
+    from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
+
+    engs = [MeshTickEngine(RESHARD_SHARDS, local, max_batch=width, device=d)
+            for d in (dev, "cpu")]
+    ids = route_ids(b"q", RESHARD_SHARDS, [local] * RESHARD_SHARDS)
+    now = NOW
+    for a in range(0, len(ids), width):
+        cols = window_columns(reqcols, rng, b"q", ids[a:a + width], now,
+                              prefill=True)
+        outs = [e.process_columns(cols, now) for e in engs]
+        np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    out = {"keys": int(len(ids)), "steps": list(steps), "live_items": [],
+           "compared": 0}
+
+    def same():
+        card, cpu = engs
+        assert torch.equal(card.table.cpu(), cpu.table), "part B tables"
+        for a, b in zip(card.slots, cpu.slots):
+            ka = a.keys_blob(np.arange(card.local_capacity))
+            kb = b.keys_blob(np.arange(cpu.local_capacity))
+            assert ka[0] == kb[0] and np.array_equal(ka[1], kb[1]), \
+                "part B slot maps"
+        np.testing.assert_array_equal(card._last_access, cpu._last_access)
+        out["compared"] += 1
+
+    for n_to in steps:
+        for kind in ("herd", "mixed"):
+            now += 700
+            pick = ids[(rng.zipf(1.2, width) - 1) % len(ids)]
+            cols = (herd_columns(reqcols, b"q", pick, token_prefill=True)
+                    if kind == "herd" else
+                    window_columns(reqcols, rng, b"q", pick, now))
+            (ga, ea), (gb, eb) = [e.process_columns(cols, now) for e in engs]
+            np.testing.assert_array_equal(ga, gb, err_msg=f"part B {kind}")
+            assert ea == eb
+        infos = [e.reshard(n_to, now=now + 10) for e in engs]
+        assert infos[0] == infos[1]
+        out["live_items"].append(infos[0]["live_items"])
+        same()
+    out["rank_rounds"] = [e.metric_rank_rounds for e in engs]
+    assert out["rank_rounds"][0] == out["rank_rounds"][1]
+    return out
+
+
+def reshard_phase(torch, dev, n_shards=RESHARD_SHARDS,
+                  local_capacity=RESHARD_LOCAL, width=RESHARD_WIDTH,
+                  prefill_width=32768, steps=RESHARD_STEPS,
+                  sweep=RESHARD_SWEEP, settle_s=RESHARD_SETTLE_S,
+                  compare_local=RESHARD_COMPARE_LOCAL,
+                  compare_steps=RESHARD_COMPARE_STEPS):
+    """Phase 10, live resharding (the reference's ``reshard_live`` rung).
+    A: phase 4's mesh prefilled to capacity at the wall clock, behind a
+    ``TickLoop``; a load thread sends ``width``-wide Zipf(1.2) windows
+    of the prefill's token request over the first half of the keys while
+    a ``ReshardCoordinator`` runs ``steps`` (8 -> 4 -> 8).  Per
+    transition: its outcome and verify counts, an independent sweep of
+    ``sweep`` keys of the other half (rows equal before and after, every
+    key where its route puts it), its seconds, the frozen seconds, the
+    p99 of load windows answered while it ran (ticked or shed) and of
+    those ticked, the retriable sheds, the B.2 launches, and the card's
+    peak allocated bytes.  B: part B
+    (reshard_compare).  Returns ``(info, launches summed over the
+    phase's paths)``."""
+    import threading
+
+    import gubernator_tpu_torch as gt
+    from gubernator_tpu_torch.admission import SHED_RESHARD_MSG
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
+    from gubernator_tpu_torch.parallel.reshard import ReshardCoordinator
+    from gubernator_tpu_torch.persistence import TransitionLog
+    from gubernator_tpu_torch.service.tickloop import TickLoop
+    from gubernator_tpu_torch.utils.metrics import Metrics
+
+    rng = np.random.default_rng(SEED + 30)
+    info, launches, widths = {}, {}, {}
+
+    def path(name):
+        return counted(torch, launches, name, widths)
+
+    t_phase = time.perf_counter()
+    eng = MeshTickEngine(n_shards, local_capacity, max_batch=prefill_width,
+                         device=dev)
+    ids = route_ids(b"r", n_shards, [local_capacity] * n_shards)
+    with path("prefill"):
+        info["prefill_s"] = prefill_mesh(reqcols, eng, b"r", ids,
+                                         prefill_width)
+    assert eng.cache_size() == eng.capacity
+    info.update(keys=int(len(ids)), n_shards=n_shards,
+                local_capacity=local_capacity, width=width)
+    half = len(ids) // 2
+    traffic, swept = ids[:half], rng.choice(ids[half:], sweep, replace=False)
+    before = sweep_rows(eng, b"r", swept)
+    assert (before[:, 10] == 1).all()
+
+    m = Metrics()
+    loop = TickLoop(eng, batch_wait=0.0005, batch_limit=width, metrics=m)
+    events = []
+    freeze, unfreeze = loop.freeze, loop.unfreeze
+
+    def on_freeze(shed_peers=False):
+        events.append(("freeze", time.perf_counter()))
+        freeze(shed_peers)
+
+    def on_unfreeze():
+        unfreeze()
+        events.append(("unfreeze", time.perf_counter()))
+
+    loop.freeze, loop.unfreeze = on_freeze, on_unfreeze
+    served, stop, failures = [], threading.Event(), []
+
+    def send_load():
+        drng = np.random.default_rng(SEED + 31)
+        try:
+            while not stop.is_set():
+                pick = traffic[(drng.zipf(1.2, width) - 1) % len(traffic)]
+                cols = herd_columns(reqcols, b"r", pick, token_prefill=True)
+                t0 = time.perf_counter()
+                mat, errs = loop.submit_columns(cols).result(timeout=120)
+                t1 = time.perf_counter()
+                shed = sum(1 for v in errs.values() if v == SHED_RESHARD_MSG)
+                assert len(errs) == shed, set(errs.values())
+                served.append((t0, t1, shed))
+                if shed:
+                    time.sleep(RESHARD_BACKOFF_S)   # a client's retry
+        except BaseException as e:  # surfaced after the join
+            failures.append(e)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reshard_") as root:
+        coord = ReshardCoordinator(
+            eng, tick_loop=loop, transition_log=TransitionLog(root),
+            metrics=m, freeze_timeout=60.0)
+        loader = threading.Thread(target=send_load, name="reshard-load")
+        transitions = []
+        with path("transitions"):
+            loader.start()
+            try:
+                for n_to in steps:
+                    time.sleep(settle_s)
+                    from_n = eng.n_shards
+                    sheds0 = loop.metric_shed_admission.get("reshard", 0)
+                    g0 = gt.kernel_launches()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    t0 = time.perf_counter()
+                    res = coord.try_reshard(n_to)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated(dev)
+                    g1 = gt.kernel_launches()
+                    fz = [t for k, t in events if k == "freeze" and t >= t0]
+                    uf = [t for k, t in events if k == "unfreeze"
+                          and t <= t1 + 1.0]
+                    # Windows answered while it ran: ticked, or shed
+                    # with the retriable status.
+                    during = [(b - a, sh) for a, b, sh in served
+                              if b >= t0 and a <= t1]
+                    ticked = [d for d, sh in during if not sh]
+                    pre = [b - a for a, b, sh in served
+                           if not sh and b < t0 and b >= t0 - settle_s]
+                    rows = sweep_rows(eng, b"r", swept)
+                    sweep_errors = int((rows != before).any(axis=1).sum())
+                    transitions.append({
+                        "from": from_n, "to": n_to,
+                        "committed": res.get("outcome") == "committed",
+                        "state_loss": res["state_loss"],
+                        "double_served": res["double_served"],
+                        "parity_errors": res["parity_errors"],
+                        "live_items": res["live_items"],
+                        "duration_s": res.get("duration_s"),
+                        "wall_s": t1 - t0,
+                        "frozen_s": (uf[-1] - fz[0]) if fz and uf else None,
+                        "answered_during": len(during),
+                        "served_during": len(ticked),
+                        "p99_during_ms": (float(np.percentile(
+                            [d for d, _ in during], 99)) * 1e3
+                            if during else None),
+                        "p99_served_during_ms": (float(np.percentile(
+                            ticked, 99)) * 1e3 if ticked else None),
+                        "p99_before_ms": (float(np.percentile(pre, 99))
+                                          * 1e3 if pre else None),
+                        "windows_before": len(pre),
+                        "retriable_sheds": (loop.metric_shed_admission.get(
+                            "reshard", 0) - sheds0),
+                        "b2_launches": {k: g1[k] - g0[k] for k in (
+                            "gather_rows", "scatter_rows")},
+                        "peak_allocated_bytes": int(peak),
+                        "sweep_keys": int(len(swept)),
+                        "sweep_errors": sweep_errors,
+                        "cap_to": eng.local_capacity,
+                    })
+                time.sleep(settle_s)
+            finally:
+                stop.set()
+                loader.join(timeout=180)
+                loop.close()
+        if failures:
+            raise failures[0]
+        assert not loader.is_alive()
+        info["journal"] = [(r.phase, r.from_shards, r.to_shards)
+                           for r in TransitionLog(root).records()]
+    for t in transitions:
+        assert t["committed"], t
+        assert t["state_loss"] == t["double_served"] == 0, t
+        assert t["parity_errors"] == 0 and t["sweep_errors"] == 0, t
+        assert t["live_items"] == len(ids), t
+    info["transitions"] = transitions
+    info["load_windows"] = len(served)
+    info["load_sheds"] = int(sum(sh for _, _, sh in served))
+    info["metrics"] = {
+        "committed": m.sample("gubernator_tpu_reshard_transitions_total",
+                              {"result": "committed"}),
+        "shards": m.sample("gubernator_tpu_reshard_shards")}
+    assert info["metrics"]["committed"] == len(steps)
+    del eng, coord
+    with path("compare"):
+        info["compare"] = reshard_compare(
+            torch, dev, reqcols, np.random.default_rng(SEED + 32),
+            compare_local, compare_steps, width)
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["launches_by_path"] = launches
+    info["launches_by_width"] = widths
+    total = {k: sum(p[k] for p in launches.values())
+             for k in launches["prefill"]}
+    return info, total
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4705,15 +5270,18 @@ def main(argv=None) -> int:
     gmesh, gmesh_launches = global_phase(
         torch, dev, grpc_converge_ms=cluster["global_converge_ms"])
     print("phase9 " + json.dumps(gmesh), flush=True)
+    resh, resh_launches = reshard_phase(torch, dev)
+    print("phase10 " + json.dumps(resh), flush=True)
     for name in launches:
         launches[name] += (mesh_launches[name] + tier_launches[name]
                            + serve_launches[name] + cluster_launches[name]
-                           + lease_launches[name] + gmesh_launches[name])
+                           + lease_launches[name] + gmesh_launches[name]
+                           + resh_launches[name])
         assert launches[name] > 0, f"{name} was not launched on the main path"
     # The ticks', the lease window's and the GLOBAL mesh kernels' launches
-    # by lane width over the seven phases' paths.
+    # by lane width over the eight phases' paths.
     widths = {}
-    for phase in (info, mesh, tiers, serve, cluster, leases, gmesh):
+    for phase in (info, mesh, tiers, serve, cluster, leases, gmesh, resh):
         for per_path in phase["launches_by_width"].values():
             for name, counts in per_path.items():
                 for w, c in counts.items():
@@ -4724,7 +5292,8 @@ def main(argv=None) -> int:
 
     table = []
     for name in ("fused_tick", "fused_merged_tick", "fused_ragged_tick",
-                 "fused_sorted_tick", "gather_rows", "scatter_rows",
+                 "fused_sorted_tick", "mesh_tile_tick", "gather_rows",
+                 "scatter_rows",
                  "lease_apply", "global_accumulate", "global_dense_reconcile",
                  "global_sparse_probe", "global_sparse_apply"):
         k = kernels[name]

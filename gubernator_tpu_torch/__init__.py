@@ -48,13 +48,14 @@ def _lane_wrappers() -> dict:
     ticks, the lease-column window and the GLOBAL mesh's kernels (a
     reconcile's width is the capacity, a sparse apply's its grid)."""
     from gubernator_tpu_torch.ops import (
-        fusedtick, globalmesh, leasecols, raggedtick, sortedtick)
+        fusedtick, globalmesh, leasecols, raggedtick, sortedtick, tiletick)
 
     return {
         "fused_tick": fusedtick.fused_tick,
         "fused_merged_tick": fusedtick.fused_merged_tick,
         "fused_ragged_tick": raggedtick.fused_ragged_tick,
         "fused_sorted_tick": sortedtick.fused_sorted_tick,
+        "mesh_tile_tick": tiletick.mesh_tile_tick,
         "lease_apply": leasecols.lease_apply,
         **globalmesh.WRAPPERS,
     }

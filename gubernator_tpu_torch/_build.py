@@ -48,6 +48,7 @@ LIBS = {
     "fused_merged_tick": ("nvcc", ("fused_merged_tick.cu",)),
     "fused_ragged_tick": ("nvcc", ("fused_ragged_tick.cu",)),
     "fused_sorted_tick": ("nvcc", ("fused_sorted_tick.cu",)),
+    "mesh_tile_tick": ("nvcc", ("mesh_tile_tick.cu",)),
     "rows": ("nvcc", ("rows.cu",)),
     "lease_apply": ("nvcc", ("lease_apply.cu",)),
     "global_mesh": ("nvcc", ("global_mesh.cu",)),

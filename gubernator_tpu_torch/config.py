@@ -8,7 +8,7 @@ variable, and an optional ``key=value`` file is loaded into the
 environment first.
 
 Only the knobs of ported modules are read.  A knob of a module that is
-not ported yet (federation, resharding, the autoscaler, edge
+not ported yet (federation, the autoscaler, edge
 workers, the metric-flag collectors) or of the JAX
 package's TPU/XLA path raises a ``ValueError`` that names it, so no
 setting is silently ignored.
@@ -98,6 +98,8 @@ ENV_REGISTRY: Dict[str, str] = {
     "GUBER_REDELIVERY_LIMIT": "GLOBAL redelivery buffer cap",
     "GUBER_REPLICATED_HASH_REPLICAS": "consistent-hash virtual replicas",
     "GUBER_REQUEST_TIMEOUT": "default per-request deadline budget",
+    "GUBER_RESHARD_FREEZE_TIMEOUT": "reshard drain budget before abort",
+    "GUBER_RESHARD_VERIFY": "audit the table after each reshard cutover",
     "GUBER_RESOLV_CONF": "dns discovery: resolv.conf path",
     "GUBER_SHED_POLICY": "overload shed answers: fail-open/fail-closed",
     "GUBER_SLOW_WINDOW_MS": "slow-window watchdog threshold in ms (0 = off)",
@@ -139,8 +141,6 @@ UNPORTED: Dict[str, str] = {
     **{k: "multi-region federation" for k in (
         "GUBER_FEDERATION_BATCH_LIMIT", "GUBER_FEDERATION_ENABLED",
         "GUBER_FEDERATION_INTERVAL", "GUBER_FEDERATION_TIMEOUT")},
-    **{k: "live resharding" for k in (
-        "GUBER_RESHARD_FREEZE_TIMEOUT", "GUBER_RESHARD_VERIFY")},
     **{k: "the shard autoscaler" for k in (
         "GUBER_AUTOSCALE_COOLDOWN_DOWN", "GUBER_AUTOSCALE_COOLDOWN_UP",
         "GUBER_AUTOSCALE_DRY_RUN", "GUBER_AUTOSCALE_ENABLED",
@@ -243,6 +243,10 @@ class Config:
     snapshot_interval: float = 5.0
     snapshot_deltas_per_base: int = 64
     drain_timeout: float = 2.0       # graceful-shutdown GLOBAL flush budget
+    # Live resharding (parallel/reshard.py): the bounded quiesce before a
+    # cutover aborts, and the post-cutover audit.
+    reshard_freeze_timeout: float = 5.0
+    reshard_verify: bool = True
     # GLOBAL reconciliation over the mesh's collectives data plane
     # (parallel/global_mesh.py): N logical peer-nodes, replicas in one
     # table on the card; 0 = gRPC loops only.  Node index -1 = auto,
@@ -490,6 +494,9 @@ def setup_daemon_config(
         local_picker_hash=r.str_("GUBER_PEER_PICKER_HASH", "fnv1"),
         replicas=r.int_("GUBER_REPLICATED_HASH_REPLICAS", 512),
         drain_timeout=r.float_seconds("GUBER_DRAIN_TIMEOUT", 2.0),
+        reshard_freeze_timeout=r.float_seconds(
+            "GUBER_RESHARD_FREEZE_TIMEOUT", 5.0),
+        reshard_verify=r.bool_("GUBER_RESHARD_VERIFY", True),
         cache_size=r.int_("GUBER_CACHE_SIZE", 50_000),
         cold_cache_size=r.int_("GUBER_COLD_CACHE_SIZE", 0),
         ssd_dir=r.str_("GUBER_SSD_DIR"),
@@ -553,6 +560,10 @@ def setup_daemon_config(
     if conf.drain_timeout < 0:
         raise ValueError(
             f"GUBER_DRAIN_TIMEOUT must be >= 0; got {conf.drain_timeout}")
+    if conf.reshard_freeze_timeout <= 0:
+        raise ValueError(
+            f"GUBER_RESHARD_FREEZE_TIMEOUT must be > 0; "
+            f"got {conf.reshard_freeze_timeout}")
     if not 0.0 < resilience.breaker_failure_threshold <= 1.0:
         raise ValueError(
             f"GUBER_BREAKER_FAILURE_THRESHOLD must be in (0, 1]; "

@@ -15,13 +15,15 @@
 // chip_smoke.py.  The chained duplicate tick (fused_sorted_tick.cu) runs
 // its blocks (sorted_tick.cuh) one after another: each long block's walk
 // chunk by chunk (stage, run, prepare, apply, respond), then each lane
-// block's inert lanes and short segments.
+// block's inert lanes and short segments.  The mesh's duplicate tile tick
+// (mesh_tile_tick.cu) runs its long blocks' runs piece by piece (head,
+// eligibility, fold or prepared chain), then every lane's step.
 
 #include <stdint.h>
 
 #include <memory>
 
-#include "sorted_tick.cuh"
+#include "mesh_tile_tick.cuh"
 
 namespace {
 
@@ -191,6 +193,111 @@ extern "C" int gt_fused_sorted_tick_host(int64_t* table, int64_t capacity,
         short_chain(S->lane, x, L.span, table, resp, ld_r, L.j0, now);
       }
     }
+  }
+  return 0;
+}
+
+namespace {
+
+// The long run headed at lane h, the kernel's long block step after step:
+// its end, then its pieces in order (a piece with an invalid lane through
+// piece_serial; else the head, the group's eligibility, and the fold or
+// the chain of prepared slices).
+void long_run_host(gt::LongSmem& S, int64_t* table, const gt::TileGeom& g,
+                   const int32_t* m32, int64_t ld_m, int32_t* resp,
+                   int64_t ld_r, int64_t now, int64_t h, int32_t* tile_max,
+                   int64_t* rounds) {
+  using namespace gt;
+  const Extent e = extent_at(g, h);
+  const int32_t slot = slot_at(m32, ld_m, h);
+  int64_t* rp = table + shard_row(g, e.shard, slot) * ROW_W;
+  int64_t end = h + 1;
+  while (end < e.z && slot_at(m32, ld_m, end) == slot) ++end;
+  int64_t s[ROW_W];
+  bool loaded = false;
+  for (int64_t p = h; p < end;) {
+    const int64_t ce = chunk_end(g, e, p);
+    const int64_t q = ce < end ? ce : end;
+    const int64_t id = chunk_id(g, e, p);
+    bool bad = false;
+    for (int64_t x = p; x < q; ++x) bad = bad || m32[R_VALID * ld_m + x] == 0;
+    if (bad) {
+      note_rounds(tile_max, rounds, id,
+                  piece_serial(m32, ld_m, p, q, now, rp, s, loaded, resp,
+                               ld_r));
+      p = q;
+      continue;
+    }
+    const Req hr = load_req(m32, ld_m, p);
+    if (!loaded) {
+      load_row(rp, s);
+      loaded = true;
+    }
+    store_resp(resp, ld_r, p,
+               transition_class(algo_class(hr.algorithm), now, hr, s), true);
+    S.fold = fold_head(s);
+    bool elig = lane_mergeable(hr, hr, true);
+    for (int64_t x = p + 1; x < q; ++x) {
+      elig = elig && lane_mergeable(load_req(m32, ld_m, x), hr, false);
+    }
+    const int64_t n = q - p;
+    if (n > 1) {
+      const bool proven = proven_alive(hr, now);
+      const FoldHead f = S.fold;
+      const bool alive = now <= f.E;
+      if (elig && (alive || proven)) {
+        for (int64_t x = p + 1; x < q; ++x) {
+          store_resp(resp, ld_r, x,
+                     alive ? fold_answer(hr, f, x - p) : Resp{}, alive);
+        }
+        if (alive) fold_row(hr, f, n - 1, s);
+        note_rounds(tile_max, rounds, id, proven ? 0 : n - 1);
+      } else {
+        for (int64_t base = p + 1; base < q; base += TT_CHAIN) {
+          const int cnt = (int)(q - base < TT_CHAIN ? q - base : TT_CHAIN);
+          for (int i = 0; i < cnt; ++i) {
+            chain_prepare(S, m32, ld_m, base, i, now);
+          }
+          chain_apply(S, cnt, now, s);
+          chain_respond(S, 0, 1, cnt, resp, ld_r, base);
+        }
+        note_rounds(tile_max, rounds, id, n - 1);
+      }
+    }
+    p = q;
+  }
+  if (loaded) store_ticked_row(rp, s);
+}
+
+}  // namespace
+
+// The mesh's duplicate tile tick's blocks one after another: the long
+// blocks (each runs the long run headed in its range), then every lane's
+// step (zeros off the extents, short runs in one thread).  `tile_max`
+// holds n_shards * ceil(lanes / tile) cells, zeroed here.
+extern "C" int gt_mesh_tile_tick_host(int64_t* table, int64_t n_shards,
+                                      int64_t local_capacity,
+                                      const int32_t* offsets,
+                                      const int32_t* m32, int64_t ld_m,
+                                      int32_t* resp, int64_t ld_r,
+                                      int64_t lanes, int64_t tile,
+                                      int64_t now, int32_t* tile_max,
+                                      int64_t* rounds) {
+  using namespace gt;
+  if (lanes <= 0) return 0;
+  const int64_t max_tiles = (lanes + tile - 1) / tile;
+  for (int64_t i = 0; i < n_shards * max_tiles; ++i) tile_max[i] = 0;
+  const TileGeom g{offsets, n_shards, local_capacity, tile, max_tiles};
+  auto S = std::make_unique<LongSmem>();
+  for (int64_t k = 0; k < long_blocks_tt(lanes); ++k) {
+    const int64_t h = long_head_tt(g, m32, ld_m, lanes, k, 0, 1);
+    if (h >= 0) {
+      long_run_host(*S, table, g, m32, ld_m, resp, ld_r, now, h, tile_max,
+                    rounds);
+    }
+  }
+  for (int64_t j = 0; j < lanes; ++j) {
+    lane_step(table, g, m32, ld_m, resp, ld_r, now, j, tile_max, rounds);
   }
   return 0;
 }

@@ -180,6 +180,34 @@ def compact_blob(
 
 
 
+def key_groups(blob: bytes, offsets: np.ndarray,
+               crc: np.ndarray) -> np.ndarray:
+    """(n,) int64 group ids of the keys of a (blob, offsets) pack, equal
+    exactly for equal keys, from their CRC-32s ``crc``: keys with a CRC no
+    other key has are alone in their group, and only keys that share a CRC
+    are compared byte for byte."""
+    n = len(offsets) - 1
+    order = np.argsort(crc, kind="stable")
+    sc = crc[order]
+    start = np.ones(n, bool)
+    start[1:] = sc[1:] != sc[:-1]
+    gid = np.empty(n, np.int64)
+    gid[order] = np.cumsum(start) - 1
+    size = np.bincount(gid, minlength=1)
+    shared = np.flatnonzero(size[gid] > 1)
+    if len(shared):
+        mv = memoryview(blob)
+        fresh = {}
+        nxt = int(size.shape[0])
+        for j in shared.tolist():
+            k = (int(gid[j]), bytes(mv[offsets[j]:offsets[j + 1]]))
+            if k not in fresh:
+                fresh[k] = nxt
+                nxt += 1
+            gid[j] = fresh[k]
+    return gid
+
+
 def key_blob_from_parts(
     names: Sequence[str], unique_keys: Sequence[str]
 ) -> tuple[bytes, np.ndarray]:

@@ -11,8 +11,9 @@ keys, absent from snapshots written before them and read as zeros.
 
 :func:`columns_from_rows` and :func:`rows_from_columns` convert between
 snapshot columns and the table's (k, 16) int64 rows (ops/buckets.py) on
-the host; the rows cross to and from the card through the row kernels
-(ops/rowtable.py).
+the host, and :func:`item_rows` gives live rows the values their items
+would load as; the rows cross to and from the card through the row
+kernels (ops/rowtable.py).
 """
 
 from __future__ import annotations
@@ -76,6 +77,18 @@ def rows_from_columns(cols: Dict[str, np.ndarray], sel: np.ndarray
             v = v.astype(np.int64).astype(np.int32)
         rows[:, WORD[f]] = v
     rows[:, WORD["in_use"]] = 1
+    return rows
+
+
+def item_rows(rows: np.ndarray) -> np.ndarray:
+    """Live table rows as their Loader items would load them
+    (``rows_from_items`` of ``items_from_columns`` of
+    ``columns_from_rows``), in place: the narrow fields keep their low
+    byte, ``in_use`` is 1 and words 13-15 are 0; returns ``rows``."""
+    for f in _NARROW:
+        rows[:, WORD[f]] &= 0xFF
+    rows[:, WORD["in_use"]] = 1
+    rows[:, len(WORD):] = 0
     return rows
 
 

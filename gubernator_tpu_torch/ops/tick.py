@@ -21,11 +21,12 @@ plans in ops/engine.py (the JAX engine's order):
   per-key semantics the reference's duplicate programs are held to; its
   plain version runs the window as rank rounds.
 
-The mesh engine (parallel/mesh_engine.py) ticks each tile of a duplicate
-window with :func:`merge_tick`, the port of the x64 tile tick its JAX
-counterpart runs (``engine.make_tick_fn(capacity, compact_req=True,
-compact_resp=True)``): heads through the fused tick, the closed-form fold
-of ``transition.apply_merged_followers``, rank rounds for the rest.
+:func:`merge_tick` is the port of the x64 tile tick the JAX mesh engine
+runs on each tile of a duplicate window (``engine.make_tick_fn(capacity,
+compact_req=True, compact_resp=True)``): heads through the fused tick,
+the closed-form fold of ``transition.apply_merged_followers``, rank rounds
+for the rest.  Walked over each shard's extent it is the plain version of
+the mesh's duplicate tile tick (ops/tiletick.py, kernel B.6).
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ import torch
 
 from gubernator_tpu_torch.ops.buckets import logical_to_rows, rows_to_logical
 from gubernator_tpu_torch.ops.fusedtick import (
-    MERGED24_W, REQ32_INDEX, RESP_ROWS, fused_merged_tick, fused_tick,
-    pack_resp_compact, unpack_req32)
-from gubernator_tpu_torch.ops.rowtable import gather_rows, scatter_rows
+    MERGED24_W, REQ32_INDEX, RESP_ROWS, fused_merged_tick,
+    fused_tick_plain, pack_resp_compact, unpack_req32)
+from gubernator_tpu_torch.ops.rowtable import (
+    gather_rows_plain, scatter_rows_plain)
 from gubernator_tpu_torch.ops.transition import (
     apply_merged_followers, merge_eligible)
 from gubernator_tpu_torch.types import Algorithm, Behavior, Status
@@ -165,25 +167,31 @@ def _segments(key: np.ndarray):
             order[seg_start][inv], seg)
 
 
+def _plain_tick(table, m32, now, out=None):
+    if out is None:
+        out = torch.empty((RESP_ROWS, m32.shape[1]), dtype=torch.int32,
+                          device=table.device)
+    return fused_tick_plain(table, m32, now, out)
+
+
 def merge_tick(table: torch.Tensor, m: np.ndarray, now: int):
     """One tile of a duplicate-bearing window, as the TPU package's x64 tile
     tick applies it (``make_tick_fn(capacity, compact_req=True,
-    compact_resp=True)``: merge_uniform, unsorted input).
+    compact_resp=True)``: merge_uniform, unsorted input), in plain PyTorch
+    ops: the reference that kernel B.6 (ops/tiletick.py) is held to.
 
     ``m`` is a (19, T) int32 host REQ32 block (lanes with valid == 0 are
     inert).  Every group's head (first valid lane of its slot) ticks from
-    the pre-window state in one fused-tick launch.  Groups whose members
-    are all eligible (``transition.merge_eligible``) fold their followers
-    in closed form against the head's post-state: the heads' rows come
-    back through ``gather_rows``, ``apply_merged_followers`` runs as plain
-    torch ops on the table's device, and the heads' group-final rows go
-    back through ``scatter_rows``.  Every other follower ticks in rank
-    rounds, one fused-tick launch per rank.  A fold lane whose head might
-    come out expired (its request does not prove ``expire >= now``) also
-    rides its rank round, masked on the device when its fold applied, so
-    nothing waits for the device.  Returns ``(resp, rounds)``: the (6, T)
-    int32 compact response on the table's device and the rank rounds
-    launched."""
+    the pre-window state through the plain fused tick.  Groups whose
+    members are all eligible (``transition.merge_eligible``) fold their
+    followers in closed form against the head's post-state: the heads'
+    rows are gathered, ``apply_merged_followers`` runs, and the heads'
+    group-final rows are scattered back.  Every other follower ticks in
+    rank rounds, one plain fused tick per rank.  A fold lane whose head
+    might come out expired (its request does not prove ``expire >= now``)
+    also rides its rank round, masked when its fold applied.  Returns
+    ``(resp, rounds)``: the (6, T) int32 compact response on the table's
+    device and the rank rounds run."""
     R = REQ32_INDEX
     cap = table.shape[0] - 1
     dev = table.device
@@ -194,7 +202,7 @@ def merge_tick(table: torch.Tensor, m: np.ndarray, now: int):
     live = valid & (key < cap)
     if not (live & (rank > 0)).any():
         (m_dev,) = upload(dev, m)
-        return fused_tick(table, m_dev, now), 0
+        return _plain_tick(table, m_dev, now), 0
 
     heads = np.flatnonzero(valid & (rank == 0))
     r_host = unpack_req32(torch.from_numpy(m))
@@ -219,14 +227,14 @@ def merge_tick(table: torch.Tensor, m: np.ndarray, now: int):
         np.stack([rank[formula], size[formula], pos[head_idx[formula]],
                   elig[formula]]).astype(np.int32))
     out = torch.zeros((RESP_ROWS, t), dtype=torch.int32, device=dev)
-    out.index_copy_(1, heads_dev.long(), fused_tick(
+    out.index_copy_(1, heads_dev.long(), _plain_tick(
         table, m_dev[:, heads_dev.long()], now))
 
     merged_all = torch.zeros(t, dtype=torch.bool, device=dev)
     if len(formula):
         f = formula_dev.long()
         head_slot = m_dev[R["slot"]][f[fidx[2].long()]].long()
-        state = rows_to_logical(gather_rows(table, head_slot))
+        state = rows_to_logical(gather_rows_plain(table, head_slot))
         r = unpack_req32(m_dev[:, f])
         zero = torch.zeros(len(formula), dtype=torch.int64, device=dev)
         resp0 = {"status": zero, "remaining": zero, "reset_time": zero,
@@ -235,7 +243,7 @@ def merge_tick(table: torch.Tensor, m: np.ndarray, now: int):
             state, resp0, r, now, fidx[0], fidx[1].long(), fidx[2].long(),
             fidx[3] != 0)
         at_head = fidx[0] == 0
-        scatter_rows(table, head_slot[at_head], logical_to_rows(
+        scatter_rows_plain(table, head_slot[at_head], logical_to_rows(
             {k: v[at_head] for k, v in rows.items()}))
         out[:, f] = torch.where(merged, pack_resp_compact(resp, merged),
                                 out[:, f])
@@ -250,6 +258,6 @@ def merge_tick(table: torch.Tensor, m: np.ndarray, now: int):
         for k in range(len(bounds) - 1):
             a, b = int(bounds[k]), int(bounds[k + 1])
             if a < b:
-                fused_tick(table, mr[:, a:b], now, out=rr[:, a:b])
+                _plain_tick(table, mr[:, a:b], now, out=rr[:, a:b])
         out[:, p] = torch.where(merged_all[p], out[:, p], rr)
     return out, int(np.count_nonzero(np.diff(bounds)))

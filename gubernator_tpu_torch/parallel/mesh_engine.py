@@ -17,8 +17,10 @@ counts (parallel/partition.py).  A window whose slots are unique is one
 ``fused_ragged_tick`` launch (kernel B.4) over every extent; the JAX
 engine's ``shard_map`` + ``psum`` becomes that one launch, because the
 extents are disjoint.  A window whose slots repeat walks each shard's
-extent in tiles (``raggedtick.ragged_walk``) through ``tick.merge_tick``,
-the x64 tile tick of the JAX engine's duplicate program.  Skewed windows
+extent in tiles through the x64 tile tick of the JAX engine's duplicate
+program; on the card that walk is one ``mesh_tile_tick`` launch (kernel
+B.6, ops/tiletick.py), whose plain version is the walk itself
+(``raggedtick.ragged_walk`` over ``tick.merge_tick``).  Skewed windows
 (every key on one shard) take the same paths: one extent covers the batch.
 
 Reclaim is per shard, as in the JAX engine: a full shard frees its
@@ -35,15 +37,27 @@ shard's rows move in ONE gather or scatter launch per ``STATE_CHUNK``
 rows, where the JAX engine runs a blocked program per shard; no lane is
 ever aimed at a shard's guard row.
 
+Live resharding (:meth:`MeshTickEngine.reshard`, driven by
+``parallel/reshard.py``) re-lays the live table over another shard count
+under the engine lock: the live rows leave through the gather kernel a
+STATE_CHUNK a launch and their keys through the slot maps, a new
+``(n_to * (cap_to + 1), 16)`` table with its own slot maps, reclaim
+stamps, extents and staging ring is built beside the old one
+(``partition.plan_transition`` sizes it), and the cutover swaps every
+layout field at once and places the rows as ``load_items`` would place
+their items, through one scatter a STATE_CHUNK.  The old table lives
+until the cutover commits; any failure restores the old fields.
+
 Not ported, as in the JAX mesh: the cold and SSD tiers and the columnar
 snapshot (``export_columns`` / ``load_columns``).  Not ported yet:
-resharding and placement of shards on several cards.
+placement of shards on several cards.
 """
 
 from __future__ import annotations
 
 import threading
 import warnings
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -59,12 +73,14 @@ from gubernator_tpu_torch.ops.engine import (
     scatter_chunked, select_reclaim_victims, sort_packed_by_slot, store_rows)
 from gubernator_tpu_torch.ops.fusedtick import REQ32_ROWS
 from gubernator_tpu_torch.ops.raggedtick import (
-    choose_tile, fused_ragged_tick, ragged_walk, shard_block)
+    choose_tile, fused_ragged_tick, shard_block)
 from gubernator_tpu_torch.ops.reqcols import (
-    ReqColumns, compact_blob, pack_blob)
+    ReqColumns, compact_blob, key_groups, pack_blob)
 from gubernator_tpu_torch.ops.snapshot import (
-    columns_from_rows, items_from_columns, rows_from_items)
-from gubernator_tpu_torch.parallel.partition import RaggedExtents
+    columns_from_rows, item_rows, items_from_columns, rows_from_items)
+from gubernator_tpu_torch.ops.tiletick import mesh_tile_tick
+from gubernator_tpu_torch.parallel.partition import (
+    LayoutTransition, RaggedExtents, plan_transition)
 from gubernator_tpu_torch.types import Behavior, GlobalUpdate
 from gubernator_tpu_torch.utils import timeutil
 
@@ -163,8 +179,24 @@ class MeshTickEngine(BatchFront):
         self.metric_misses = 0
         self.metric_over_limit = 0
         self.metric_unexpired_evictions = 0
-        # Rank rounds launched by duplicate windows (tick.merge_tick).
-        self.metric_rank_rounds = 0
+        # Rank rounds of duplicate windows (ops/tiletick.py), counted on
+        # the table's device.  On a card, each duplicate window queues a
+        # copy of the counter into a pinned host tensor behind its launch,
+        # so reading the metric never waits for the card.
+        self._rank_rounds = torch.zeros(1, dtype=torch.int64,
+                                        device=self.device)
+        self._rank_rounds_host = self._rank_rounds
+        if self.device.type == "cuda":
+            self._rank_rounds_host = torch.zeros(1, dtype=torch.int64,
+                                                 pin_memory=True)
+
+    @property
+    def metric_rank_rounds(self) -> int:
+        """Rank rounds the duplicate windows' tile walk ran (for each
+        chunk, the most followers of one slot that did not fold), up to
+        the last duplicate window the card has finished: exact once its
+        windows are resolved.  Reading it never waits for the card."""
+        return int(self._rank_rounds_host[0])
 
     def h2d_overlap_ratio(self) -> float:
         """Fraction of windows whose request upload was queued while an
@@ -360,17 +392,21 @@ class MeshTickEngine(BatchFront):
         pack_wide_rows(m, "greg_dur", greg_d[ix], ix)
         inv, has_dups = sort_packed_by_slot(m, n, self.capacity)
         offs = self.ragged.offsets(self.ragged.counts(sh, ok))
+        dev_m, dev_offs = slab, torch.from_numpy(offs)
+        if self.device.type == "cuda":
+            dev_m = slab.to(self.device, non_blocking=True)
+            (dev_offs,) = tick.upload(self.device, offs)
         if has_dups:
-            resp = self._tick_duplicates(m, offs, now)
-            uploaded = False
+            resp = mesh_tile_tick(
+                self.table, dev_m, dev_offs, self.n_shards,
+                self.local_capacity, choose_tile(m.shape[1], self.n_shards),
+                now, self._rank_rounds)
+            if self._rank_rounds_host is not self._rank_rounds:
+                self._rank_rounds_host.copy_(self._rank_rounds,
+                                             non_blocking=True)
         else:
-            dev_m, dev_offs = slab, torch.from_numpy(offs)
-            if self.device.type == "cuda":
-                dev_m = slab.to(self.device, non_blocking=True)
-                (dev_offs,) = tick.upload(self.device, offs)
             resp = fused_ragged_tick(self.table, dev_m, dev_offs,
                                      self.n_shards, self.local_capacity, now)
-            uploaded = True
         self._pending.clear()
         self.metric_routed_windows += 1
         gslots = None
@@ -382,30 +418,8 @@ class MeshTickEngine(BatchFront):
         if self._inflight > 0:
             self.metric_h2d_overlapped += 1
         self._inflight += 1
-        self._staging.retire(handle if uploaded else None)
+        self._staging.retire(handle)
         return handle
-
-    def _tick_duplicates(self, m: np.ndarray, offs: np.ndarray,
-                         now: int) -> torch.Tensor:
-        """Walk each shard's extent in ``choose_tile`` steps, each tile
-        through ``tick.merge_tick`` on the shard's block.  Returns the flat
-        (6, B) response, zeros off every extent."""
-        out = torch.zeros((6, m.shape[1]), dtype=torch.int32,
-                          device=self.device)
-        tile = choose_tile(m.shape[1], self.n_shards)
-
-        def tick_tile(block, blk):
-            resp, rounds = tick.merge_tick(block, blk, now)
-            self.metric_rank_rounds += rounds
-            return resp
-
-        for s in range(self.n_shards):
-            a, z = int(offs[s]), int(offs[s + 1])
-            ragged_walk(tick_tile,
-                        shard_block(self.table, s, self.local_capacity),
-                        m, a, z - a, s * self.local_capacity,
-                        self.local_capacity, tile, out)
-        return out
 
     # ------------------------------------------------------------------
     # State paths: all shards' rows in one launch per STATE_CHUNK
@@ -554,10 +568,7 @@ class MeshTickEngine(BatchFront):
                    now: Optional[int] = None) -> None:
         """Load Loader-contract item dicts: items expired by ``now`` are
         dropped, a key that repeats keeps its last item (in its first
-        item's place), each shard assigns its keys in one native call (a
-        full shard stamps what it placed, reclaims once and retries the
-        rest; what still does not fit is dropped), and the rows land in
-        one scatter a STATE_CHUNK."""
+        item's place), and the rows are placed by :meth:`_place_rows`."""
         with self._lock:
             now = now if now is not None else timeutil.now_ms()
             self._tick_count += 1  # as install_globals: unblock reclaim
@@ -566,27 +577,228 @@ class MeshTickEngine(BatchFront):
             if not live:
                 return
             blob, offsets = pack_blob([it["key"].encode() for it in live])
-            sh = (crc32_batch(blob, offsets)
-                  % np.uint32(self.n_shards)).astype(np.int64)
-            local = np.full(len(live), -1, np.int64)
-            for s in np.unique(sh).tolist():
-                at = np.flatnonzero(sh == s)
-                sm, lo = self.slots[s], s * self.local_capacity
-                ls = sm.assign_blob(*compact_blob(blob, offsets, at))
-                if (ls < 0).any():
-                    # Stamp the rows just placed first: their device rows
-                    # are stale until the scatter, and an unstamped
-                    # reclaim would hand their slots to the retried keys.
-                    got = lo + ls[ls >= 0]
-                    self._last_access[got] = self._tick_count
-                    self._pending.update(got.tolist())
-                    self._reclaim(s, now)
-                    retry = np.flatnonzero(ls < 0)
-                    ls[retry] = sm.assign_blob(
-                        *compact_blob(blob, offsets, at[retry]))
-                local[at] = ls
-            ok = np.flatnonzero(local >= 0)
-            g = sh[ok] * self.local_capacity + local[ok]
-            self._last_access[g] = self._tick_count
-            scatter_chunked(self.table, self._flat(g),
-                            rows_from_items([live[j] for j in ok.tolist()]))
+            self._place_rows(blob, offsets, rows_from_items(live), now)
+
+    def _place_rows(self, blob: bytes, offsets: np.ndarray, rows: np.ndarray,
+                    now: int, crc: Optional[np.ndarray] = None) -> None:
+        """Place distinct keys with their rows: each key routes to shard
+        ``crc32 % n_shards`` (``crc``, when given, is the keys' CRC-32),
+        each shard assigns its keys in key order in one native call (a
+        full shard stamps what it placed, reclaims once and retries the
+        rest; what still does not fit is dropped), and the rows land in one
+        scatter a STATE_CHUNK.  The caller holds the lock and has stamped
+        the tick."""
+        if crc is None:
+            crc = crc32_batch(blob, offsets)
+        sh = (crc % np.uint32(self.n_shards)).astype(np.int64)
+        # A stable sort of 16-bit keys is a radix sort.
+        order = np.argsort(sh.astype(np.int16) if self.n_shards < 1 << 15
+                           else sh, kind="stable")
+        starts = np.searchsorted(sh[order], np.arange(self.n_shards + 1))
+        # One byte gather regroups the key blob by shard.
+        grouped, g_off = compact_blob(blob, offsets, order)
+        local = np.full(len(sh), -1, np.int64)
+        for s in range(self.n_shards):
+            a, z = int(starts[s]), int(starts[s + 1])
+            if a == z:
+                continue
+            at = order[a:z]
+            sm, lo = self.slots[s], s * self.local_capacity
+            ls = sm.assign_blob(grouped[g_off[a]:g_off[z]],
+                                g_off[a:z + 1] - g_off[a])
+            if (ls < 0).any():
+                # Stamp the rows just placed first: their device rows are
+                # stale until the scatter, and an unstamped reclaim would
+                # hand their slots to the retried keys.
+                got = lo + ls[ls >= 0]
+                self._last_access[got] = self._tick_count
+                self._pending.update(got.tolist())
+                self._reclaim(s, now)
+                retry = np.flatnonzero(ls < 0)
+                ls[retry] = sm.assign_blob(
+                    *compact_blob(blob, offsets, at[retry]))
+            local[at] = ls
+        ok = np.flatnonzero(local >= 0)
+        g = sh[ok] * self.local_capacity + local[ok]
+        self._last_access[g] = self._tick_count
+        scatter_chunked(self.table, self._flat(g), rows[ok])
+
+    # ------------------------------------------------------------------
+    # Live resharding
+    # ------------------------------------------------------------------
+    def _mapped_census(self):
+        """Every mapped slot as columns, in global slot order: the global
+        slots, their keys as one (blob, offsets) pack (from the slot maps,
+        one native call a shard)."""
+        g = np.flatnonzero(np.concatenate(
+            [sm.mapped_mask() for sm in self.slots]))
+        owner = g // self.local_capacity
+        blobs, offs, base = [], [np.zeros(1, np.int64)], 0
+        for s in range(self.n_shards):
+            sel = g[owner == s] - s * self.local_capacity
+            if len(sel):
+                blob, off = self.slots[s].keys_blob(sel)
+                blobs.append(blob)
+                offs.append(off[1:] + base)
+                base += len(blob)
+        return g, b"".join(blobs), np.concatenate(offs)
+
+    def census(self) -> dict:
+        """The key census of a reshard's verify phase, as columns: every
+        mapped slot's key (``blob``, ``offsets``), shard and whether its
+        row is in use (the rows through the gather kernel, a STATE_CHUNK a
+        launch), and the shard count."""
+        with self._lock:
+            g, blob, offsets = self._mapped_census()
+            rows = gather_chunked(self.table, self._flat(g))
+            return {"blob": blob, "offsets": offsets,
+                    "shard": g // self.local_capacity,
+                    "live": rows[:, WORD["in_use"]] != 0,
+                    "n_shards": self.n_shards}
+
+    def _transition_columns(self):
+        """The host half of a transition: the live rows (mapped and in
+        use) through the gather kernel and their keys from the slot maps,
+        in global slot order.  Returns ``(blob, offsets, rows, shard)``,
+        ``shard`` each row's shard."""
+        g, blob, offsets = self._mapped_census()
+        rows = gather_chunked(self.table, self._flat(g))
+        alive = rows[:, WORD["in_use"]] != 0
+        if not alive.all():
+            blob, offsets = compact_blob(blob, offsets, alive)
+            rows, g = rows[alive], g[alive]
+        return blob, offsets, rows, g // self.local_capacity
+
+    def _build_shard_set(self, tr: LayoutTransition) -> SimpleNamespace:
+        """Everything the new layout needs, built beside the old one (which
+        keeps serving until the cutover): the zeroed table on the same
+        card, slot maps, reclaim stamps, extents and a staging ring whose
+        sentinel is the new global capacity."""
+        return SimpleNamespace(
+            n_shards=tr.n_to, local_capacity=tr.cap_to,
+            capacity=tr.capacity_to,
+            ragged=RaggedExtents(tr.n_to, tr.cap_to),
+            table=torch.zeros((tr.n_to * (tr.cap_to + 1), ROW_W),
+                              dtype=torch.int64, device=self.device),
+            slots=[NativeSlotMap(tr.cap_to) for _ in range(tr.n_to)],
+            last_access=np.zeros(tr.capacity_to, np.int64),
+            staging=StagingRing(REQ32_ROWS, tr.capacity_to, depth=9,
+                                pinned=self.device.type == "cuda"),
+        )
+
+    _LAYOUT = ("n_shards", "local_capacity", "capacity", "ragged", "table",
+               "slots", "_last_access", "_staging", "_pending", "_inflight")
+
+    def _cutover(self, new: SimpleNamespace, moved: tuple,
+                 now: Optional[int]) -> None:
+        """Swap every layout field to ``new`` at once and place the moved
+        rows as ``load_items`` would place their items: expired rows
+        (``expire_at < now``) dropped, a repeated key's last row in its
+        first row's place, keys routed to ``crc32 % n_to``, rows as their
+        items load (``snapshot.item_rows``).  Any failure restores the
+        saved fields (the old table was never written) and raises."""
+        saved = tuple(getattr(self, f) for f in self._LAYOUT)
+        n_from = self.n_shards
+        self.n_shards = new.n_shards
+        self.local_capacity = new.local_capacity
+        self.capacity = new.capacity
+        self.ragged = new.ragged
+        self.table = new.table
+        self.slots = new.slots
+        self._last_access = new.last_access
+        self._staging = new.staging
+        self._pending = set()
+        self._inflight = 0
+        try:
+            self._load_moved(*moved, n_from, now)
+        except Exception:
+            for f, v in zip(self._LAYOUT, saved):
+                setattr(self, f, v)
+            raise
+
+    def _load_moved(self, blob: bytes, offsets: np.ndarray, rows: np.ndarray,
+                    shard: np.ndarray, n_from: int,
+                    now: Optional[int]) -> None:
+        """``load_items`` of the moved rows, as columns (``shard``: each
+        row's shard in the old layout of ``n_from`` shards)."""
+        now = now if now is not None else timeutil.now_ms()
+        self._tick_count += 1
+        keep = rows[:, WORD["expire_at"]] >= now
+        if not keep.all():
+            blob, offsets = compact_blob(blob, offsets, keep)
+            rows, shard = rows[keep], shard[keep]
+        if len(rows) == 0:
+            return
+        crc = crc32_batch(blob, offsets)
+        # A key held on two shards is held off its old route on one, so
+        # keys can repeat only when some row sat off its route.
+        if (crc % np.uint32(n_from) != shard).any():
+            gid = key_groups(blob, offsets, crc)
+            _, first = np.unique(gid, return_index=True)
+            if len(first) < len(gid):
+                # A repeated key keeps its last row in its first's place.
+                _, rfirst = np.unique(gid[::-1], return_index=True)
+                order = np.argsort(first)
+                first = first[order]
+                rows = rows[(len(gid) - 1 - rfirst)[order]]
+                blob, offsets = compact_blob(blob, offsets, first)
+                crc = crc[first]
+        self._place_rows(blob, offsets, item_rows(rows), now, crc)
+
+    def _same_card(self, d) -> bool:
+        d = torch.device(d)
+        return d.type == self.device.type and (
+            (d.index or 0) == (self.device.index or 0))
+
+    def reshard(self, new_shards: int, devices=None,
+                now: Optional[int] = None) -> dict:
+        """Re-lay the live table over ``new_shards`` shards on this engine's
+        card, in place, under the engine lock (callers quiesce the tick
+        pipeline first, as the reshard coordinator does; a window that
+        arrives meanwhile serializes behind the lock).  ``devices`` other
+        than the engine's card raise: shards on several cards are not
+        ported.  Returns a summary dict; raises, with the old layout and
+        table untouched, on any failure."""
+        new_n = int(new_shards)
+        if new_n < 1:
+            raise ValueError(f"new_shards must be >= 1; got {new_n}")
+        if devices is not None:
+            other = [str(d) for d in devices if not self._same_card(d)]
+            if other:
+                raise ValueError(
+                    f"reshard onto {other}: the shards live on the "
+                    f"engine's card ({self.device}); placing them on "
+                    "several cards is not ported")
+        with self._lock:
+            if new_n == self.n_shards:
+                return {"from_shards": self.n_shards, "to_shards": new_n,
+                        "live_items": 0, "noop": True}
+            tr = plan_transition(self.n_shards, self.local_capacity, new_n)
+            if tr.capacity_to >= (1 << 31):
+                raise ValueError(
+                    f"resharded capacity {tr.capacity_to} exceeds int32 "
+                    "global slots")
+            moved = self._transition_columns()
+            new = self._build_shard_set(tr)
+            self._cutover(new, moved, now)
+            return {"from_shards": tr.n_from, "to_shards": tr.n_to,
+                    "cap_from": tr.cap_from, "cap_to": tr.cap_to,
+                    "live_items": int(len(moved[2])), "noop": False}
+
+    def routing_parity_errors(self, keys: Sequence[str]) -> int:
+        """Keys whose routing disagrees with residency: a key must be
+        mapped on exactly one shard, the one its CRC-32 routes it to (a
+        key on two shards is a double serve, on none a drop).  The JAX
+        engine's audit, over the key batch in one native lookup a
+        shard."""
+        blob, offsets = pack_blob([k.encode() for k in keys])
+        with self._lock:
+            route = (crc32_batch(blob, offsets)
+                     % np.uint32(self.n_shards)).astype(np.int64)
+            owners = np.zeros(len(keys), np.int64)
+            on_route = np.zeros(len(keys), bool)
+            for d in range(self.n_shards):
+                present = self.slots[d].lookup_blob(blob, offsets) >= 0
+                owners += present
+                on_route |= present & (route == d)
+        return int(((owners != 1) | ~on_route).sum())

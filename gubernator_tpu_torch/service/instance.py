@@ -18,9 +18,13 @@ mesh-resident GLOBAL engine (``parallel/global_mesh.py``, shared through
 ``InstanceConfig.global_mesh`` or built from the
 ``GUBER_TPU_GLOBAL_MESH_*`` knobs) GLOBAL items ride that engine instead
 of the gRPC hits and broadcast loops, and a reconcile loop drives it on
-the ``GlobalSyncWait`` cadence.  Not ported: federation, live
-resharding, the autoscaler and the edge plane (their knobs raise in
-``config``).
+the ``GlobalSyncWait`` cadence.  Live resharding runs through the
+instance's :class:`ReshardCoordinator` (``parallel/reshard.py``) over its
+engine and tick loop, journalled in the snapshot directory, gated by the
+peers' breakers, with the GLOBAL mesh's reconcile paused around the
+cutover (:meth:`V1Instance.reshard`, ``POST /debug/reshard``).  Not
+ported: federation, the autoscaler and the edge plane (their knobs raise
+in ``config``).
 
 Create the instance inside a running event loop (the GLOBAL manager
 starts its loops at once, as the reference's ``NewV1Instance`` does), or
@@ -54,6 +58,8 @@ from gubernator_tpu_torch.parallel.hashring import (
     RegionPicker,
     ReplicatedConsistentHash,
 )
+from gubernator_tpu_torch.parallel.reshard import ReshardCoordinator
+from gubernator_tpu_torch.persistence import TransitionLog, check_interrupted
 from gubernator_tpu_torch.resilience import (
     BreakerOpenError,
     DecorrelatedJitterBackoff,
@@ -115,6 +121,8 @@ class InstanceConfig:
     snapshot_interval: float = 5.0
     snapshot_deltas_per_base: int = 64
     drain_timeout: float = 2.0           # GlobalManager.close's budget
+    reshard_freeze_timeout: float = 5.0  # the reshard drain's budget
+    reshard_verify: bool = True          # audit the table after a cutover
     # GLOBAL collectives data plane (parallel/global_mesh.py): a shared
     # MeshGlobalEngine and this node's index on it.  When set, GLOBAL
     # requests bypass the gRPC hits/broadcast loops.
@@ -157,6 +165,8 @@ class InstanceConfig:
             snapshot_interval=conf.snapshot_interval,
             snapshot_deltas_per_base=conf.snapshot_deltas_per_base,
             drain_timeout=conf.drain_timeout,
+            reshard_freeze_timeout=conf.reshard_freeze_timeout,
+            reshard_verify=conf.reshard_verify,
             tpu_global_mesh_nodes=conf.tpu_global_mesh_nodes,
             tpu_global_mesh_node=conf.tpu_global_mesh_node,
             tpu_global_mesh_capacity=conf.tpu_global_mesh_capacity,
@@ -304,6 +314,21 @@ class V1Instance:
         # Always built: with GUBER_LEASE_ENABLED=0 every grant is declined.
         self.lease_mgr = LeaseManager(
             self.engine, tick_loop=self.tick_loop, metrics=self.metrics)
+        # Live resharding: the n -> m transition coordinator over this
+        # instance's engine and tick loop.  The journal shares the
+        # snapshot directory; the peers' breakers gate the cutover; the
+        # GLOBAL mesh's reconcile pauses around it.
+        self.reshard_coord = ReshardCoordinator(
+            self.engine,
+            tick_loop=self.tick_loop,
+            transition_log=TransitionLog(conf.snapshot_dir or None),
+            breaker_check=lambda: any(
+                p.breaker.is_open() for p in self.get_peer_list()),
+            global_engine=self.global_mesh,
+            metrics=self.metrics,
+            freeze_timeout=conf.reshard_freeze_timeout,
+            verify=conf.reshard_verify,
+        )
         self._snapshot_writer = None
         self.restore_stats: dict = {}
         self._closed = False
@@ -323,6 +348,12 @@ class V1Instance:
         # columnar snapshot (the mesh) runs without persistence.
         if conf.snapshot_dir and columnar:
             await inst._start_persistence()
+        # A begin record with no terminal record: the process died inside
+        # a reshard transition.  The state just restored (never written
+        # mid-flight) is authoritative; count and clear the journal.
+        rec = check_interrupted(inst.reshard_coord.transition_log)
+        if rec is not None:
+            inst.reshard_coord.record_interrupted(rec)
         return inst
 
     async def _start_persistence(self) -> None:
@@ -821,6 +852,34 @@ class V1Instance:
         Credit-backs and excess force-charges go through the tick loop in
         the peer class."""
         return await self.lease_mgr.sync(list(syncs))
+
+    # ------------------------------------------------------------------
+    # Live resharding
+    # ------------------------------------------------------------------
+    async def reshard(self, new_shards: int) -> dict:
+        """Run one n -> m transition (``POST /debug/reshard``).  The
+        coordinator's freeze, drain and cutover are blocking device and
+        lock work, so they run in a worker thread while the event loop
+        keeps answering the freeze's retriable sheds.  A transition
+        already running answers the coordinator's busy dict.  After a
+        committed transition the tracked GLOBAL keys re-broadcast through
+        the ownership hand-off, so a peer holding pre-transition state
+        converges."""
+        result = await asyncio.get_running_loop().run_in_executor(
+            None, self.reshard_coord.try_reshard, int(new_shards))
+        if result.get("result") == "busy":
+            return result
+        if result.get("outcome") == "committed" and self.global_mgr._owned:
+            t = asyncio.get_running_loop().create_task(
+                self.global_mgr.transfer_ownership(),
+                name="reshard-ownership-rebroadcast")
+            self._transfer_tasks.add(t)
+            t.add_done_callback(self._transfer_tasks.discard)
+        return result
+
+    def reshard_status(self) -> dict:
+        """The coordinator's phase and last outcome (``/debug/state``)."""
+        return self.reshard_coord.status()
 
     # ------------------------------------------------------------------
     # Health / peers

@@ -11,8 +11,11 @@ Two threads pipeline the ticks: the *dispatch* thread packs window N+1
 and queues its device work while the *resolver* thread waits out window
 N's D2H (one ``resolve_ticks`` for every window it drains) and completes
 the waiters' futures.  ``submit`` / ``submit_columns`` are thread-safe
-and return ``concurrent.futures.Future``s.  The live-reshard freeze of
-the JAX package is not ported.
+and return ``concurrent.futures.Future``s.  A reshard transition freezes
+admission (:meth:`TickLoop.freeze`): level 1 answers new CLIENT windows
+with the retriable reshard shed while PEER windows keep draining, level 2
+(the cutover) sheds both; :meth:`TickLoop.quiesce` waits until every
+admitted window has resolved.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from gubernator_tpu_torch.admission import (
     CLASS_CLIENT,
     POLICY_FAIL_CLOSED,
     SHED_EXPIRED_MSG,
+    SHED_RESHARD_MSG,
     SHED_SHUTDOWN_MSG,
     AdmissionConfig,
     AdmissionQueue,
@@ -120,6 +124,14 @@ class TickLoop:
         self._cond = threading.Condition()
         self._pending_count = 0
         self._running = True
+        # Reshard admission freeze: level 1 sheds new CLIENT windows with a
+        # retriable status while PEER windows keep draining; level 2 (the
+        # cutover) sheds both.  Queued work is never dropped by a freeze.
+        self._freeze_level = 0
+        # Windows popped from the queue and not yet delivered: quiesce()
+        # waits for 0 (an empty resolver queue alone races the resolver's
+        # item in progress).
+        self._inflight_windows = 0
         self._resolve_q: "queue.Queue" = queue.Queue(
             maxsize=self.pipeline_depth)
         self._thread = threading.Thread(
@@ -167,14 +179,26 @@ class TickLoop:
                 fut.set_exception(RuntimeError("tick loop is shut down"))
                 return fut
             item = QueueItem(kind, payload, n, fut, deadline, klass)
-            shed = self._queue.push(item)
-            self._pending_count = self._queue.requests
-            if self.metrics is not None:
-                self.metrics.worker_queue_length.labels(
-                    method="GetRateLimits", worker="0"
-                ).set(self._pending_count)
-                self.metrics.admission_queue_depth.set(self._pending_count)
-            self._cond.notify()
+            lvl = self._freeze_level
+            if lvl and (lvl >= 2 or klass == CLASS_CLIENT):
+                frozen, shed = item, ()
+            else:
+                frozen = None
+                shed = self._queue.push(item)
+                self._pending_count = self._queue.requests
+                if self.metrics is not None:
+                    self.metrics.worker_queue_length.labels(
+                        method="GetRateLimits", worker="0"
+                    ).set(self._pending_count)
+                    self.metrics.admission_queue_depth.set(
+                        self._pending_count)
+                self._cond.notify()
+        if frozen is not None:
+            # A frozen window was never queued: it answers the retriable
+            # reshard status at once, so its caller retries after the
+            # bounded cutover instead of waiting it out.
+            self._shed_item(frozen, "reshard")
+            return fut
         # Overflow victims are answered outside the lock: they are
         # unlinked already, and answers may release arena leases.
         for victim in shed:
@@ -204,6 +228,10 @@ class TickLoop:
                     width = min(width, self.limiter.window_limit)
                 batch = self._queue.pop_window(width)
                 self._pending_count = self._queue.requests
+                # In flight from the moment the window leaves the queue:
+                # quiesce must see a window inside engine dispatch.
+                if batch:
+                    self._inflight_windows += 1
             if batch:
                 self._flush(batch)
         # The stop sentinel ships outside the condition: the handoff
@@ -223,6 +251,7 @@ class TickLoop:
             for it in expired:
                 self._shed_item(it, "expired")
         if not batch:
+            self._window_done()
             return
         # The engine notes pack / h2d into the active window.
         fr = flightrec.get()
@@ -271,10 +300,18 @@ class TickLoop:
         if not subs:
             if fr is not None:
                 fr.finish(wid)
+            self._window_done()
             return
         # Blocks when pipeline_depth windows are in flight (the device is
-        # behind): the backpressure the dispatch thread should feel.
+        # behind): the backpressure the dispatch thread should feel.  The
+        # resolver releases the window's in-flight count.
         self._resolve_q.put((subs, time.perf_counter() - t0, wid))
+
+    def _window_done(self, n: int = 1) -> None:
+        """Release ``n`` windows' in-flight count."""
+        with self._cond:
+            self._inflight_windows = max(0, self._inflight_windows - n)
+            self._cond.notify_all()
 
     def _resolve_loop(self) -> None:
         while True:
@@ -332,6 +369,7 @@ class TickLoop:
                             "tick delivery failed")
                 if fr is not None and wid is not None:
                     fr.finish(wid)
+            self._window_done(len(items))
             if stop:
                 return
 
@@ -355,18 +393,58 @@ class TickLoop:
             _complete(fut, (mat[:, off:off + n], errs))
             off += n
 
+    # ------------------------------------------------------------------
+    # Reshard admission freeze
+    # ------------------------------------------------------------------
+    def freeze(self, shed_peers: bool = False) -> None:
+        """Stop admitting new windows into the transition: CLIENT
+        submissions answer the retriable reshard status at once; PEER
+        submissions keep draining until ``shed_peers`` escalates the
+        freeze for the cutover itself.  Idempotent; never downgrades an
+        escalated freeze."""
+        with self._cond:
+            self._freeze_level = max(self._freeze_level,
+                                     2 if shed_peers else 1)
+
+    def unfreeze(self) -> None:
+        with self._cond:
+            self._freeze_level = 0
+            self._cond.notify_all()
+
+    @property
+    def frozen(self) -> bool:
+        return self._freeze_level > 0
+
+    def quiesce(self, timeout: float) -> bool:
+        """Wait (bounded) until every admitted window has drained: nothing
+        queued, nothing inside dispatch, nothing at the resolver.  True
+        when that was reached (the cutover's precondition); False when the
+        budget ran out with work in flight."""
+        deadline = time.monotonic() + max(0.0, timeout)
+        while True:
+            with self._cond:
+                idle = (not self._queue and self._pending_count == 0
+                        and self._inflight_windows == 0
+                        and self._resolve_q.empty())
+            if idle:
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.001)
+
     def _shed_item(self, item: QueueItem, reason: str) -> None:
-        """Answer one shed submission: expired and shutdown sheds with a
-        retriable per-item error, overflow sheds with the degradation
-        policy (fail-open UNDER_LIMIT with full remaining, fail-closed
-        OVER_LIMIT with none).  A columnar payload releases its arena
-        lease here."""
+        """Answer one shed submission: expired, shutdown and reshard sheds
+        with a retriable per-item error, overflow sheds with the
+        degradation policy (fail-open UNDER_LIMIT with full remaining,
+        fail-closed OVER_LIMIT with none).  A columnar payload releases
+        its arena lease here."""
         self.metric_shed_admission[reason] = (
             self.metric_shed_admission.get(reason, 0) + item.n)
         if self.metrics is not None:
             self.metrics.admission_shed.labels(reason=reason).inc(item.n)
-        retriable = reason in ("expired", "shutdown")
-        msg = SHED_EXPIRED_MSG if reason == "expired" else SHED_SHUTDOWN_MSG
+        retriable = reason in ("expired", "shutdown", "reshard")
+        msg = {"expired": SHED_EXPIRED_MSG,
+               "reshard": SHED_RESHARD_MSG}.get(reason, SHED_SHUTDOWN_MSG)
         if item.kind == "obj":
             if retriable:
                 out = [RateLimitResponse(error=msg) for _ in range(item.n)]

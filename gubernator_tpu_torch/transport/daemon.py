@@ -7,11 +7,11 @@ aiohttp JSON gateway with grpc-gateway's snake_case marshaling
 (``/v1/GetRateLimits``, ``/v1/HealthCheck``, ``/healthz`` (503 when a
 majority of peers sit behind open breakers), ``/readyz``, ``/metrics``,
 and with GUBER_DEBUG_ENDPOINTS ``/debug/pipeline``, ``/debug/traces``,
-``/debug/state``), TLS and mTLS with AutoTLS and the plaintext status
-listener (``daemon.go:305-334``), the five discovery pools
-(``daemon.go:208-243``) and ``wait_for_connect`` readiness.  Not
-ported: the edge plane and the reshard, autoscaler and profile debug
-routes.
+``/debug/state`` and ``POST /debug/reshard``), TLS and mTLS with AutoTLS
+and the plaintext status listener (``daemon.go:305-334``), the five
+discovery pools (``daemon.go:208-243``) and ``wait_for_connect``
+readiness.  Not ported: the edge plane and the autoscaler and profile
+debug routes.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from gubernator_tpu_torch.admission import (
 from gubernator_tpu_torch.config import (
     DISCOVERY_TYPES, DaemonConfig, env_knob)
 from gubernator_tpu_torch.ops.reqcols import IngestOverloadError
+from gubernator_tpu_torch.parallel.reshard import ReshardError
 from gubernator_tpu_torch.pb import gubernator_pb2 as pb
 from gubernator_tpu_torch.pb import peers_pb2 as peers_pb
 from gubernator_tpu_torch.resilience.supervisor import spawn_supervised
@@ -472,6 +473,7 @@ class Daemon:
         app.router.add_get("/debug/pipeline", self._h_debug_pipeline)
         app.router.add_get("/debug/traces", self._h_debug_traces)
         app.router.add_get("/debug/state", self._h_debug_state)
+        app.router.add_post("/debug/reshard", self._h_debug_reshard)
 
     async def _start_gateway(self) -> None:
         if not self.conf.http_listen_address:
@@ -656,7 +658,30 @@ class Daemon:
                 "base_writes": writer.metric_base_writes,
                 "write_failures": writer.metric_write_failures,
             }
+        body["reshard"] = inst.reshard_status()
         return web.json_response(body)
+
+    async def _h_debug_reshard(self, request: web.Request) -> web.Response:
+        """Admin trigger: POST {"shards": m} runs one n -> m transition and
+        answers its outcome dict; 409 while a transition runs (the
+        coordinator's busy dict), 400 on a bad body or target.  The debug
+        plane is operator-only (GUBER_DEBUG_ENDPOINTS)."""
+        if self.instance is None:
+            return web.json_response({"error": "starting up"}, status=503)
+        try:
+            doc = await request.json()
+            shards = int(doc["shards"])
+        except (ValueError, KeyError, TypeError):
+            return web.json_response(
+                {"error": "body must be JSON {\"shards\": <int>}"},
+                status=400)
+        try:
+            result = await self.instance.reshard(shards)
+        except ReshardError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        if result.get("result") == "busy":
+            return web.json_response(result, status=409)
+        return web.json_response(result)
 
     # ------------------------------------------------------------------
     # Discovery (daemon.go:208-243)

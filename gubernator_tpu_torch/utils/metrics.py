@@ -2,8 +2,8 @@
 
 The port's copy of the JAX package's ``utils/metrics`` for the families a
 node and its cluster feed (service, peer forwarding, GLOBAL reconcile,
-breakers, cache, gRPC, tick, tiers, snapshots, admission and the serving
-telemetry histograms).  It carries its own
+breakers, cache, gRPC, tick, tiers, snapshots, admission, resharding and
+the serving telemetry histograms).  It carries its own
 small counter, gauge, summary and histogram families with ``labels()``
 and renders the Prometheus text exposition the ``prometheus_client``
 library would for the same families and calls (``_total`` counters,
@@ -569,6 +569,45 @@ class Metrics:
             "failed; retried via the broadcast redelivery buffer), or "
             "\"untracked\" (tracker at GUBER_REDELIVERY_LIMIT when the "
             "key updated — its state will not ride a handoff).",
+            ["result"], registry=reg)
+        # Live resharding (parallel/reshard.py): transition outcomes, the
+        # running transition's phase, the serving shard count, the verify
+        # phase's damage counters and the transition wall time.
+        self.reshard_transitions = Counter(
+            "gubernator_tpu_reshard_transitions",
+            "Reshard transitions by terminal outcome: \"committed\" (new "
+            "layout serving), \"aborted\" (rolled back to the old "
+            "layout), \"interrupted\" (a begin record with no terminal "
+            "record found at startup — the process died mid-transition "
+            "and restarted on the last snapshot).",
+            ["result"], registry=reg)
+        self.reshard_phase = Gauge(
+            "gubernator_tpu_reshard_phase",
+            "Current reshard protocol phase: 0=idle, 1=freeze, 2=drain, "
+            "3=relayout, 4=cutover, 5=verify (returns to 0 on commit or "
+            "abort).",
+            registry=reg)
+        self.reshard_shards = Gauge(
+            "gubernator_tpu_reshard_shards",
+            "Serving shard count after the most recent committed "
+            "transition (the engine's live mesh width).",
+            registry=reg)
+        self.reshard_state_loss = Counter(
+            "gubernator_tpu_reshard_state_loss",
+            "Bucket rows live before a transition but missing from the "
+            "post-cutover table (verify phase). Must stay 0; gated at "
+            "ABSOLUTE_ZERO by the reshard_live bench rung.",
+            registry=reg)
+        self.reshard_double_served = Counter(
+            "gubernator_tpu_reshard_double_served",
+            "Keys resident on more than one shard after a cutover "
+            "(verify phase) — each is a potential double-serve. Must "
+            "stay 0; gated at ABSOLUTE_ZERO by the reshard_live rung.",
+            registry=reg)
+        self.reshard_duration = Summary(
+            "gubernator_tpu_reshard_duration",
+            "Wall time of one reshard transition (freeze through verify) "
+            "in seconds, by terminal outcome.",
             ["result"], registry=reg)
         self.loop_restarts = Counter(
             "gubernator_loop_restarts",

@@ -6,25 +6,26 @@ main path does not reach in ``chip_smoke.py``: widths that are not a
 multiple of a block, column slices, merged-tick launches into row slices
 of one journal, the merged tick at its tile shapes and at the fold's
 32-bit division edges, rows narrower than 16 words, out-of-range and
-guard-row slots, ragged windows with empty shards, inert lanes and slots outside
-their shard, the chained duplicate tick on Zipf windows, one-segment
-windows and EDGE windows at 1-4096 lanes and at its threshold and chunk
-shapes (CHAIN_CASES), the engine on a tiny table that
-fills and reclaims (with herd windows on the grouped plan and random
-windows on the chained tick, and random Zipf windows with long segments),
-its state exported and loaded, layered
-windows on a 2^14-slot table, the row gather at every tail of its
-32-row warps (0-625000 rows, 16- and 6-word rows, clamped slots), the
-mesh engine on four tiny shards and its state paths (installs, a Store,
-an items round trip) against the CPU mesh, the
-tiered engine (Store, cold and SSD tiers) against the same engine on the
-CPU, background reclaim under concurrent ticks, and a 3-node cluster
-of card engines (against one of CPU engines on a seeded sequence, and
-GLOBAL counts reconciled exactly), and the GLOBAL mesh's kernels B.8a-
-B.8d at phase 9's shapes and on small meshes (odd node counts, padding
-lanes, overflowing probes) and a card ``MeshGlobalEngine`` against a CPU
-one on phase 9 D's sequence.  They import nothing of JAX, so
-they run where JAX is not installed:
+guard-row slots, ragged windows with empty shards, inert lanes and slots
+outside their shard, the mesh's duplicate tile tick (B.6) on every
+tile_window kind, a card mesh resharded 8 -> 3 -> 8 against a CPU one, the
+chained duplicate tick on Zipf windows, one-segment windows and EDGE
+windows at 1-4096 lanes and at its threshold and chunk shapes
+(CHAIN_CASES), the engine on a tiny table that fills and reclaims (with
+herd windows on the grouped plan and random windows on the chained tick,
+and random Zipf windows with long segments), its state exported and
+loaded, layered windows on a 2^14-slot table, the row gather at every tail
+of its 32-row warps (0-625000 rows, 16- and 6-word rows, clamped slots),
+the mesh engine on four tiny shards and its state paths (installs, a
+Store, an items round trip) against the CPU mesh, the tiered engine
+(Store, cold and SSD tiers) against the same engine on the CPU, background
+reclaim under concurrent ticks, and a 3-node cluster of card engines
+(against one of CPU engines on a seeded sequence, and GLOBAL counts
+reconciled exactly), and the GLOBAL mesh's kernels B.8a-B.8d at phase 9's
+shapes and on small meshes (odd node counts, padding lanes, overflowing
+probes) and a card ``MeshGlobalEngine`` against a CPU one on phase 9 D's
+sequence.  They import nothing of JAX, so they run where JAX is not
+installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -45,6 +46,8 @@ from gubernator_tpu_torch.ops.raggedtick import (
     fused_ragged_tick, fused_ragged_tick_plain)
 from gubernator_tpu_torch.ops.sortedtick import (
     fused_sorted_tick, fused_sorted_tick_plain, kernel_config)
+from gubernator_tpu_torch.ops.tiletick import (
+    mesh_tile_tick, mesh_tile_tick_plain)
 from gubernator_tpu_torch.types import GlobalUpdate, RateLimitResponse
 from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
 
@@ -543,6 +546,7 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
     assert eng.metric_grouped_ticks == 3
     launches = gt.kernel_launches()
     assert launches.pop("fused_ragged_tick") == 0
+    assert launches.pop("mesh_tile_tick") == 0  # no mesh here
     assert launches.pop("lease_apply") == 0  # no lease window here
     for name in GLOBAL_KERNELS:  # no GLOBAL mesh here
         assert launches.pop(name) == 0
@@ -669,6 +673,36 @@ def test_fused_ragged_tick_matches_plain(dev, shards, local, lanes, skew):
     assert (t_k[local::local + 1] == 0).all()  # guard rows are never written
 
 
+# The mesh's duplicate tile tick (B.6): a one-key herd over a whole
+# extent, runs crossing the walk's chunk boundaries, mixed eligible and
+# ineligible groups, RESET rows, expired heads, skewed extents, invalid
+# lanes inside the extents and each of the five algorithms.
+TILE_CASES = ([("herd", 4096), ("cross", 4096), ("mixed", 4096),
+               ("mixed", 96), ("reset", 2048), ("expired", 2048),
+               ("skewed", 2048), ("invalid", 700)]
+              + [(a, 1024) for a in cs.ALGORITHMS])
+
+
+@pytest.mark.parametrize("kind,lanes", TILE_CASES)
+def test_mesh_tile_tick_matches_plain(dev, kind, lanes):
+    shards, local = 4, 1024
+    rng = np.random.default_rng(lanes + len(kind))
+    state = cs.random_state(rng, shards * local)
+    m, offs, tile = cs.tile_window(E, rng, shards, local, lanes, state, kind)
+    table = sharded_table_from_columns(state, shards, local, dev)
+    plain = table.clone()
+    mt = torch.from_numpy(m).to(dev)
+    ot = torch.from_numpy(offs).to(dev)
+    rk = torch.zeros(1, dtype=torch.int64, device=dev)
+    rp = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = mesh_tile_tick(table, mt, ot, shards, local, tile, cs.NOW, rk)
+    want = mesh_tile_tick_plain(plain, mt, ot, shards, local, tile, cs.NOW,
+                                rp, torch.empty_like(got))
+    assert torch.equal(got, want)
+    assert torch.equal(table, plain)
+    assert int(rk) == int(rp)
+
+
 def test_mesh_engine_on_the_card_matches_the_cpu_engine(dev):
     gt.reset_kernel_launches()
     rng = np.random.default_rng(13)
@@ -692,7 +726,8 @@ def test_mesh_engine_on_the_card_matches_the_cpu_engine(dev):
     assert eng.metric_rank_rounds == ref.metric_rank_rounds > 0
     assert eng.metric_unexpired_evictions > 0
     launches = gt.kernel_launches()
-    # The mesh's duplicate tiles run rank rounds of the fused tick.
+    # The mesh's duplicate windows take one mesh_tile_tick launch each.
+    assert launches.pop("fused_tick") == 0
     assert launches.pop("fused_merged_tick") == 0
     assert launches.pop("fused_sorted_tick") == 0
     assert launches.pop("lease_apply") == 0  # the mesh has no lease columns
@@ -700,6 +735,42 @@ def test_mesh_engine_on_the_card_matches_the_cpu_engine(dev):
         assert launches.pop(name) == 0
     assert all(v > 0 for v in launches.values())
     assert torch.equal(eng.table.cpu(), ref.table)
+
+
+def test_mesh_reshard_on_the_card_matches_the_cpu_mesh(dev):
+    """8 -> 3 -> 8 on a card mesh and a CPU one fed the same windows
+    (unique, random and herd): equal tables and slot maps after each
+    cutover (the 8 -> 3 one overflows a shard), equal answers after."""
+    rng = np.random.default_rng(29)
+    engs = [MeshTickEngine(n_shards=8, local_capacity=16, max_batch=64,
+                           device=d) for d in (dev, "cpu")]
+    now = cs.NOW
+
+    def window(step):
+        if step % 3 == 2:
+            return cs.herd_columns(reqcols, b"h", rng.integers(0, 12, 64))
+        return cs.window_columns(reqcols, rng, b"k",
+                                 rng.integers(0, 150, 64), now)
+
+    def same():
+        card, cpu = engs
+        assert torch.equal(card.table.cpu(), cpu.table)
+        for a, b in zip(card.slots, cpu.slots):
+            assert a.keys_batch(np.arange(card.local_capacity)) == \
+                b.keys_batch(np.arange(cpu.local_capacity))
+        np.testing.assert_array_equal(card._last_access, cpu._last_access)
+
+    for n_to in (3, 8):
+        for step in range(6):
+            now += 500
+            cols = window(step)
+            got, want = (e.process_columns(cols, now) for e in engs)
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[1] == want[1]
+        infos = [e.reshard(n_to, now=now + 10) for e in engs]
+        assert infos[0] == infos[1] and infos[0]["live_items"] > 0
+        same()
+    assert engs[0].metric_rank_rounds == engs[1].metric_rank_rounds
 
 
 def test_tiered_engine_on_the_card_matches_the_cpu_engine(dev, tmp_path):

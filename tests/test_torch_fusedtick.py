@@ -239,6 +239,7 @@ def test_launches_counted_by_power_of_two_width():
     gt.reset_kernel_launches()
     assert gt.kernel_launches_by_width() == {
         "fused_tick": {}, "fused_merged_tick": {}, "fused_ragged_tick": {},
-        "fused_sorted_tick": {}, "lease_apply": {}, "global_accumulate": {},
+        "fused_sorted_tick": {}, "mesh_tile_tick": {}, "lease_apply": {},
+        "global_accumulate": {},
         "global_dense_reconcile": {}, "global_sparse_probe": {},
         "global_sparse_apply": {}}

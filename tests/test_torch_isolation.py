@@ -193,8 +193,8 @@ def test_cpu_tensors_take_the_plain_paths_and_launch_no_kernel():
     assert gmesh.metric_dense_fallbacks == 1
     assert gt.kernel_launches() == {
         "fused_tick": 0, "fused_merged_tick": 0, "fused_ragged_tick": 0,
-        "fused_sorted_tick": 0, "gather_rows": 0, "scatter_rows": 0,
-        "lease_apply": 0, "global_accumulate": 0,
+        "fused_sorted_tick": 0, "mesh_tile_tick": 0, "gather_rows": 0,
+        "scatter_rows": 0, "lease_apply": 0, "global_accumulate": 0,
         "global_dense_reconcile": 0, "global_sparse_probe": 0,
         "global_sparse_apply": 0}
 

@@ -165,7 +165,7 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     rowtable.row_evict(table, slots[:2])
     assert gt.kernel_launches() == {
         "fused_tick": 0, "fused_merged_tick": 0, "fused_ragged_tick": 0,
-        "fused_sorted_tick": 0, "gather_rows": 0, "scatter_rows": 0,
-        "lease_apply": 0, "global_accumulate": 0,
+        "fused_sorted_tick": 0, "mesh_tile_tick": 0, "gather_rows": 0,
+        "scatter_rows": 0, "lease_apply": 0, "global_accumulate": 0,
         "global_dense_reconcile": 0, "global_sparse_probe": 0,
         "global_sparse_apply": 0}
