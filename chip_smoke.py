@@ -187,6 +187,50 @@ Phases, one output line each:
    same windows and transitions (8 -> 4 -> 8 -> 3 -> 8), equal answers,
    tables and slot maps after every step.
 
+11. multi-region federation (the reference's ``federation_2r`` rung):
+   four daemons over loopback gRPC in two regions (``us``, ``us``,
+   ``eu``, ``eu``; ``Cluster(federation=True)``, a 0.02 s
+   ``federation_interval``), each over a ``TickEngine(capacity=2**21,
+   max_batch=4096)`` on the card, each region's two nodes prefilled with
+   their ring shares of 2M ``bench_`` keys.  A: 32 serial batches of
+   1000 MULTI_REGION hits over 8192 keys, round robin over the nodes;
+   ``federation_converge_ms`` (the last hit to nothing pending or in
+   flight anywhere), every hit key's count on every node of both regions,
+   envelopes sent and applied, records an envelope (mean, max), 0
+   redeliveries, 0 degraded answers, decisions/s.  B: a WAN partition
+   (every link between the regions cut both ways): the loss key takes
+   120 + 90 hits, the over key (limit 60) is driven to OVER_LIMIT on both
+   sides, 4096 keys take 2 hits on each side; then the heal: hit loss 0,
+   the over-admission ratio (at most 1.0), redeliveries, each envelope
+   applied once, seconds from the heal to convergence, the exact union on
+   the 4096 keys.  C: a 2-region cluster of 2^14-slot card engines
+   against one of CPU engines on a seeded serial MULTI_REGION sequence
+   (token and leaky keys, explicit created_at, RESET, negative hits, one
+   partition and heal), equal answers at every step and equal final
+   answers on every node, both regions' owners agreeing.  Launches by
+   path: prefill, global, apply (B.1 asserted), partition, heal, compare.
+
+12. the shard autoscaler.  A (the reference's ``diurnal_autoscale`` rung,
+   run in phase 10 on its engine before the tick loop closes): a
+   compressed day of 96 control windows of 15 simulated minutes on a
+   ``ManualClock``, the rung's demand trace and queueing model,
+   ``PolicyConfig(windows=3, target_p99_ms=5, queue_high=100,
+   hysteresis=0.5, occupancy_low=0.3, min_shards=4, max_shards=8)``,
+   cooldowns 1800 / 3600 s, 4 an hour, dry run off; every actuation a
+   live transition of the 10M-key mesh while a load thread sends
+   4096-wide Zipf(1.2) windows: committed transitions (at least 2), state
+   loss (the coordinator's audit and phase 10's 65536-key sweep), flaps,
+   the p99 of windows ticked while a transition held the lock, vetoes by
+   guardrail, retriable sheds, each transition's seconds and frozen
+   seconds, ``chip_seconds_saved``, the B.2 launches.  B: a daemon on the
+   card over an 8-shard mesh with its own autoscaler (0.2 s interval, dry
+   run, 4 to 8 shards): after ten intervals ``/debug/autoscaler`` holds
+   dry-run ``act`` decisions and the node 8 shards, ``/debug/state``
+   carries ``autoscaler``; the coordinator's lock held for five
+   intervals (reshard_busy vetoes); then dry run off: one transition
+   8 -> 4 through ``V1Instance.reshard``, its keys answering as before;
+   the three counter families moved on ``/metrics``.
+
 Phase 2 also times one launch of an empty kernel (``empty_launch_ms``,
 ``csrc/empty.cu``) and B.9, the lease-column window
 (``csrc/lease_apply.cu``), on set and delta windows of 4096 and 65536
@@ -197,9 +241,9 @@ GLOBAL mesh's kernels bit for bit against their plain versions: B.8a
 global_mesh_8's windows, B.8c (sparse probe) and B.8d (sparse apply) at
 8 x 2^22 with 512 union slots (a reconcile consumes its accumulators, so
 B.8b and B.8d are timed with a restore before each call and the
-restore's own time taken off).  Phases 3-10 also report each path's tick and lease-window launches by lane
-width (``launches_by_width``, power-of-two buckets), summed over them on
-the ``launch_widths`` line.  Then the kernel table as one JSON line, the
+restore's own time taken off).  Phases 3-12 also report each path's
+tick and lease-window launches by lane width (``launches_by_width``,
+power-of-two buckets), summed over them on the ``launch_widths`` line.  Then the kernel table as one JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device the script exits non-zero before
 printing a result.
@@ -4906,6 +4950,21 @@ def global_phase(torch, dev, grpc_converge_ms=None):
     return info, total
 
 
+# Phase 12: the shard autoscaler.  A: the reference's diurnal_autoscale
+# rung (bench.py:2910-3130) on phase 10's mesh before it closes; B: a port
+# daemon's own autoscaler, dry run and then armed.
+DAY_STEP_S = 900.0       # one control window: 15 simulated minutes
+DAY_STEPS = 96           # the compressed day
+DAY_CAP = 100.0          # offered windows/s one shard serves (the model)
+DAY_BASE_MS = 1.0        # the model's p99 at no load
+DAY_MAX_PER_HOUR = 4
+DAY_SERVE_S = 0.25       # load served on the new layout after a transition
+DAY_POLICY = dict(windows=3, target_p99_ms=5.0, queue_high=100,
+                  hysteresis=0.5, occupancy_low=0.3, min_shards=4,
+                  max_shards=8)
+DAY_COOLDOWNS = (1800.0, 3600.0)   # up, down
+
+
 # Phase 10: live resharding of phase 4's mesh (8 x 1.25M slots, 10M keys)
 # behind a tick loop, the reference's reshard_live rung at a deployment's
 # size; 4096-wide Zipf(1.2) windows from a load thread; 8 -> 4 -> 8.
@@ -4918,6 +4977,33 @@ RESHARD_BACKOFF_S = 0.01       # the load's wait after a retriable shed
 # Part B: the card mesh against the CPU one at 8 x 2^14, filled.
 RESHARD_COMPARE_LOCAL = 1 << 14
 RESHARD_COMPARE_STEPS = (4, 8, 3, 8)
+
+
+def record_freezes(loop) -> list:
+    """Wrap ``loop``'s freeze and unfreeze to record ``(kind,
+    perf_counter)`` events into the returned list, for the rest of the
+    loop's life."""
+    events = []
+    freeze, unfreeze = loop.freeze, loop.unfreeze
+
+    def on_freeze(shed_peers=False):
+        events.append(("freeze", time.perf_counter()))
+        freeze(shed_peers)
+
+    def on_unfreeze():
+        unfreeze()
+        events.append(("unfreeze", time.perf_counter()))
+
+    loop.freeze, loop.unfreeze = on_freeze, on_unfreeze
+    return events
+
+
+def frozen_seconds(events, t0: float, t1: float):
+    """The first freeze at or after ``t0`` to the last unfreeze by ``t1``
+    (+1 s): how long a transition held clients off."""
+    fz = [t for k, t in events if k == "freeze" and t >= t0]
+    uf = [t for k, t in events if k == "unfreeze" and t <= t1 + 1.0]
+    return (uf[-1] - fz[0]) if fz and uf else None
 
 
 def wall_ms() -> int:
@@ -5039,7 +5125,8 @@ def reshard_phase(torch, dev, n_shards=RESHARD_SHARDS,
                   prefill_width=32768, steps=RESHARD_STEPS,
                   sweep=RESHARD_SWEEP, settle_s=RESHARD_SETTLE_S,
                   compare_local=RESHARD_COMPARE_LOCAL,
-                  compare_steps=RESHARD_COMPARE_STEPS):
+                  compare_steps=RESHARD_COMPARE_STEPS, day_steps=DAY_STEPS,
+                  day_serve_s=DAY_SERVE_S):
     """Phase 10, live resharding (the reference's ``reshard_live`` rung).
     A: phase 4's mesh prefilled to capacity at the wall clock, behind a
     ``TickLoop``; a load thread sends ``width``-wide Zipf(1.2) windows
@@ -5050,9 +5137,12 @@ def reshard_phase(torch, dev, n_shards=RESHARD_SHARDS,
     key where its route puts it), its seconds, the frozen seconds, the
     p99 of load windows answered while it ran (ticked or shed) and of
     those ticked, the retriable sheds, the B.2 launches, and the card's
-    peak allocated bytes.  B: part B
+    peak allocated bytes.  Then phase 12 A on the same engine, tick loop
+    and coordinator before the loop closes: the compressed day of
+    ``day_steps`` control windows (:func:`diurnal_day`) with the load
+    over the same keys and the same sweep.  B: part B
     (reshard_compare).  Returns ``(info, launches summed over the
-    phase's paths)``."""
+    phase's paths, phase 12 A's info with its launches)``."""
     import threading
 
     import gubernator_tpu_torch as gt
@@ -5087,18 +5177,7 @@ def reshard_phase(torch, dev, n_shards=RESHARD_SHARDS,
 
     m = Metrics()
     loop = TickLoop(eng, batch_wait=0.0005, batch_limit=width, metrics=m)
-    events = []
-    freeze, unfreeze = loop.freeze, loop.unfreeze
-
-    def on_freeze(shed_peers=False):
-        events.append(("freeze", time.perf_counter()))
-        freeze(shed_peers)
-
-    def on_unfreeze():
-        unfreeze()
-        events.append(("unfreeze", time.perf_counter()))
-
-    loop.freeze, loop.unfreeze = on_freeze, on_unfreeze
+    events = record_freezes(loop)
     served, stop, failures = [], threading.Event(), []
 
     def send_load():
@@ -5140,9 +5219,6 @@ def reshard_phase(torch, dev, n_shards=RESHARD_SHARDS,
                     torch.cuda.synchronize()
                     peak = torch.cuda.max_memory_allocated(dev)
                     g1 = gt.kernel_launches()
-                    fz = [t for k, t in events if k == "freeze" and t >= t0]
-                    uf = [t for k, t in events if k == "unfreeze"
-                          and t <= t1 + 1.0]
                     # Windows answered while it ran: ticked, or shed
                     # with the retriable status.
                     during = [(b - a, sh) for a, b, sh in served
@@ -5161,7 +5237,7 @@ def reshard_phase(torch, dev, n_shards=RESHARD_SHARDS,
                         "live_items": res["live_items"],
                         "duration_s": res.get("duration_s"),
                         "wall_s": t1 - t0,
-                        "frozen_s": (uf[-1] - fz[0]) if fz and uf else None,
+                        "frozen_s": frozen_seconds(events, t0, t1),
                         "answered_during": len(during),
                         "served_during": len(ticked),
                         "p99_during_ms": (float(np.percentile(
@@ -5185,12 +5261,38 @@ def reshard_phase(torch, dev, n_shards=RESHARD_SHARDS,
             finally:
                 stop.set()
                 loader.join(timeout=180)
-                loop.close()
-        if failures:
-            raise failures[0]
-        assert not loader.is_alive()
-        info["journal"] = [(r.phase, r.from_shards, r.to_shards)
-                           for r in TransitionLog(root).records()]
+        try:
+            if failures:
+                raise failures[0]
+            assert not loader.is_alive()
+            info["journal"] = [(r.phase, r.from_shards, r.to_shards)
+                               for r in TransitionLog(root).records()]
+
+            def committed():
+                return m.sample("gubernator_tpu_reshard_transitions_total",
+                                {"result": "committed"})
+
+            info["metrics"] = {
+                "committed": committed(),
+                "shards": m.sample("gubernator_tpu_reshard_shards")}
+            day_launches, day_widths = {}, {}
+            with counted(torch, day_launches, "autoscale", day_widths):
+                day = diurnal_day(
+                    eng, loop, coord,
+                    lambda drng: herd_columns(
+                        reqcols, b"r", traffic[(drng.zipf(1.2, width) - 1)
+                                               % len(traffic)],
+                        token_prefill=True),
+                    lambda: sweep_rows(eng, b"r", swept),
+                    serve_s=day_serve_s, steps=day_steps)
+            day["launches_by_path"] = day_launches
+            day["launches_by_width"] = day_widths
+            day["b2_launches"] = {k: day_launches["autoscale"][k] for k in (
+                "gather_rows", "scatter_rows")}
+            day["metrics_committed"] = (committed()
+                                        - info["metrics"]["committed"])
+        finally:
+            loop.close()
     for t in transitions:
         assert t["committed"], t
         assert t["state_loss"] == t["double_served"] == 0, t
@@ -5199,11 +5301,8 @@ def reshard_phase(torch, dev, n_shards=RESHARD_SHARDS,
     info["transitions"] = transitions
     info["load_windows"] = len(served)
     info["load_sheds"] = int(sum(sh for _, _, sh in served))
-    info["metrics"] = {
-        "committed": m.sample("gubernator_tpu_reshard_transitions_total",
-                              {"result": "committed"}),
-        "shards": m.sample("gubernator_tpu_reshard_shards")}
     assert info["metrics"]["committed"] == len(steps)
+    assert day["metrics_committed"] == day["autoscale_transitions"], day
     del eng, coord
     with path("compare"):
         info["compare"] = reshard_compare(
@@ -5214,7 +5313,796 @@ def reshard_phase(torch, dev, n_shards=RESHARD_SHARDS,
     info["launches_by_width"] = widths
     total = {k: sum(p[k] for p in launches.values())
              for k in launches["prefill"]}
+    return info, total, day
+
+
+# Phase 11: multi-region federation, the reference's federation_2r rung
+# (bench.py:1971-2123) at a deployment's size: two regions of two nodes.
+FED_DCS = ("us", "us", "eu", "eu")
+FED_KEYS = 2_000_000          # bench_ keys each region holds
+FED_INTERVAL = 0.02           # federation_interval, the rung's
+FED_BATCHES = 32              # A: serial 1000-request MULTI_REGION batches
+FED_UNIFORM = 8192            # A: the keys they draw from
+FED_LOSS_HITS = (("us", 120), ("eu", 90))   # B: the rung's non-FAST sizes
+FED_OVER_LIMIT = 60
+FED_PARTITION_KEYS = 4096     # B: keys hit on both sides of the partition
+FED_PARTITION_HITS = 2
+FED_COMPARE_CAPACITY = 1 << 14
+FED_COMPARE_STEPS = 24
+MR_BIT = 16                   # Behavior.MULTI_REGION
+
+
+def fed_resilience():
+    """The rung's fast breaker and backoff knobs."""
+    from gubernator_tpu_torch.resilience import ResilienceConfig
+
+    return ResilienceConfig(
+        breaker_open_for=0.05, breaker_open_cap=0.1, breaker_min_requests=3,
+        forward_backoff_base=0.002, forward_backoff_cap=0.02)
+
+
+def isolate_regions(inj, c) -> None:
+    """Cut every link between the two regions, both ways (directional
+    schedules: each region's own links stay up)."""
+    for da in c.daemons:
+        for db in c.daemons:
+            if da.conf.data_center == "us" and db.conf.data_center == "eu":
+                inj.set_fault(db.conf.grpc_listen_address,
+                              from_peer=da.advertise_address, partition=True)
+                inj.set_fault(da.conf.grpc_listen_address,
+                              from_peer=db.advertise_address, partition=True)
+
+
+def fed_totals(c, name, labels=None) -> float:
+    return sum(d.metrics.sample(name, labels) for d in c.daemons)
+
+
+def fed_counters(c) -> dict:
+    env = "gubernator_tpu_federation_envelopes_total"
+    return {
+        "sent": fed_totals(c, env, {"result": "sent"}),
+        "applied": fed_totals(c, env, {"result": "applied"}),
+        "duplicates": fed_totals(c, env, {"result": "duplicate"}),
+        "redeliveries": fed_totals(
+            c, "gubernator_tpu_federation_redeliveries_total"),
+        "degraded_answers": fed_totals(
+            c, "gubernator_tpu_federation_degraded_answers_total")}
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+async def region_answers(c, ids, limit=SERVE_LIMIT) -> list:
+    """Every node's hits-0 MULTI_REGION answer (status, remaining) for
+    ``bench_`` keys ``ids``."""
+    out = []
+    for d in c.daemons:
+        rem = []
+        for s in range(0, len(ids), SERVE_BATCH):
+            rem += [(r.status, r.remaining) for r in await ask(d, raw_batch(
+                b"bench", ids[s:s + SERVE_BATCH], hits=0, behavior=MR_BIT,
+                limit=limit))]
+        out.append(rem)
+    return out
+
+
+def federation_phase(torch, dev, keys=FED_KEYS, capacity=CLUSTER_CAPACITY,
+                     window=4096, batches=FED_BATCHES, uniform=FED_UNIFORM,
+                     partition_keys=FED_PARTITION_KEYS,
+                     compare_capacity=FED_COMPARE_CAPACITY,
+                     compare_steps=FED_COMPARE_STEPS):
+    """Phase 11: four daemons over loopback gRPC in two regions
+    (``Cluster(federation=True)``, ``FED_DCS``), each over a ``capacity``
+    engine on ``dev``, each region's nodes prefilled with their ring
+    shares of ``keys`` ``bench_`` keys.  A: ``batches`` serial batches of
+    1000 MULTI_REGION hits over ``uniform`` keys, round robin over the
+    nodes, then every key's count on every node of both regions; B: a WAN
+    partition (the loss key, the over key, ``partition_keys`` keys hit on
+    both sides) and its heal; C: the card cluster against a CPU cluster
+    (``compare_federated``).  Returns ``(info, launches summed over the
+    phase's paths)``."""
+    import asyncio
+
+    return asyncio.run(_federation(torch, dev, keys, capacity, window,
+                                   batches, uniform, partition_keys,
+                                   compare_capacity, compare_steps))
+
+
+async def _federation(torch, dev, keys, capacity, window, batches, uniform,
+                      partition_keys, compare_capacity, compare_steps):
+    from gubernator_tpu_torch.cluster import Cluster
+    from gubernator_tpu_torch.config import BehaviorConfig
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.ops.engine import resolve_ticks
+    from gubernator_tpu_torch.resilience import FaultInjector
+
+    rng = np.random.default_rng(SEED + 50)
+    info, launches, widths = {"nodes": len(FED_DCS), "regions": 2,
+                              "keys_a_region": keys, "capacity": capacity,
+                              "federation_interval_s": FED_INTERVAL}, {}, {}
+
+    def path(name):
+        return counted(torch, launches, name, widths)
+
+    inj = FaultInjector(seed=SEED + 51)
+    behaviors = BehaviorConfig(batch_timeout=BATCH_TIMEOUT_S,
+                               global_sync_wait=0.02, batch_wait=0.001)
+    c = await Cluster.start(
+        len(FED_DCS), datacenters=list(FED_DCS), cache_size=capacity,
+        tpu_max_batch=window, behaviors=behaviors,
+        resilience=fed_resilience(), fault_injector=inj, federation=True,
+        federation_interval=FED_INTERVAL)
+    sizes = []
+    try:
+        engines = [d.instance.engine for d in c.daemons]
+        assert all(e.table.device.type == dev.type for e in engines)
+        for d in c.daemons:
+            fed = d.instance.federation
+            # Four nodes and every caller share one interpreter: an
+            # envelope's RPC deadline is phase 7's forwarded batch's.
+            fed.timeout = BATCH_TIMEOUT_S
+            receive = fed.receive
+
+            async def counting(env, receive=receive):
+                sizes.append(len(env.records))
+                return await receive(env)
+
+            fed.receive = counting
+        # Each region's ring shares of every key (FNV-1 in Python).
+        t0 = time.perf_counter()
+        blob, _ = key_blob(b"bench_", np.arange(keys))
+        width = len(b"bench_") + 8
+        names = [blob[i * width:(i + 1) * width].decode()
+                 for i in range(keys)]
+        where = {d.conf.grpc_listen_address: n
+                 for n, d in enumerate(c.daemons)}
+        node_of = {}
+        for region, first in (("us", 0), ("eu", 2)):
+            node_of[region] = np.fromiter(
+                (where[p.info.grpc_address] for p in
+                 c.daemons[first].instance.local_picker.get_batch(names)),
+                np.int8, count=keys)
+        del names, blob
+        info["ring_lookup_s"] = time.perf_counter() - t0
+        shares = [int((node_of[dc] == n).sum())
+                  for n, dc in enumerate(FED_DCS)]
+        info["shares"] = shares
+        assert max(shares) <= capacity - capacity // 64, shares
+        t0 = time.perf_counter()
+        with path("prefill"):
+            for n, eng in enumerate(engines):
+                mine = np.flatnonzero(node_of[FED_DCS[n]] == n)
+                pending = []
+                for s in range(0, len(mine), window):
+                    ids = mine[s:s + window]
+                    pending.append(eng.submit_cols(serve_columns(
+                        reqcols, b"bench", ids, algorithm=ids & 1)))
+                    if len(pending) == 16 or s + window >= len(mine):
+                        resolve_ticks([h for b in pending
+                                       for h in b.handles()])
+                        for b in pending:
+                            mat, errs = b.matrix()
+                            assert not errs
+                            assert (mat[2] == SERVE_LIMIT - 1).all()
+                        pending = []
+                assert len(eng.slots) == shares[n]
+        info["prefill_s"] = time.perf_counter() - t0
+
+        # A: healthy exchange.  Token keys (even ids), one-hour buckets of
+        # a million, each prefilled with one hit in each region.
+        pool = rng.choice(np.arange(0, keys, 2), uniform, replace=False)
+        sent = np.zeros(uniform, np.int64)
+        c0 = fed_counters(c)
+        lat = []
+        with path("global"):
+            t0 = time.perf_counter()
+            for j in range(batches):
+                pick = rng.integers(0, uniform, SERVE_BATCH)
+                np.add.at(sent, pick, 1)
+                t1 = time.perf_counter()
+                await ask(c.daemons[j % len(c.daemons)], raw_batch(
+                    b"bench", pool[pick], behavior=MR_BIT))
+                lat.append((time.perf_counter() - t1) * 1e3)
+            t_last = time.perf_counter()
+        with path("apply"):
+            await c.wait_for_quiet(timeout=300)
+            converge_ms = (time.perf_counter() - t_last) * 1e3
+        # A non-owner holds a GLOBAL key's state once its owner broadcast
+        # it: every node answers every key that took hits.
+        hit = np.flatnonzero(sent)
+        answers = await region_answers(c, pool[hit])
+        want = [(0, SERVE_LIMIT - 1 - int(h)) for h in sent[hit]]
+        errors = [sum(a != w for a, w in zip(node, want))
+                  for node in answers]
+        wrong = [(n, int(pool[hit[i]]), a, w)
+                 for n, node in enumerate(answers)
+                 for i, (a, w) in enumerate(zip(node, want)) if a != w]
+        ca = delta(fed_counters(c), c0)
+        info["healthy"] = {
+            "batches": batches, "keys": uniform, "hits": int(sent.sum()),
+            "keys_checked": int(len(hit)),
+            "decisions_per_s": batches * SERVE_BATCH / (t_last - t0),
+            "serial_p50_ms": float(np.percentile(lat, 50)),
+            "serial_p99_ms": float(np.percentile(lat, 99)),
+            "federation_converge_ms": converge_ms,
+            "count_errors_by_node": errors, "count_errors": wrong[:8],
+            "envelopes_sent": ca["sent"], "envelopes_applied": ca["applied"],
+            "records_per_envelope_mean": float(np.mean(sizes)),
+            "records_per_envelope_max": int(max(sizes)),
+            "redeliveries": ca["redeliveries"],
+            "degraded_answers": ca["degraded_answers"],
+            "duplicates": ca["duplicates"]}
+        info["federation_converge_ms"] = converge_ms
+        batch_limit = c.daemons[0].instance.federation.batch_limit
+        assert not any(errors), info["healthy"]
+        assert ca["applied"] == ca["sent"] > 0, ca
+        assert max(sizes) <= batch_limit, max(sizes)
+        assert ca["redeliveries"] == ca["degraded_answers"] == 0, ca
+
+        # B: partition and heal.
+        info["partition"] = await partition_round(
+            c, inj, rng, keys, pool, partition_keys, path)
+    finally:
+        await c.stop()
+    del engines, c
+
+    with path("compare"):
+        info["compare"] = await compare_federated(
+            compare_capacity, window, compare_steps)
+    info["launches_by_path"] = launches
+    info["launches_by_width"] = widths
+    total = {}
+    for per in launches.values():
+        for name, n in per.items():
+            total[name] = total.get(name, 0) + n
+    assert launches["apply"]["fused_tick"] > 0, "no B.1 launch on apply"
     return info, total
+
+
+async def partition_round(c, inj, rng, keys, used, partition_keys, path):
+    """The rung's partition on the live cluster: a warm-up hit each side
+    on the loss key, every link between the regions cut, the loss key's
+    hits on each region's owner, the over key driven to OVER_LIMIT on
+    each side, ``partition_keys`` keys taking ``FED_PARTITION_HITS`` on
+    each side; then the heal, and every count on every node."""
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    name = "fedbench"
+
+    def mr(key, hits, limit):
+        return RateLimitRequest(name=name, unique_key=key, hits=hits,
+                                limit=limit, duration=SERVE_DURATION,
+                                behavior=MR_BIT)
+
+    owners = {r: {k: c.find_owning_daemon_in_region(name, k, r)
+                  for k in ("loss", "over")} for r in ("us", "eu")}
+    region_nodes = {r: [d for d in c.daemons if d.conf.data_center == r]
+                    for r in ("us", "eu")}
+    for r in ("us", "eu"):
+        (out,) = await cluster_call(owners[r]["loss"],
+                                    [mr("loss", 1, SERVE_LIMIT)])
+        assert out.error == ""
+    sent = 2
+    await c.wait_for_quiet(timeout=120)
+    free = np.setdiff1d(np.arange(0, keys, 2), used)
+    part = rng.choice(free, partition_keys, replace=False)
+    c0 = fed_counters(c)
+    isolate_regions(inj, c)
+    t0 = time.perf_counter()
+    with path("partition"):
+        for r, n in FED_LOSS_HITS:
+            for _ in range(n):
+                (out,) = await cluster_call(owners[r]["loss"],
+                                            [mr("loss", 1, SERVE_LIMIT)])
+                assert out.error == "", out.error
+                sent += 1
+        admitted = 0
+        for r in ("us", "eu"):
+            for _ in range(2 * FED_OVER_LIMIT):
+                (out,) = await cluster_call(owners[r]["over"],
+                                            [mr("over", 1, FED_OVER_LIMIT)])
+                assert out.error == "", out.error
+                if out.status == 1:
+                    break
+                admitted += 1
+        for r in ("us", "eu"):
+            for j, s in enumerate(range(0, len(part), SERVE_BATCH)):
+                await ask(region_nodes[r][j % 2], raw_batch(
+                    b"bench", part[s:s + SERVE_BATCH],
+                    hits=FED_PARTITION_HITS, behavior=MR_BIT))
+        await c.wait_for_quiet(timeout=120, federation=False)
+        pending = [d.instance.federation.pending_keys() for d in c.daemons]
+    partition_s = time.perf_counter() - t0
+    cp = delta(fed_counters(c), c0)
+    inj.clear()
+    t_heal = time.perf_counter()
+    with path("heal"):
+        await c.wait_for_quiet(timeout=300)
+        heal_s = time.perf_counter() - t_heal
+    landed = {}
+    for r in ("us", "eu"):
+        (out,) = await cluster_call(owners[r]["loss"],
+                                    [mr("loss", 0, SERVE_LIMIT)])
+        landed[r] = SERVE_LIMIT - out.remaining
+    loss = sum(abs(sent - v) for v in landed.values())
+    answers = await region_answers(c, part)
+    want = (0, SERVE_LIMIT - 1 - 2 * FED_PARTITION_HITS)
+    union_errors = [sum(a != want for a in node) for node in answers]
+    ch = delta(fed_counters(c), c0)
+    out = {
+        "loss_key_sent": sent, "loss_key_landed": landed,
+        "federation_hit_loss_after_heal": int(loss),
+        "over_limit": FED_OVER_LIMIT, "over_admitted": admitted,
+        "federation_over_admission_ratio":
+            max(0, admitted - FED_OVER_LIMIT) / FED_OVER_LIMIT,
+        "partition_keys": int(partition_keys),
+        "partition_union_errors_by_node": union_errors,
+        "pending_keys_at_heal": pending, "partition_s": partition_s,
+        "heal_to_converge_s": heal_s,
+        "redeliveries": cp["redeliveries"],
+        "degraded_answers": cp["degraded_answers"],
+        "envelopes_sent": ch["sent"], "envelopes_applied": ch["applied"],
+        "duplicates": ch["duplicates"]}
+    assert loss == 0 and not any(union_errors), out
+    assert out["federation_over_admission_ratio"] <= 1.0, out
+    assert cp["redeliveries"] > 0 and cp["degraded_answers"] > 0, out
+    assert ch["applied"] == ch["sent"], out
+    return out
+
+
+FED_COMPARE_KEYS = 24
+
+
+def fed_item(rng, kk: int, k: int, partitioned: bool) -> dict:
+    """One MULTI_REGION item on key ``kk`` of the compare sequence at step
+    ``k``: even keys token buckets of 1000 over an hour, odd keys leaky
+    buckets of 600 over a minute (ten whole tokens a step); RESET,
+    negative hits and explicit ``created_at`` only outside the partition,
+    where the regions apply every delta in the order it was made.  No
+    item has zero hits: a hits-0 item creates a bucket on the node that
+    answers it and reaches no other node (GLOBAL and federation queue
+    only hits), so the regions' buckets would start at different times."""
+    token = kk % 2 == 0
+    f = dict(name="fm", unique_key=spread_key(700 + kk),
+             hits=int(rng.choice([1, 2, 3] if partitioned
+                                 else [-1, 1, 2, 3])),
+             limit=1000 if token else 600,
+             duration=3_600_000 if token else 60_000,
+             algorithm=0 if token else 1, behavior=MR_BIT)
+    if not partitioned:
+        if rng.random() < 0.15:
+            f["behavior"] |= 8     # RESET_REMAINING
+        if rng.random() < 0.3:
+            f["created_at"] = NOW + 1000 * k - int(rng.integers(0, 500))
+    return f
+
+
+async def drive_federated(c, inj, make, seed: int, clock, steps: int,
+                          cut: tuple, timeout: float = 120.0) -> tuple:
+    """A seeded serial MULTI_REGION sequence through a 2-region cluster
+    under the pinned clock ``clock``: step k a batch to node k % 4, every
+    change waited for in both regions; the regions cut apart from step
+    ``cut[0]`` to ``cut[1]`` (the partition's steps touch only token keys
+    already in both regions, positive hits, no RESET: the deltas a
+    partition can reorder without changing a bucket).  Returns every
+    answer without its ``owner`` metadata and each node's final hits-0
+    answer (status, remaining, limit, reset_time) a key."""
+    rng = np.random.default_rng(seed)
+    answers, touched = [], set()
+    for k in range(steps):
+        clock[0] = NOW + 1000 * k
+        if k == cut[0]:
+            isolate_regions(inj, c)
+        if k == cut[1]:
+            inj.clear()
+        partitioned = cut[0] <= k < cut[1]
+        pool = (sorted(kk for kk in touched if kk % 2 == 0) if partitioned
+                else range(FED_COMPARE_KEYS))
+        pick = rng.choice(list(pool), size=min(len(pool), int(
+            rng.integers(1, 8))), replace=False)
+        fields = [fed_item(rng, int(kk), k, partitioned) for kk in pick]
+        touched.update(int(kk) for kk in pick)
+        answers.append(strip_owner(await cluster_call(
+            c.daemons[k % len(c.daemons)], [make(**f) for f in fields],
+            timeout)))
+        await c.wait_for_quiet(timeout=timeout, federation=not partitioned)
+    clock[0] = NOW + 1000 * steps
+    final = []
+    probes = [fed_item(rng, kk, steps, True) for kk in range(
+        FED_COMPARE_KEYS)]
+    for d in c.daemons:
+        got = await cluster_call(d, [make(**dict(f, hits=0)) for f in probes],
+                                 timeout)
+        final.append([(r.status, r.remaining, r.limit, r.reset_time, r.error)
+                      for r in got])
+    return answers, final
+
+
+async def compare_federated(capacity, window, steps, seed=SEED + 52):
+    """Phase 11 C: a 2-region, 4-node cluster of ``capacity``-slot engines
+    on the card against the same cluster on the CPU, on one seeded serial
+    MULTI_REGION sequence with one partition and heal (drive_federated):
+    the answers of every step equal, every node's final answer a key
+    equal in both clusters, and both regions' owners agreeing."""
+    from gubernator_tpu_torch import types
+    from gubernator_tpu_torch.cluster import Cluster
+    from gubernator_tpu_torch.config import BehaviorConfig
+    from gubernator_tpu_torch.resilience import FaultInjector
+
+    behaviors = BehaviorConfig(batch_timeout=BATCH_TIMEOUT_S,
+                               global_sync_wait=0.02, batch_wait=0.001)
+    cut = (steps // 2, steps // 2 + 4)
+    runs = []
+    with pinned_clock(NOW) as clock:
+        for platform in ("", "cpu"):
+            inj = FaultInjector(seed=seed)
+            c = await Cluster.start(
+                len(FED_DCS), datacenters=list(FED_DCS),
+                cache_size=capacity, tpu_max_batch=window,
+                behaviors=behaviors, resilience=fed_resilience(),
+                fault_injector=inj, federation=True,
+                federation_interval=FED_INTERVAL, tpu_platform=platform)
+            try:
+                runs.append(await drive_federated(
+                    c, inj, types.RateLimitRequest, seed, clock, steps,
+                    cut))
+                owners = [[c.daemons.index(c.find_owning_daemon_in_region(
+                    "fm", spread_key(700 + kk), r))
+                    for kk in range(FED_COMPARE_KEYS)] for r in ("us", "eu")]
+                runs[-1] += (owners,)
+            finally:
+                await c.stop()
+    (card, card_final, card_own), (cpu, cpu_final, cpu_own) = runs
+    for k, (x, y) in enumerate(zip(card, cpu)):
+        assert x == y, f"step {k}: card and CPU clusters answer differently"
+    assert card_final == cpu_final, ("final answers differ", [
+        (n, kk, a, b) for n, (x, y) in enumerate(zip(card_final, cpu_final))
+        for kk, (a, b) in enumerate(zip(x, y)) if a != b][:6])
+    for final, own in ((card_final, card_own), (cpu_final, cpu_own)):
+        for kk in range(FED_COMPARE_KEYS):
+            us, eu = (final[own[i][kk]][kk] for i in (0, 1))
+            assert us == eu, (kk, us, eu)
+    return {"steps": steps, "cut": list(cut),
+            "answers": sum(len(x) for x in card),
+            "keys": FED_COMPARE_KEYS, "final_equal_nodes": len(card_final)}
+
+
+
+
+def day_demand(i: int) -> float:
+    """The rung's demand trace, offered windows/s: night, a morning ramp
+    to a peak, a midday dip, an evening ramp and peak, night again."""
+    if i < 16:
+        return 100.0
+    if i < 32:
+        return 100.0 + 31.25 * (i - 15)
+    if i < 48:
+        return 600.0
+    if i < 60:
+        return 200.0
+    if i < 68:
+        return 200.0 + 50.0 * (i - 59)
+    if i < 76:
+        return 600.0
+    return 100.0
+
+
+def diurnal_day(eng, loop, coord, send_window, sweep,
+                serve_s: float = DAY_SERVE_S, steps: int = DAY_STEPS):
+    """The rung's closed loop on a live mesh: 96 control windows of 15
+    simulated minutes on a ``ManualClock``, the demand trace through the
+    rung's queueing model (p99 = base / (1 - utilisation), queue depth the
+    backlog over capacity, utilisation demand over the coordinator's real
+    shard count), ``AutoscalePolicy`` / ``Autoscaler`` with the rung's
+    policy, cooldowns and flap cap, dry run off, every actuation a live
+    ``ReshardCoordinator.try_reshard`` while a load thread sends
+    ``send_window(rng)`` windows through ``loop``.  State loss is the
+    coordinator's audit and ``sweep()``'s rows before and after; flaps are
+    rolling-hour breaches of the cap on the committed actuations."""
+    import asyncio
+    import threading
+
+    from gubernator_tpu_torch.admission import SHED_RESHARD_MSG
+    from gubernator_tpu_torch.autoscale import (
+        Autoscaler, AutoscalePolicy, PolicyConfig, SignalSnapshot)
+    from gubernator_tpu_torch.autoscale.controller import FLAP_WINDOW_S
+    from gubernator_tpu_torch.resilience import ManualClock
+
+    before = sweep()
+    clock = ManualClock()
+    cur = {"demand": day_demand(0)}
+
+    def sample():
+        shards = int(coord.status()["shards"])
+        util = cur["demand"] / (DAY_CAP * shards)
+        return SignalSnapshot(
+            ts=clock(),
+            queue_depth=int(max(0.0, cur["demand"] - DAY_CAP * shards) * 2),
+            p99_ms=min(50.0, DAY_BASE_MS / max(0.02, 1.0 - util)),
+            hot_occupancy=min(1.0, util), shards=shards,
+            reshard_busy=coord.is_busy())
+
+    events = record_freezes(loop)
+    lat_busy, stop, failures = [], threading.Event(), []
+    counts = {"shed": 0, "served": 0}
+
+    def drive():
+        drng = np.random.default_rng(SEED + 41)
+        try:
+            while not stop.is_set():
+                cols = send_window(drng)
+                busy = coord.is_busy()
+                t0 = time.perf_counter()
+                _, errs = loop.submit_columns(cols).result(timeout=120)
+                dt_ms = (time.perf_counter() - t0) * 1e3
+                busy = busy or coord.is_busy()
+                shed = sum(1 for v in errs.values() if v == SHED_RESHARD_MSG)
+                assert len(errs) == shed, set(errs.values())
+                if shed:
+                    counts["shed"] += shed   # retriable, not lost
+                    time.sleep(RESHARD_BACKOFF_S)
+                else:
+                    counts["served"] += 1
+                    if busy:
+                        lat_busy.append(dt_ms)
+        except BaseException as e:  # surfaced after the join
+            failures.append(e)
+
+    actuations = []
+
+    def exec_reshard(target):
+        t0 = time.perf_counter()
+        res = coord.try_reshard(int(target))
+        t1 = time.perf_counter()
+        actuations.append((clock(), res, {
+            "from": res.get("from_shards"), "to": res.get("to_shards"),
+            "outcome": res.get("outcome"), "seconds": t1 - t0,
+            "frozen_s": frozen_seconds(events, t0, t1)}))
+        time.sleep(serve_s)   # a beat of load on the new layout
+        return res
+
+    scaler = Autoscaler(
+        sample, exec_reshard, policy=AutoscalePolicy(PolicyConfig(
+            **DAY_POLICY)),
+        interval=DAY_STEP_S, cooldown_up=DAY_COOLDOWNS[0],
+        cooldown_down=DAY_COOLDOWNS[1], max_per_hour=DAY_MAX_PER_HOUR,
+        dry_run=False, ring_size=steps, clock=clock, sleep=clock.sleep)
+    saved = [0.0]
+    path = [int(coord.status()["shards"])]
+
+    async def day():
+        for i in range(steps):
+            cur["demand"] = day_demand(i)
+            await scaler.step()
+            after = int(coord.status()["shards"])
+            if after != path[-1]:
+                path.append(after)
+            saved[0] += (8 - after) * DAY_STEP_S
+            clock.advance(DAY_STEP_S)
+
+    loader = threading.Thread(target=drive, name="autoscale-load")
+    t_day = time.perf_counter()
+    loader.start()
+    try:
+        asyncio.run(day())
+    finally:
+        stop.set()
+        loader.join(timeout=180)
+    if failures:
+        raise failures[0]
+    assert not loader.is_alive()
+    day_s = time.perf_counter() - t_day
+    results = [r for _, r, _ in actuations]
+    committed = [t for t, r, _ in actuations
+                 if r.get("outcome") == "committed"]
+    rows = sweep()
+    sweep_errors = int((rows != before).any(axis=1).sum())
+    loss = max(sum(r.get("state_loss", 0) for r in results), sweep_errors)
+    flaps = 0
+    for t0 in committed:
+        in_hour = sum(1 for t in committed if 0 <= t - t0 <= FLAP_WINDOW_S)
+        flaps = max(flaps, in_hour - DAY_MAX_PER_HOUR)
+    vetoes = {}
+    for d in scaler.ring:
+        if d.action == "veto":
+            vetoes[d.reason] = vetoes.get(d.reason, 0) + 1
+    return {
+        "shards_path": "->".join(str(x) for x in path),
+        "autoscale_transitions": len(committed),
+        "autoscale_state_loss": int(loss),
+        "sweep_keys": int(len(before)), "sweep_errors": sweep_errors,
+        "double_served": int(sum(r.get("double_served", 0)
+                                 for r in results)),
+        "parity_errors": int(sum(r.get("parity_errors", 0)
+                                 for r in results)),
+        "autoscale_flaps": int(max(0, flaps)),
+        "autoscale_p99_during_transition_ms": (
+            float(np.percentile(lat_busy, 99)) if lat_busy else None),
+        "windows_during_transitions": len(lat_busy),
+        "chip_seconds_saved": saved[0],
+        "static8_chip_seconds": 8 * DAY_STEP_S * steps,
+        "autoscale_vetoes": vetoes,
+        "autoscale_shed_retriable": counts["shed"],
+        "served_windows": counts["served"],
+        "transitions": [a for _, _, a in actuations],
+        "decisions": {a: sum(1 for d in scaler.ring if d.action == a)
+                      for a in ("act", "hold", "veto")},
+        "live_items": int(eng.cache_size()),
+        "sim_day_s": DAY_STEP_S * steps, "day_wall_s": day_s,
+    }
+
+
+def autoscale_day(torch, dev, keys=1 << 10, n_shards=8, local_capacity=1 << 9,
+                  width=256, serve_s=DAY_SERVE_S, steps=DAY_STEPS):
+    """The day of :func:`diurnal_day` on a fresh mesh of ``n_shards`` x
+    ``local_capacity`` slots on ``dev`` holding ``keys`` prefilled keys
+    behind a tick loop: the load sends ``width``-wide Zipf(1.2) windows
+    of the prefill's request over the first half of the keys, and the
+    sweep reads every key of the other half (the rung's CPU size by
+    default)."""
+    from gubernator_tpu_torch.ops import reqcols
+    from gubernator_tpu_torch.parallel.mesh_engine import MeshTickEngine
+    from gubernator_tpu_torch.parallel.reshard import ReshardCoordinator
+    from gubernator_tpu_torch.service.tickloop import TickLoop
+
+    eng = MeshTickEngine(n_shards, local_capacity, max_batch=width,
+                         device=dev)
+    ids = route_ids(b"d", n_shards, [keys // n_shards] * n_shards)
+    prefill_mesh(reqcols, eng, b"d", ids, width)
+    traffic, swept = ids[:len(ids) // 2], ids[len(ids) // 2:]
+    loop = TickLoop(eng, batch_wait=0.0005, batch_limit=width)
+    coord = ReshardCoordinator(eng, tick_loop=loop, freeze_timeout=60.0)
+    try:
+        return diurnal_day(
+            eng, loop, coord,
+            lambda rng: herd_columns(
+                reqcols, b"d", traffic[(rng.zipf(1.2, width) - 1)
+                                       % len(traffic)], token_prefill=True),
+            lambda: sweep_rows(eng, b"d", swept), serve_s=serve_s,
+            steps=steps)
+    finally:
+        loop.close()
+
+
+AUTOSCALE_NODE_CACHE = 1 << 20    # phase 12 B: 8 shards of 2^17 slots
+AUTOSCALE_NODE_KEYS = 16_000
+AUTOSCALE_NODE_INTERVALS = 10
+
+
+def http_get(url: str):
+    """``(status, body text)`` of a GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def autoscale_counters(text: str) -> dict:
+    """The three autoscaler families' samples in a /metrics text."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith("gubernator_tpu_autoscale_") and "_total{" in ln:
+            k, v = ln.rsplit(" ", 1)
+            out[k] = float(v)
+    return out
+
+
+def autoscaler_node(torch, dev, cache=AUTOSCALE_NODE_CACHE,
+                    keys=AUTOSCALE_NODE_KEYS,
+                    intervals=AUTOSCALE_NODE_INTERVALS):
+    """Phase 12 B: a port daemon on ``dev`` over an 8-shard mesh of
+    ``cache`` slots (``GUBER_TPU_MESH_SHARDS=8``) with its own autoscaler
+    (``GUBER_AUTOSCALE_ENABLED=1``, 0.2 s interval, dry run, 4 to 8
+    shards, a 200 ms p99 target) and the debug endpoints, ``keys`` keys
+    sent over gRPC.  After ``intervals`` intervals the dry-run decisions
+    (act, the node still at 8 shards), then the coordinator's lock held
+    for ``intervals / 2`` intervals as an admin transition would
+    (reshard_busy vetoes), then dry run off: one real transition 8 -> 4
+    through ``V1Instance.reshard``, the keys answering as before it; the
+    three counter families read from ``/metrics`` before and after."""
+    import asyncio
+
+    return asyncio.run(_autoscaler_node(torch, dev, cache, keys, intervals))
+
+
+async def _autoscaler_node(torch, dev, cache, keys, intervals):
+    import asyncio
+
+    from gubernator_tpu_torch.config import setup_daemon_config
+    from gubernator_tpu_torch.transport.daemon import spawn_daemon
+
+    interval = 0.2
+    knobs = dict(
+        GUBER_GRPC_ADDRESS="127.0.0.1:0", GUBER_HTTP_ADDRESS="127.0.0.1:0",
+        GUBER_TPU_PLATFORM="cpu" if dev.type == "cpu" else "",
+        GUBER_TPU_MESH_SHARDS="8", GUBER_CACHE_SIZE=str(cache),
+        GUBER_TPU_MAX_BATCH="4096", GUBER_DEBUG_ENDPOINTS="1",
+        GUBER_AUTOSCALE_ENABLED="1", GUBER_AUTOSCALE_INTERVAL="200ms",
+        GUBER_AUTOSCALE_DRY_RUN="1", GUBER_AUTOSCALE_MIN_SHARDS="4",
+        GUBER_AUTOSCALE_MAX_SHARDS="8", GUBER_AUTOSCALE_TARGET_P99_MS="200")
+    with env_knobs(**knobs):
+        d = await spawn_daemon(setup_daemon_config())
+    info = {"cache": cache, "keys": keys, "interval_s": interval}
+    try:
+        inst = d.instance
+        scaler = inst.autoscaler
+        url = f"http://{d.conf.http_listen_address}"
+        assert inst.engine.n_shards == 8 and scaler.dry_run
+        ids = np.arange(keys)
+        for s in range(0, keys, SERVE_BATCH):
+            await ask(d, raw_batch(b"auto", ids[s:s + SERVE_BATCH]))
+        probe = ids[::16]
+        before = [r.remaining for r in await ask(d, raw_batch(
+            b"auto", probe, hits=0))]
+        _, text0 = await asyncio.to_thread(http_get, url + "/metrics")
+        await asyncio.sleep(interval * (intervals + 0.5))
+        st, body = await asyncio.to_thread(http_get,
+                                           url + "/debug/autoscaler")
+        body = json.loads(body)
+        assert st == 200 and body["dry_run"] is True, (st, body)
+        acts = [x for x in body["decisions"] if x["action"] == "act"]
+        info["dry_run"] = {
+            "decisions": len(body["decisions"]), "acts": len(acts),
+            "act_targets": sorted({(x["from_shards"], x["to_shards"])
+                                   for x in acts}),
+            "shards_after": inst.engine.n_shards,
+            "last_signals": body["decisions"][-1]["signals"]}
+        assert acts and all(x["dry_run"] for x in acts), body["decisions"]
+        assert inst.engine.n_shards == 8
+        _, state = await asyncio.to_thread(http_get, url + "/debug/state")
+        state = json.loads(state)
+        assert "autoscaler" in state and "decisions" not in \
+            state["autoscaler"], state.keys()
+        info["state_autoscaler"] = sorted(state["autoscaler"])
+        # An admin transition holding the coordinator's lock: the
+        # controller vetoes (reshard_busy) instead of waiting.
+        coord = inst.reshard_coord
+        assert coord._lock.acquire(blocking=False)
+        try:
+            await asyncio.sleep(interval * (intervals // 2 + 0.5))
+        finally:
+            coord._lock.release()
+        scaler.dry_run = False
+        t0 = time.perf_counter()
+        while not (scaler.ring[-1].action == "act"
+                   and not scaler.ring[-1].dry_run):
+            assert time.perf_counter() - t0 < 120, "no armed transition"
+            await asyncio.sleep(0.05)
+        info["armed_transition_s"] = time.perf_counter() - t0
+        after = [r.remaining for r in await ask(d, raw_batch(
+            b"auto", probe, hits=0))]
+        _, text1 = await asyncio.to_thread(http_get, url + "/metrics")
+        c0, c1 = autoscale_counters(text0), autoscale_counters(text1)
+        moved = {k: v - c0.get(k, 0.0) for k, v in c1.items()
+                 if v != c0.get(k, 0.0)}
+        last = scaler.ring[-1].as_dict()
+        info["armed"] = {
+            "decision": {k: last[k] for k in (
+                "action", "direction", "from_shards", "to_shards",
+                "outcome", "dry_run")},
+            "reshard": {k: inst.reshard_status()["last"].get(k) for k in (
+                "outcome", "from_shards", "to_shards", "live_items",
+                "state_loss", "double_served", "parity_errors",
+                "duration_s")},
+            "shards_after": inst.engine.n_shards,
+            "probe_keys": len(probe),
+            "probe_changed": int(sum(a != b for a, b in zip(before, after)))}
+        info["counters_moved"] = moved
+        assert last["outcome"] == "committed" and last["to_shards"] == 4 \
+            and inst.engine.n_shards == 4, info["armed"]
+        assert info["armed"]["probe_changed"] == 0, info["armed"]
+        assert info["armed"]["reshard"]["state_loss"] == 0, info["armed"]
+        for fam in ("decisions", "vetoes", "transitions"):
+            assert any(k.startswith(f"gubernator_tpu_autoscale_{fam}_total")
+                       for k in moved), (fam, moved)
+    finally:
+        await d.close()
+    return info
 
 
 def main(argv=None) -> int:
@@ -5270,18 +6158,33 @@ def main(argv=None) -> int:
     gmesh, gmesh_launches = global_phase(
         torch, dev, grpc_converge_ms=cluster["global_converge_ms"])
     print("phase9 " + json.dumps(gmesh), flush=True)
-    resh, resh_launches = reshard_phase(torch, dev)
+    resh, resh_launches, day = reshard_phase(torch, dev)
     print("phase10 " + json.dumps(resh), flush=True)
+    fed, fed_launches = federation_phase(torch, dev)
+    print("phase11 " + json.dumps(fed), flush=True)
+    auto_launches, auto_widths = {}, {}
+    with counted(torch, auto_launches, "node", auto_widths):
+        node = autoscaler_node(torch, dev)
+    node["launches_by_path"] = auto_launches
+    node["launches_by_width"] = auto_widths
+    print("phase12 " + json.dumps({"day": day, "node": node}), flush=True)
+    assert day["autoscale_transitions"] >= 2, day
+    assert day["autoscale_state_loss"] == day["autoscale_flaps"] == 0, day
+    assert day["parity_errors"] == day["double_served"] == 0, day
+    assert day["b2_launches"]["gather_rows"] > 0, day
+    day_launches = day["launches_by_path"]["autoscale"]
     for name in launches:
         launches[name] += (mesh_launches[name] + tier_launches[name]
                            + serve_launches[name] + cluster_launches[name]
                            + lease_launches[name] + gmesh_launches[name]
-                           + resh_launches[name])
+                           + resh_launches[name] + fed_launches[name]
+                           + day_launches[name] + auto_launches["node"][name])
         assert launches[name] > 0, f"{name} was not launched on the main path"
     # The ticks', the lease window's and the GLOBAL mesh kernels' launches
-    # by lane width over the eight phases' paths.
+    # by lane width over the ten phases' paths.
     widths = {}
-    for phase in (info, mesh, tiers, serve, cluster, leases, gmesh, resh):
+    for phase in (info, mesh, tiers, serve, cluster, leases, gmesh, resh,
+                  fed, day, node):
         for per_path in phase["launches_by_width"].values():
             for name, counts in per_path.items():
                 for w, c in counts.items():

@@ -9,8 +9,9 @@ broadcast loops, each node's engine on the card (or, with
 ``tpu_platform="cpu"``, on the CPU's plain versions).  With
 ``global_mesh=True`` the nodes share one ``MeshGlobalEngine``
 (parallel/global_mesh.py), node i its replica i, and GLOBAL items
-reconcile on it instead of over the gRPC loops.  The JAX harness's
-``federation`` option is not ported and raises.
+reconcile on it instead of over the gRPC loops.  With
+``federation=True`` the nodes that have a datacenter exchange GLOBAL
+deltas with the other regions (federation/).
 
 Ownership introspection helpers (``FindOwningDaemon``,
 ``ListNonOwningDaemons``, ``cluster/cluster.go:81-110``) let tests target
@@ -36,6 +37,8 @@ def _daemon_config(
     fault_injector=None,
     tpu_platform: str = "",
     tpu_max_batch: int = 4096,
+    federation: bool = False,
+    federation_interval: float = 0.05,
 ) -> DaemonConfig:
     conf = DaemonConfig(
         grpc_listen_address="127.0.0.1:0",
@@ -49,6 +52,8 @@ def _daemon_config(
         data_center=datacenter,
         tpu_platform=tpu_platform,
         tpu_max_batch=tpu_max_batch,
+        federation_enabled=federation,
+        federation_interval=federation_interval,
     )
     if resilience is not None:
         conf.config.resilience = resilience
@@ -61,7 +66,8 @@ def _same_config(old: DaemonConfig) -> DaemonConfig:
     c = old.config
     return _daemon_config(old.data_center, c.behaviors, c.cache_size,
                           c.resilience, c.fault_injector, c.tpu_platform,
-                          c.tpu_max_batch)
+                          c.tpu_max_batch, c.federation_enabled,
+                          c.federation_interval)
 
 
 def _track_inflight(gm) -> None:
@@ -84,10 +90,20 @@ def _track_inflight(gm) -> None:
         setattr(gm, name, wrapped)
 
 
-async def wait_quiet(daemons: Sequence, timeout: float = 5.0) -> None:
+def _federation_idle(inst) -> bool:
+    fed = getattr(inst, "federation", None)
+    return fed is None or not (fed.pending_keys() or fed.inflight_envelopes())
+
+
+async def wait_quiet(daemons: Sequence, timeout: float = 5.0,
+                     federation: bool = True) -> None:
     """Wait until no node has GLOBAL hits or updates queued, a flush or a
-    broadcast in flight, or an ownership transfer running: every GLOBAL
-    change has then reached every node.  Duck-typed over the daemons
+    broadcast in flight, or an ownership transfer running, and (with
+    ``federation``) no federation delta pending or envelope in flight:
+    every GLOBAL change has then reached every node of every region (an
+    envelope stays in flight until the remote owner applied it and
+    queued its broadcast).  ``federation=False`` waits for the regions
+    alone, as during a WAN partition.  Duck-typed over the daemons
     (``daemon.instance.global_mgr``), so it also waits on the JAX
     package's in-process daemons."""
     for d in daemons:
@@ -98,6 +114,7 @@ async def wait_quiet(daemons: Sequence, timeout: float = 5.0) -> None:
                    and not d.instance.global_mgr._updates
                    and d.instance.global_mgr._inflight_n == 0
                    and not d.instance._transfer_tasks
+                   and (not federation or _federation_idle(d.instance))
                    for d in daemons)
 
     async def poll() -> None:
@@ -127,6 +144,7 @@ class Cluster:
         resilience=None,
         fault_injector=None,
         federation: bool = False,
+        federation_interval: float = 0.05,
         tpu_platform: str = "",
         tpu_max_batch: int = 4096,
     ) -> "Cluster":
@@ -142,12 +160,11 @@ class Cluster:
         one ``MeshGlobalEngine`` over the ``n`` nodes (capacity
         ``min(cache_size, 2^16)``, reconciles at most every half
         ``global_sync_wait``) on the same platform, shared by every
-        daemon.  ``federation`` is not ported and raises.  A failed start
-        stops the daemons already up.
+        daemon.  ``federation=True`` enables the inter-region envelope
+        exchange (docs/federation.md) on the daemons with a datacenter, at
+        the cadence ``federation_interval``.  A failed start stops the
+        daemons already up.
         """
-        if federation:
-            raise ValueError("Cluster(federation=True) is not ported yet: "
-                             "multi-region federation")
         c = cls()
         datacenters = list(datacenters or [""] * n)
         assert len(datacenters) == n
@@ -165,7 +182,9 @@ class Cluster:
             for idx, dc in enumerate(datacenters):
                 conf = _daemon_config(dc, behaviors, cache_size,
                                       resilience, fault_injector,
-                                      tpu_platform, tpu_max_batch)
+                                      tpu_platform, tpu_max_batch,
+                                      federation and bool(dc),
+                                      federation_interval)
                 if http_gateway:
                     conf.http_listen_address = "127.0.0.1:0"
                 d = Daemon(conf, global_mesh=mesh_engine,
@@ -286,10 +305,11 @@ class Cluster:
             idx, "gubernator_broadcast_duration_count", count, timeout=timeout
         )
 
-    async def wait_for_quiet(self, timeout: float = 5.0) -> None:
+    async def wait_for_quiet(self, timeout: float = 5.0,
+                             federation: bool = True) -> None:
         """Wait until every GLOBAL change reached every node
         (:func:`wait_quiet`)."""
-        await wait_quiet(self.daemons, timeout)
+        await wait_quiet(self.daemons, timeout, federation)
 
     async def wait_for_update(
         self, idx: int, count: float = 1.0, timeout: float = 5.0

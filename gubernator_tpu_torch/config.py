@@ -8,8 +8,7 @@ variable, and an optional ``key=value`` file is loaded into the
 environment first.
 
 Only the knobs of ported modules are read.  A knob of a module that is
-not ported yet (federation, the autoscaler, edge
-workers, the metric-flag collectors) or of the JAX
+not ported yet (edge workers, the metric-flag collectors) or of the JAX
 package's TPU/XLA path raises a ``ValueError`` that names it, so no
 setting is silently ignored.
 """
@@ -25,12 +24,26 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 from gubernator_tpu_torch.resilience import ResilienceConfig
+from gubernator_tpu_torch.types import MAX_BATCH_SIZE
 
 log = logging.getLogger("gubernator.config")
 
 # The ported ``GUBER_*`` surface: name -> what it sets.
 ENV_REGISTRY: Dict[str, str] = {
     "GUBER_ADVERTISE_ADDRESS": "address peers use to reach this node",
+    "GUBER_AUTOSCALE_COOLDOWN_DOWN": "autoscaler: quiet period before a scale-down",
+    "GUBER_AUTOSCALE_COOLDOWN_UP": "autoscaler: quiet period before a scale-up",
+    "GUBER_AUTOSCALE_DRY_RUN": "autoscaler: record decisions without acting",
+    "GUBER_AUTOSCALE_ENABLED": "telemetry-driven shard autoscaler on/off",
+    "GUBER_AUTOSCALE_HYSTERESIS": "autoscaler: scale-down band = target p99 × this",
+    "GUBER_AUTOSCALE_INTERVAL": "autoscaler: signal sampling cadence",
+    "GUBER_AUTOSCALE_MAX_PER_HOUR": "autoscaler: rolling-hour transition cap",
+    "GUBER_AUTOSCALE_MAX_SHARDS": "autoscaler: shard-count ceiling",
+    "GUBER_AUTOSCALE_MIN_SHARDS": "autoscaler: shard-count floor",
+    "GUBER_AUTOSCALE_OCCUPANCY_LOW": "autoscaler: scale-down occupancy threshold",
+    "GUBER_AUTOSCALE_QUEUE_HIGH": "autoscaler: scale-up queue-depth high-water",
+    "GUBER_AUTOSCALE_TARGET_P99_MS": "autoscaler: scale-up window p99 threshold",
+    "GUBER_AUTOSCALE_WINDOWS": "autoscaler: consecutive windows before acting",
     "GUBER_BATCH_LIMIT": "cap on requests a tick window coalesces",
     "GUBER_BATCH_TIMEOUT": "deadline for a forwarded peer batch",
     "GUBER_BATCH_WAIT": "batch accumulation window (the tick wait)",
@@ -59,6 +72,10 @@ ENV_REGISTRY: Dict[str, str] = {
     "GUBER_FAULT_PARTITION": "fault injection: 100% UNAVAILABLE",
     "GUBER_FAULT_PEERS": "fault injection: target peers or '*'",
     "GUBER_FAULT_SEED": "fault injection: RNG seed",
+    "GUBER_FEDERATION_BATCH_LIMIT": "max envelope records per federation flush",
+    "GUBER_FEDERATION_ENABLED": "multi-region federation exchange on/off",
+    "GUBER_FEDERATION_INTERVAL": "inter-region envelope exchange cadence",
+    "GUBER_FEDERATION_TIMEOUT": "deadline for federation envelope RPCs",
     "GUBER_FLIGHT_RECORDER_WINDOWS": "flight-recorder ring size (window records)",
     "GUBER_FORCE_GLOBAL": "force GLOBAL behavior on every request",
     "GUBER_FORWARD_BACKOFF_BASE": "forward-retry backoff base",
@@ -138,17 +155,6 @@ _TPU = "a knob of the JAX package's TPU/XLA path with no counterpart here"
 
 # Knobs of modules that are not ported yet -> where they belong.
 UNPORTED: Dict[str, str] = {
-    **{k: "multi-region federation" for k in (
-        "GUBER_FEDERATION_BATCH_LIMIT", "GUBER_FEDERATION_ENABLED",
-        "GUBER_FEDERATION_INTERVAL", "GUBER_FEDERATION_TIMEOUT")},
-    **{k: "the shard autoscaler" for k in (
-        "GUBER_AUTOSCALE_COOLDOWN_DOWN", "GUBER_AUTOSCALE_COOLDOWN_UP",
-        "GUBER_AUTOSCALE_DRY_RUN", "GUBER_AUTOSCALE_ENABLED",
-        "GUBER_AUTOSCALE_HYSTERESIS", "GUBER_AUTOSCALE_INTERVAL",
-        "GUBER_AUTOSCALE_MAX_PER_HOUR", "GUBER_AUTOSCALE_MAX_SHARDS",
-        "GUBER_AUTOSCALE_MIN_SHARDS", "GUBER_AUTOSCALE_OCCUPANCY_LOW",
-        "GUBER_AUTOSCALE_QUEUE_HIGH", "GUBER_AUTOSCALE_TARGET_P99_MS",
-        "GUBER_AUTOSCALE_WINDOWS")},
     **{k: "the edge ingest plane" for k in (
         "GUBER_EDGE_RING_DEPTH", "GUBER_EDGE_SHM_SLABS",
         "GUBER_EDGE_WORKERS")},
@@ -247,6 +253,34 @@ class Config:
     # cutover aborts, and the post-cutover audit.
     reshard_freeze_timeout: float = 5.0
     reshard_verify: bool = True
+    # Multi-region GLOBAL federation (federation/): owner-side GLOBAL
+    # state changes also fan out as bounded-staleness envelopes to the
+    # owning peer in every other datacenter, batched per
+    # federation_interval over the breaker / backoff / redelivery path.
+    # Requires data_center.  GUBER_FEDERATION_*.
+    federation_enabled: bool = False
+    federation_interval: float = 1.0
+    federation_batch_limit: int = 1000
+    federation_timeout: float = 1.0
+    # The guardrailed shard autoscaler (autoscale/): samples the
+    # admission, latency and occupancy telemetry every autoscale_interval
+    # and drives live reshard transitions through hysteresis bands,
+    # per-direction cooldowns and a rolling-hour flap cap.  Off by
+    # default; when on it records decisions without acting until
+    # GUBER_AUTOSCALE_DRY_RUN is turned off.  GUBER_AUTOSCALE_*.
+    autoscale_enabled: bool = False
+    autoscale_interval: float = 10.0
+    autoscale_windows: int = 3
+    autoscale_target_p99_ms: float = 5.0
+    autoscale_queue_high: int = 1000
+    autoscale_hysteresis: float = 0.5
+    autoscale_occupancy_low: float = 0.3
+    autoscale_min_shards: int = 1
+    autoscale_max_shards: int = 8
+    autoscale_cooldown_up: float = 60.0
+    autoscale_cooldown_down: float = 300.0
+    autoscale_max_per_hour: int = 4
+    autoscale_dry_run: bool = True
     # GLOBAL reconciliation over the mesh's collectives data plane
     # (parallel/global_mesh.py): N logical peer-nodes, replicas in one
     # table on the card; 0 = gRPC loops only.  Node index -1 = auto,
@@ -297,6 +331,77 @@ def validate_global_mesh_capacity(capacity: int) -> None:
             "envelope (2^14-2^20): a dense reconcile rewrites every slot "
             "on every node, so expect the sync cadence to stretch "
             "(parallel/global_mesh.py)", capacity)
+
+
+def validate_federation(conf: Config) -> None:
+    """The reference's checks of the four ``GUBER_FEDERATION_*`` knobs."""
+    if conf.federation_interval <= 0:
+        raise ValueError(
+            f"GUBER_FEDERATION_INTERVAL must be > 0; "
+            f"got {conf.federation_interval}")
+    if not 1 <= conf.federation_batch_limit <= MAX_BATCH_SIZE:
+        # The receiver applies an envelope through the peer batch
+        # handler, which rejects batches over MAX_BATCH_SIZE: a larger
+        # envelope would fail every apply and wedge its channel in
+        # permanent redelivery.
+        raise ValueError(
+            f"GUBER_FEDERATION_BATCH_LIMIT must be in "
+            f"[1, {MAX_BATCH_SIZE}]; got {conf.federation_batch_limit}")
+    if conf.federation_timeout <= 0:
+        raise ValueError(
+            f"GUBER_FEDERATION_TIMEOUT must be > 0; "
+            f"got {conf.federation_timeout}")
+    if conf.federation_enabled and not conf.data_center:
+        raise ValueError(
+            "GUBER_FEDERATION_ENABLED requires GUBER_DATA_CENTER: regions "
+            "are keyed by datacenter name and this node must know its own")
+
+
+def validate_autoscale(conf: Config) -> None:
+    """The reference's checks of the thirteen ``GUBER_AUTOSCALE_*`` knobs."""
+    if conf.autoscale_interval <= 0:
+        raise ValueError(
+            f"GUBER_AUTOSCALE_INTERVAL must be > 0; "
+            f"got {conf.autoscale_interval}")
+    if conf.autoscale_windows < 1:
+        raise ValueError(
+            f"GUBER_AUTOSCALE_WINDOWS must be >= 1; "
+            f"got {conf.autoscale_windows}")
+    if conf.autoscale_target_p99_ms < 0:
+        raise ValueError(
+            f"GUBER_AUTOSCALE_TARGET_P99_MS must be >= 0 (0 disables the "
+            f"latency signal); got {conf.autoscale_target_p99_ms}")
+    if conf.autoscale_queue_high < 1:
+        raise ValueError(
+            f"GUBER_AUTOSCALE_QUEUE_HIGH must be >= 1; "
+            f"got {conf.autoscale_queue_high}")
+    if not 0.0 < conf.autoscale_hysteresis < 1.0:
+        # Strict: 1 would make the scale-down latency band touch the
+        # scale-up band, and a p99 sitting at the target could ping-pong.
+        raise ValueError(
+            f"GUBER_AUTOSCALE_HYSTERESIS must be in (0, 1) so the up and "
+            f"down bands never overlap; got {conf.autoscale_hysteresis}")
+    if not 0.0 <= conf.autoscale_occupancy_low <= 1.0:
+        raise ValueError(
+            f"GUBER_AUTOSCALE_OCCUPANCY_LOW must be in [0, 1]; "
+            f"got {conf.autoscale_occupancy_low}")
+    if conf.autoscale_min_shards < 1:
+        raise ValueError(
+            f"GUBER_AUTOSCALE_MIN_SHARDS must be >= 1; "
+            f"got {conf.autoscale_min_shards}")
+    if conf.autoscale_max_shards < conf.autoscale_min_shards:
+        raise ValueError(
+            f"GUBER_AUTOSCALE_MAX_SHARDS must be >= "
+            f"GUBER_AUTOSCALE_MIN_SHARDS; got "
+            f"{conf.autoscale_max_shards} < {conf.autoscale_min_shards}")
+    if conf.autoscale_cooldown_up < 0 or conf.autoscale_cooldown_down < 0:
+        raise ValueError(
+            f"GUBER_AUTOSCALE_COOLDOWN_UP/_DOWN must be >= 0; got "
+            f"{conf.autoscale_cooldown_up}/{conf.autoscale_cooldown_down}")
+    if conf.autoscale_max_per_hour < 1:
+        raise ValueError(
+            f"GUBER_AUTOSCALE_MAX_PER_HOUR must be >= 1; "
+            f"got {conf.autoscale_max_per_hour}")
 
 
 @dataclass
@@ -497,6 +602,28 @@ def setup_daemon_config(
         reshard_freeze_timeout=r.float_seconds(
             "GUBER_RESHARD_FREEZE_TIMEOUT", 5.0),
         reshard_verify=r.bool_("GUBER_RESHARD_VERIFY", True),
+        federation_enabled=r.bool_("GUBER_FEDERATION_ENABLED"),
+        federation_interval=r.float_seconds("GUBER_FEDERATION_INTERVAL", 1.0),
+        federation_batch_limit=r.int_("GUBER_FEDERATION_BATCH_LIMIT", 1000),
+        federation_timeout=r.float_seconds("GUBER_FEDERATION_TIMEOUT", 1.0),
+        autoscale_enabled=r.bool_("GUBER_AUTOSCALE_ENABLED"),
+        autoscale_interval=r.float_seconds("GUBER_AUTOSCALE_INTERVAL", 10.0),
+        autoscale_windows=r.int_("GUBER_AUTOSCALE_WINDOWS", 3),
+        autoscale_target_p99_ms=float(
+            r.str_("GUBER_AUTOSCALE_TARGET_P99_MS", "5.0")),
+        autoscale_queue_high=r.int_("GUBER_AUTOSCALE_QUEUE_HIGH", 1000),
+        autoscale_hysteresis=float(
+            r.str_("GUBER_AUTOSCALE_HYSTERESIS", "0.5")),
+        autoscale_occupancy_low=float(
+            r.str_("GUBER_AUTOSCALE_OCCUPANCY_LOW", "0.3")),
+        autoscale_min_shards=r.int_("GUBER_AUTOSCALE_MIN_SHARDS", 1),
+        autoscale_max_shards=r.int_("GUBER_AUTOSCALE_MAX_SHARDS", 8),
+        autoscale_cooldown_up=r.float_seconds(
+            "GUBER_AUTOSCALE_COOLDOWN_UP", 60.0),
+        autoscale_cooldown_down=r.float_seconds(
+            "GUBER_AUTOSCALE_COOLDOWN_DOWN", 300.0),
+        autoscale_max_per_hour=r.int_("GUBER_AUTOSCALE_MAX_PER_HOUR", 4),
+        autoscale_dry_run=r.bool_("GUBER_AUTOSCALE_DRY_RUN", True),
         cache_size=r.int_("GUBER_CACHE_SIZE", 50_000),
         cold_cache_size=r.int_("GUBER_COLD_CACHE_SIZE", 0),
         ssd_dir=r.str_("GUBER_SSD_DIR"),
@@ -564,6 +691,8 @@ def setup_daemon_config(
         raise ValueError(
             f"GUBER_RESHARD_FREEZE_TIMEOUT must be > 0; "
             f"got {conf.reshard_freeze_timeout}")
+    validate_federation(conf)
+    validate_autoscale(conf)
     if not 0.0 < resilience.breaker_failure_threshold <= 1.0:
         raise ValueError(
             f"GUBER_BREAKER_FAILURE_THRESHOLD must be in (0, 1]; "

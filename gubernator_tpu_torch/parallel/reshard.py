@@ -32,9 +32,10 @@ protocol with no relayout.
 The verify phase reads an engine's census as columns when the engine
 offers ``census()`` (the port's mesh: slot maps and the gathered
 ``in_use`` word, no dict a key), and ``export_items()`` otherwise; both
-give the JAX coordinator's three counts on the same table.  The
-``federation`` hook is kept for the day federation is ported; until
-then it is ``None``.
+give the JAX coordinator's three counts on the same table.  A node's
+:class:`FederationManager` pauses its envelope sends from FREEZE to the
+end of the transition, so no envelope is compacted from half-relayouted
+owner state; every exit path resumes them.
 """
 
 from __future__ import annotations
@@ -125,8 +126,8 @@ class ReshardCoordinator:
     ``breaker_check`` (True when an open peer breaker makes the cutover
     unsafe; asked after the drain and again just before the cutover),
     ``global_engine`` (a MeshGlobalEngine whose reconcile pauses for the
-    transition), ``federation`` (envelope sends paused for the transition;
-    None until federation is ported) and ``metrics``."""
+    transition), ``federation`` (a FederationManager whose envelope
+    sends pause for the transition) and ``metrics``."""
 
     def __init__(
         self,

@@ -57,6 +57,10 @@ class GlobalManager:
         self.resilience = resilience or ResilienceConfig()
         self._hits: Dict[str, RateLimitRequest] = {}
         self._updates: Dict[str, RateLimitRequest] = {}
+        # The inter-region federation feed: installed by V1Instance with
+        # federation on; every owner-side update queued here also feeds
+        # the per-region envelope buffers.
+        self.federation = None
         # GLOBAL keys this node has answered as owner, key → prototype
         # request (algorithm/limit/duration — what a state re-read
         # needs).  The ownership-handoff working set: after a ring swap,
@@ -115,6 +119,11 @@ class GlobalManager:
         """Record an owner-side state change for broadcast (global.go:80-84)."""
         if req.hits == 0:
             return
+        if self.federation is not None:
+            # The one funnel every owner-side GLOBAL hit of the region
+            # passes exactly once: the tap of the inter-region delta
+            # stream (queue() skips requests applied from a peer region).
+            self.federation.queue(req)
         key = req.hash_key()
         # Broadcast and ring-handoff redelivery are post-answer background
         # work: a serving-path admission deadline must not ride the stored

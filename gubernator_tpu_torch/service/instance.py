@@ -21,10 +21,14 @@ of the gRPC hits and broadcast loops, and a reconcile loop drives it on
 the ``GlobalSyncWait`` cadence.  Live resharding runs through the
 instance's :class:`ReshardCoordinator` (``parallel/reshard.py``) over its
 engine and tick loop, journalled in the snapshot directory, gated by the
-peers' breakers, with the GLOBAL mesh's reconcile paused around the
-cutover (:meth:`V1Instance.reshard`, ``POST /debug/reshard``).  Not
-ported: federation, the autoscaler and the edge plane (their knobs raise
-in ``config``).
+peers' breakers, with the GLOBAL mesh's reconcile and the federation
+sends paused around the cutover (:meth:`V1Instance.reshard`,
+``POST /debug/reshard``).  With ``federation_enabled`` and a data center
+a :class:`FederationManager` exchanges owner-side GLOBAL deltas with the
+other regions and ``MULTI_REGION`` items ride the GLOBAL path; with
+``autoscale_enabled`` an :class:`Autoscaler` drives :meth:`reshard` from
+the node's telemetry.  Not ported: the edge plane (its knobs raise in
+``config``).
 
 Create the instance inside a running event loop (the GLOBAL manager
 starts its loops at once, as the reference's ``NewV1Instance`` does), or
@@ -49,7 +53,14 @@ from gubernator_tpu_torch.admission import (
     batch_deadline,
 )
 from gubernator_tpu_torch.algos import algorithm_error, invalid_algorithm_mask
+from gubernator_tpu_torch.autoscale import (
+    Autoscaler,
+    AutoscalePolicy,
+    PolicyConfig,
+    instance_sampler,
+)
 from gubernator_tpu_torch.config import BehaviorConfig, Config, env_knob
+from gubernator_tpu_torch.federation import FederationManager
 from gubernator_tpu_torch.leases import LeaseManager
 from gubernator_tpu_torch.ops.engine import masked_over_limit
 from gubernator_tpu_torch.ops.reqcols import ColumnArena, ReqColumns
@@ -123,6 +134,25 @@ class InstanceConfig:
     drain_timeout: float = 2.0           # GlobalManager.close's budget
     reshard_freeze_timeout: float = 5.0  # the reshard drain's budget
     reshard_verify: bool = True          # audit the table after a cutover
+    # Inter-region federation (federation/): needs data_center.
+    federation_enabled: bool = False
+    federation_interval: float = 1.0
+    federation_batch_limit: int = 1000
+    federation_timeout: float = 1.0
+    # The shard autoscaler (autoscale/), started by create().
+    autoscale_enabled: bool = False
+    autoscale_interval: float = 10.0
+    autoscale_windows: int = 3
+    autoscale_target_p99_ms: float = 5.0
+    autoscale_queue_high: int = 1000
+    autoscale_hysteresis: float = 0.5
+    autoscale_occupancy_low: float = 0.3
+    autoscale_min_shards: int = 1
+    autoscale_max_shards: int = 8
+    autoscale_cooldown_up: float = 60.0
+    autoscale_cooldown_down: float = 300.0
+    autoscale_max_per_hour: int = 4
+    autoscale_dry_run: bool = True
     # GLOBAL collectives data plane (parallel/global_mesh.py): a shared
     # MeshGlobalEngine and this node's index on it.  When set, GLOBAL
     # requests bypass the gRPC hits/broadcast loops.
@@ -167,6 +197,23 @@ class InstanceConfig:
             drain_timeout=conf.drain_timeout,
             reshard_freeze_timeout=conf.reshard_freeze_timeout,
             reshard_verify=conf.reshard_verify,
+            federation_enabled=conf.federation_enabled,
+            federation_interval=conf.federation_interval,
+            federation_batch_limit=conf.federation_batch_limit,
+            federation_timeout=conf.federation_timeout,
+            autoscale_enabled=conf.autoscale_enabled,
+            autoscale_interval=conf.autoscale_interval,
+            autoscale_windows=conf.autoscale_windows,
+            autoscale_target_p99_ms=conf.autoscale_target_p99_ms,
+            autoscale_queue_high=conf.autoscale_queue_high,
+            autoscale_hysteresis=conf.autoscale_hysteresis,
+            autoscale_occupancy_low=conf.autoscale_occupancy_low,
+            autoscale_min_shards=conf.autoscale_min_shards,
+            autoscale_max_shards=conf.autoscale_max_shards,
+            autoscale_cooldown_up=conf.autoscale_cooldown_up,
+            autoscale_cooldown_down=conf.autoscale_cooldown_down,
+            autoscale_max_per_hour=conf.autoscale_max_per_hour,
+            autoscale_dry_run=conf.autoscale_dry_run,
             tpu_global_mesh_nodes=conf.tpu_global_mesh_nodes,
             tpu_global_mesh_node=conf.tpu_global_mesh_node,
             tpu_global_mesh_capacity=conf.tpu_global_mesh_capacity,
@@ -271,6 +318,14 @@ class V1Instance:
             hash_fn, conf.replicas)
         self.global_mgr = GlobalManager(
             self, conf.behaviors, self.metrics, resilience=conf.resilience)
+        # Inter-region federation: built only with federation on AND a
+        # data center (regions are keyed by it); None makes the transport
+        # refuse FederationSync and MULTI_REGION items.  Every owner-side
+        # GLOBAL update feeds its per-region pending buffers.
+        self.federation: Optional[FederationManager] = None
+        if conf.federation_enabled and conf.data_center:
+            self.federation = FederationManager(self, metrics=self.metrics)
+        self.global_mgr.federation = self.federation
         # GLOBAL collectives data plane: the shared engine if one is
         # given, else one built when GUBER_TPU_GLOBAL_MESH_NODES asks.
         self.global_mesh = conf.global_mesh
@@ -317,7 +372,8 @@ class V1Instance:
         # Live resharding: the n -> m transition coordinator over this
         # instance's engine and tick loop.  The journal shares the
         # snapshot directory; the peers' breakers gate the cutover; the
-        # GLOBAL mesh's reconcile pauses around it.
+        # GLOBAL mesh's reconcile and the federation sends pause around
+        # it (no envelope is built from half-relayouted owner state).
         self.reshard_coord = ReshardCoordinator(
             self.engine,
             tick_loop=self.tick_loop,
@@ -325,10 +381,15 @@ class V1Instance:
             breaker_check=lambda: any(
                 p.breaker.is_open() for p in self.get_peer_list()),
             global_engine=self.global_mesh,
+            federation=self.federation,
             metrics=self.metrics,
             freeze_timeout=conf.reshard_freeze_timeout,
             verify=conf.reshard_verify,
         )
+        # The shard autoscaler: built and started by create() when
+        # enabled (its loop needs a running event loop); None answers
+        # /debug/autoscaler with 404.
+        self.autoscaler: Optional[Autoscaler] = None
         self._snapshot_writer = None
         self.restore_stats: dict = {}
         self._closed = False
@@ -354,6 +415,8 @@ class V1Instance:
         rec = check_interrupted(inst.reshard_coord.transition_log)
         if rec is not None:
             inst.reshard_coord.record_interrupted(rec)
+        if conf.autoscale_enabled:
+            inst._start_autoscaler()
         return inst
 
     async def _start_persistence(self) -> None:
@@ -431,7 +494,10 @@ class V1Instance:
             return "field 'namespace' cannot be empty"
         if invalid_algorithm_mask(int(req.algorithm)):
             return algorithm_error(req.algorithm)
-        if has_behavior(req.behavior, Behavior.MULTI_REGION):
+        if (has_behavior(req.behavior, Behavior.MULTI_REGION)
+                and self.federation is None):
+            # Past this point MULTI_REGION would be a silent no-op bit: a
+            # node that cannot federate says so per item.
             return ("Behavior.MULTI_REGION requires GUBER_DATA_CENTER and "
                     "GUBER_FEDERATION_ENABLED on this node")
         return None
@@ -452,6 +518,15 @@ class V1Instance:
                     error="Invalid request").inc()
                 out[i] = RateLimitResponse(error=err)
                 continue
+            if has_behavior(req.behavior, Behavior.MULTI_REGION):
+                # MULTI_REGION rides the GLOBAL plane inside the region:
+                # a region-local answer now, an envelope later.
+                req.behavior = set_behavior(req.behavior, Behavior.GLOBAL,
+                                            True)
+                if self.federation.is_degraded():
+                    # A peer region is unreachable: this answer may
+                    # over-admit up to the staleness budget.
+                    self.metrics.federation_degraded_answers.inc()
             if req.created_at is None or req.created_at == 0:
                 req.created_at = created_at
             if self.conf.behaviors.force_global:
@@ -881,6 +956,38 @@ class V1Instance:
         """The coordinator's phase and last outcome (``/debug/state``)."""
         return self.reshard_coord.status()
 
+    def _start_autoscaler(self) -> None:
+        """Build and start the autoscaler over this instance's telemetry
+        (:func:`instance_sampler`) and :meth:`reshard`.  Needs a running
+        event loop (called from :meth:`create`); :meth:`close` stops it
+        first."""
+        conf = self.conf
+        policy = AutoscalePolicy(PolicyConfig(
+            windows=conf.autoscale_windows,
+            target_p99_ms=conf.autoscale_target_p99_ms,
+            queue_high=conf.autoscale_queue_high,
+            hysteresis=conf.autoscale_hysteresis,
+            occupancy_low=conf.autoscale_occupancy_low,
+            min_shards=conf.autoscale_min_shards,
+            max_shards=conf.autoscale_max_shards,
+        ))
+        self.autoscaler = Autoscaler(
+            instance_sampler(self, time.monotonic),
+            self.reshard,
+            policy=policy,
+            interval=conf.autoscale_interval,
+            cooldown_up=conf.autoscale_cooldown_up,
+            cooldown_down=conf.autoscale_cooldown_down,
+            max_per_hour=conf.autoscale_max_per_hour,
+            dry_run=conf.autoscale_dry_run,
+            metrics=self.metrics,
+        )
+        self.autoscaler.start()
+        self.log.info(
+            "autoscaler started (interval=%.1fs, dry_run=%s, shards "
+            "[%d, %d])", conf.autoscale_interval, conf.autoscale_dry_run,
+            conf.autoscale_min_shards, conf.autoscale_max_shards)
+
     # ------------------------------------------------------------------
     # Health / peers
     # ------------------------------------------------------------------
@@ -912,7 +1019,10 @@ class V1Instance:
         )
 
     def occupancy(self) -> dict:
-        """Tier occupancy: device-table fill, cold size, shed count."""
+        """Tier occupancy: device-table fill, cold size, shed count.  An
+        engine without ``hot_occupancy`` (the mesh, in both packages)
+        reads 0.0, so the autoscaler's policy sees a mesh node as empty
+        (ROADMAP C.7)."""
         eng = self.engine
         return {
             "cache_size": eng.cache_size(),
@@ -970,6 +1080,11 @@ class V1Instance:
         self.local_picker, self.region_picker = local, region
         if standalone:
             self._standalone = True
+        if self.federation is not None:
+            # Channels whose target left its region's ring drop, and
+            # their in-flight records rehash to the new owner at the next
+            # flush instead of retrying a dead address forever.
+            self.federation.on_ring_update()
 
         doomed = replaced + [
             p for p in old_local.peers()
@@ -1040,10 +1155,17 @@ class V1Instance:
         if self._closed:
             return
         self._closed = True
+        if self.autoscaler is not None:
+            # First: no transition may start on a closing instance.
+            await self.autoscaler.stop()
         if self._transfer_tasks:
             await asyncio.gather(*list(self._transfer_tasks),
                                  return_exceptions=True)
         await self.global_mgr.close(drain_timeout=self.conf.drain_timeout)
+        if self.federation is not None:
+            # After the GLOBAL drain (its last flush may queue deltas
+            # here) and before the peers stop (envelopes go through them).
+            await self.federation.close(drain_timeout=self.conf.drain_timeout)
         if self._mesh_task is not None:
             self._mesh_task.cancel()
             try:

@@ -16,9 +16,9 @@ Fault tolerance (docs/resilience.md): every client owns a per-peer
 circuit breaker (open = fail fast with :class:`BreakerOpenError`, no
 dial), consults the optional fault injector before each RPC (chaos
 hook), runs its batch loop under a crash supervisor, and drains — never
-strands — futures enqueued around shutdown.  The quota-lease RPCs send
-fastwire's raw lease frames through the same breaker and fault hook; the
-federation RPC is not ported and its method raises with its name.
+strands — futures enqueued around shutdown.  The quota-lease RPCs and the
+federation envelope RPC send fastwire's raw frames through the same
+breaker and fault hook.
 """
 
 from __future__ import annotations
@@ -325,12 +325,15 @@ class PeerClient:
             raise
         self.breaker.record_success()
 
-    async def _lease_call(self, method: str, frame: bytes, what: str):
-        """One breaker-gated raw-bytes call of a V1 lease method on this
-        peer's channel (both services share the peer's port): an open
+    async def _raw_call(self, method: str, frame: bytes, what: str,
+                          timeout: Optional[float] = None):
+        """One breaker-gated raw-bytes call of a V1 lease or federation
+        method on this peer's channel (both services share the peer's
+        port), under ``timeout`` (the batch timeout when unset): an open
         breaker raises :class:`BreakerOpenError` (the client's LeaseCache
-        answers it by extending its held lease locally, docs/leases.md);
-        an RPC error is recorded against the breaker and raised."""
+        answers it by extending its held lease locally, docs/leases.md;
+        the federation channel by retrying the same envelope); an RPC
+        error is recorded against the breaker and raised."""
         addr = self._info.grpc_address
         if not self.breaker.allow():
             msg_ = f"circuit breaker open for peer {addr}"
@@ -345,7 +348,8 @@ class PeerClient:
             if self.faults is not None:
                 await self.faults.before_rpc(
                     addr, method, from_peer=self.self_address)
-            out = await rpc(frame, timeout=self.behaviors.batch_timeout)
+            out = await rpc(
+                frame, timeout=timeout or self.behaviors.batch_timeout)
         except grpc.aio.AioRpcError as e:
             self.breaker.record_failure()
             self.last_errs.record(f"while {what} peer {addr}: {e.details()}")
@@ -355,7 +359,7 @@ class PeerClient:
 
     async def lease_grant(self, specs):
         """Request quota leases from this peer (the key owner)."""
-        out = await self._lease_call(
+        out = await self._raw_call(
             "LeaseGrant", fastwire.encode_lease_grant_req(list(specs)),
             "granting leases from")
         tokens = fastwire.parse_lease_grant_resp(out)
@@ -365,7 +369,7 @@ class PeerClient:
 
     async def lease_sync(self, syncs):
         """Report lease consumption to this peer (the key owner)."""
-        out = await self._lease_call(
+        out = await self._raw_call(
             "LeaseSync", fastwire.encode_lease_sync_req(list(syncs)),
             "syncing leases to")
         acks = fastwire.parse_lease_sync_resp(out)
@@ -374,10 +378,18 @@ class PeerClient:
         return acks
 
     async def federation_sync(self, env, timeout: Optional[float] = None):
-        """Multi-region federation is not ported yet (ROADMAP A): raises."""
-        raise NotImplementedError(
-            "PeerClient.federation_sync is not ported yet: multi-region "
-            "federation")
+        """Ship one federation envelope to this peer (the key owner in a
+        *remote* region) and return its FederationAck.  Breaker-gated
+        like every peer RPC: the sender routes a region's keys to one
+        owning peer per flush, so the per-region breaker is this peer's
+        (docs/federation.md)."""
+        out = await self._raw_call(
+            "FederationSync", fastwire.encode_federation_envelope(env),
+            "federating to", timeout=timeout)
+        ack = fastwire.parse_federation_ack(out)
+        if ack is None:
+            raise RuntimeError("malformed FederationSync response frame")
+        return ack
 
     def get_last_err(self) -> List[str]:
         return self.last_errs.errors()

@@ -168,6 +168,21 @@ class TickLoop:
             self.admission.effective_pending_limit(self.batch_limit),
             self.batch_limit)
 
+    def admission_snapshot(self) -> dict:
+        """One consistent view of the admission plane for the control
+        plane (the autoscaler, /debug/autoscaler): limiter state, queue
+        depth, cumulative shed counts, freeze level.  Takes the loop's
+        condition briefly, on the controller's cadence, never in a
+        tick."""
+        with self._cond:
+            return {
+                "limiter": self.limiter.snapshot(),
+                "queue": self._queue.snapshot(),
+                "pending": self._pending_count,
+                "shed": dict(self.metric_shed_admission),
+                "frozen": self._freeze_level > 0,
+            }
+
     def _enqueue(self, kind: str, payload, n: int, deadline: float = None,
                  klass: int = CLASS_CLIENT) -> Future:
         fut: Future = Future()

@@ -2,16 +2,17 @@
 
 The port's copy of the JAX package's ``transport/daemon`` (reference
 ``daemon.go``): one grpc.aio server exposing ``V1`` (with the raw-frame
-quota-lease methods ``LeaseGrant`` / ``LeaseSync``) and ``PeersV1``, an
-aiohttp JSON gateway with grpc-gateway's snake_case marshaling
-(``/v1/GetRateLimits``, ``/v1/HealthCheck``, ``/healthz`` (503 when a
-majority of peers sit behind open breakers), ``/readyz``, ``/metrics``,
-and with GUBER_DEBUG_ENDPOINTS ``/debug/pipeline``, ``/debug/traces``,
-``/debug/state`` and ``POST /debug/reshard``), TLS and mTLS with AutoTLS
-and the plaintext status listener (``daemon.go:305-334``), the five
-discovery pools (``daemon.go:208-243``) and ``wait_for_connect``
-readiness.  Not ported: the edge plane and the autoscaler and profile
-debug routes.
+quota-lease methods ``LeaseGrant`` / ``LeaseSync`` and the federation
+envelope exchange ``FederationSync``) and ``PeersV1``, an aiohttp JSON
+gateway with grpc-gateway's snake_case marshaling (``/v1/GetRateLimits``,
+``/v1/HealthCheck``, ``/healthz`` (503 when a majority of peers sit
+behind open breakers), ``/readyz``, ``/metrics``, and with
+GUBER_DEBUG_ENDPOINTS ``/debug/pipeline``, ``/debug/traces``,
+``/debug/state``, ``POST /debug/reshard`` and ``/debug/autoscaler``),
+TLS and mTLS with AutoTLS and the plaintext status listener
+(``daemon.go:305-334``), the five discovery pools
+(``daemon.go:208-243``) and ``wait_for_connect`` readiness.  Not
+ported: the edge plane and the profile debug route.
 """
 
 from __future__ import annotations
@@ -287,6 +288,22 @@ class V1Servicer:
         acks = await self.instance.lease_sync(syncs)
         return fastwire.encode_lease_sync_resp(acks)
 
+    async def FederationSync(self, raw: bytes, context):
+        """Inter-region envelope edge (docs/federation.md): GFE1 frame
+        in, GFA1 ack out.  A node without federation rejects the RPC; the
+        sender's breaker treats it like any dead peer."""
+        env = fastwire.parse_federation_envelope(raw)
+        if env is None:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "malformed FederationSync frame")
+        if self.instance.federation is None:
+            await context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                "federation is not enabled on this node")
+        ack = await self.instance.federation.receive(env)
+        return fastwire.encode_federation_ack(ack)
+
 
 class PeersServicer:
     """pb <-> dataclass edge of the peer service (GetPeerRateLimitsReq
@@ -474,6 +491,7 @@ class Daemon:
         app.router.add_get("/debug/traces", self._h_debug_traces)
         app.router.add_get("/debug/state", self._h_debug_state)
         app.router.add_post("/debug/reshard", self._h_debug_reshard)
+        app.router.add_get("/debug/autoscaler", self._h_debug_autoscaler)
 
     async def _start_gateway(self) -> None:
         if not self.conf.http_listen_address:
@@ -659,7 +677,24 @@ class Daemon:
                 "write_failures": writer.metric_write_failures,
             }
         body["reshard"] = inst.reshard_status()
+        if inst.autoscaler is not None:
+            scaler_state = inst.autoscaler.debug_state()
+            scaler_state.pop("decisions", None)  # the ring lives at
+            body["autoscaler"] = scaler_state    # /debug/autoscaler
         return web.json_response(body)
+
+    async def _h_debug_autoscaler(self, request: web.Request) -> web.Response:
+        """The autoscaler's config, streaks and bounded decision ring
+        (docs/autoscaling.md): a dry-run rollout reads this until the
+        decisions look right; 404 when the autoscaler is off."""
+        if self.instance is None:
+            return web.json_response({"error": "starting up"}, status=503)
+        scaler = self.instance.autoscaler
+        if scaler is None:
+            return web.json_response(
+                {"error": "autoscaler disabled (GUBER_AUTOSCALE_ENABLED)"},
+                status=404)
+        return web.json_response(scaler.debug_state())
 
     async def _h_debug_reshard(self, request: web.Request) -> web.Response:
         """Admin trigger: POST {"shards": m} runs one n -> m transition and

@@ -15,8 +15,9 @@ response bytes are identical to protobuf's for items without an error or
 metadata.
 
 The quota-lease frames (``GLR2`` / ``GLT1`` / ``GSY2`` / ``GSA1``, and the
-v1 request frames ``GLR1`` / ``GSY1`` that parsers still accept) are the
-reference's pure-Python struct codecs.
+v1 request frames ``GLR1`` / ``GSY1`` that parsers still accept) and the
+federation frames (``GFE1`` envelopes, ``GFA1`` acks) are the reference's
+pure-Python struct codecs.
 """
 
 from __future__ import annotations
@@ -29,6 +30,11 @@ import numpy as np
 
 from gubernator_tpu_torch import _build
 from gubernator_tpu_torch.algos import algorithm_error, invalid_algorithm_mask
+from gubernator_tpu_torch.federation.envelope import (
+    FederationAck,
+    FederationEnvelope,
+    FederationRecord,
+)
 from gubernator_tpu_torch.leases.protocol import (
     LeaseSpec,
     LeaseSync,
@@ -413,5 +419,93 @@ def parse_lease_sync_resp(data: bytes):
                 accepted=bool(accepted), generation=gen,
                 credited=credited, charged=charged))
         return out if off == len(data) else None
+    except (struct.error, IndexError, UnicodeDecodeError):
+        return None
+
+
+# ----------------------------------------------------------------------
+# Multi-region federation frames (docs/federation.md).
+#
+# Envelope exchange happens once per GUBER_FEDERATION_INTERVAL per remote
+# region — WAN cadence, not decision cadence — so like the lease frames
+# these are pure-Python struct codecs.  The version rides the magic
+# (GFE1/GFA1): a receiver that doesn't recognize the magic rejects the
+# RPC, which the sender's breaker/redelivery path treats like any other
+# failure — a mixed-version fleet degrades to intra-region-only instead
+# of corrupting state.
+
+_FED_ENVELOPE_MAGIC = b"GFE1"
+_FED_ACK_MAGIC = b"GFA1"
+
+
+def encode_federation_envelope(env) -> bytes:
+    """FederationEnvelope → GFE1 frame."""
+    parts = [
+        _FED_ENVELOPE_MAGIC,
+        struct.pack("<q", env.seq),
+        _pack_str(env.origin),
+        _pack_str(env.region),
+        _pack_str(env.epoch),
+        struct.pack("<I", len(env.records)),
+    ]
+    for rec in env.records:
+        parts.append(struct.pack(
+            "<qqqqqqq", rec.hits, rec.limit, rec.duration, rec.algorithm,
+            rec.behavior, rec.burst, rec.created_at))
+        parts.append(_pack_str(rec.name))
+        parts.append(_pack_str(rec.unique_key))
+    return b"".join(parts)
+
+
+def parse_federation_envelope(data: bytes):
+    """GFE1 frame → FederationEnvelope (None when malformed)."""
+    try:
+        if data[:4] != _FED_ENVELOPE_MAGIC:
+            return None
+        (seq,) = struct.unpack_from("<q", data, 4)
+        off = 12
+        origin, off = _unpack_str(data, off)
+        region, off = _unpack_str(data, off)
+        epoch, off = _unpack_str(data, off)
+        (n,) = struct.unpack_from("<I", data, off)
+        off += 4
+        records = []
+        for _ in range(n):
+            hits, limit, duration, algo, behavior, burst, created = (
+                struct.unpack_from("<qqqqqqq", data, off))
+            off += 56
+            name, off = _unpack_str(data, off)
+            key, off = _unpack_str(data, off)
+            records.append(FederationRecord(
+                name=name, unique_key=key, hits=hits, limit=limit,
+                duration=duration, algorithm=algo, behavior=behavior,
+                burst=burst, created_at=created))
+        env = FederationEnvelope(
+            origin=origin, region=region, epoch=epoch, seq=seq,
+            records=records)
+        return env if off == len(data) else None
+    except (struct.error, IndexError, UnicodeDecodeError):
+        return None
+
+
+def encode_federation_ack(ack) -> bytes:
+    """FederationAck → GFA1 frame."""
+    return b"".join([
+        _FED_ACK_MAGIC,
+        struct.pack("<qq", ack.seq, ack.applied),
+        _pack_str(ack.origin),
+    ])
+
+
+def parse_federation_ack(data: bytes):
+    """GFA1 frame → FederationAck (None when malformed)."""
+    try:
+        if data[:4] != _FED_ACK_MAGIC:
+            return None
+        seq, applied = struct.unpack_from("<qq", data, 4)
+        off = 20
+        origin, off = _unpack_str(data, off)
+        ack = FederationAck(origin=origin, seq=seq, applied=applied)
+        return ack if off == len(data) else None
     except (struct.error, IndexError, UnicodeDecodeError):
         return None

@@ -1,8 +1,8 @@
 """gRPC service and client bindings of the V1 and PeersV1 services.
 
 The port's copy of the JAX package's hand-written bindings, for the
-methods a node and its peers serve, the quota-lease methods included (the
-federation method is not ported).  Method paths match the reference's
+methods a node and its peers serve, the quota-lease and federation
+methods included.  Method paths match the reference's
 generated code (``/pb.gubernator.V1/GetRateLimits`` etc., reference
 gubernator_grpc.pb.go / peers_grpc.pb.go), so reference clients and
 servers interoperate on the wire.
@@ -35,9 +35,10 @@ def _raw(method) -> grpc.RpcMethodHandler:
 def v1_handler(servicer) -> grpc.GenericRpcHandler:
     """Generic handler of the public V1 service.  ``GetRateLimits`` takes
     the raw request bytes (the servicer runs the native codec).  The
-    quota-lease methods (docs/leases.md) pass raw frames both ways (the
-    servicer runs fastwire's lease codecs) and are registered only when
-    the servicer has them, as in the reference."""
+    quota-lease methods (docs/leases.md) and the federation envelope
+    exchange (docs/federation.md) pass raw frames both ways (the servicer
+    runs fastwire's codecs) and are registered only when the servicer
+    has them, as in the reference."""
     return grpc.method_handlers_generic_handler(
         V1_SERVICE,
         {
@@ -55,6 +56,9 @@ def v1_handler(servicer) -> grpc.GenericRpcHandler:
                 "LeaseGrant": _raw(servicer.LeaseGrant),
                 "LeaseSync": _raw(servicer.LeaseSync),
             } if hasattr(servicer, "LeaseGrant") else {}),
+            **({
+                "FederationSync": _raw(servicer.FederationSync),
+            } if hasattr(servicer, "FederationSync") else {}),
         },
     )
 
@@ -101,6 +105,11 @@ class V1Stub:
         )
         self.LeaseSync = channel.unary_unary(
             f"/{V1_SERVICE}/LeaseSync",
+            request_serializer=lambda b: b,
+            response_deserializer=lambda b: b,
+        )
+        self.FederationSync = channel.unary_unary(
+            f"/{V1_SERVICE}/FederationSync",
             request_serializer=lambda b: b,
             response_deserializer=lambda b: b,
         )

@@ -51,6 +51,16 @@ _DECODE = _IDX["decode"]
 _ENCODE = _IDX["encode"]
 
 
+def _percentiles(seconds: np.ndarray) -> Dict[str, float]:
+    """p50/p99 in ms of the nonzero cells (a stage that never ran in a
+    window is left out); 0.0 for none."""
+    col = seconds[seconds > 0.0]
+    if col.size == 0:
+        return {"p50_ms": 0.0, "p99_ms": 0.0}
+    return {"p50_ms": round(float(np.percentile(col, 50)) * 1e3, 4),
+            "p99_ms": round(float(np.percentile(col, 99)) * 1e3, 4)}
+
+
 class FlightRecorder:
     """Preallocated ring of per-window stage records."""
 
@@ -179,21 +189,27 @@ class FlightRecorder:
     def stage_percentiles(self) -> Dict[str, Dict[str, float]]:
         """Per-stage p50/p99 (ms) over finished windows in the ring.
         Zero cells (stage never ran in that window) are excluded."""
-        out: Dict[str, Dict[str, float]] = {}
         with self._lock:
             mask = self._valid.copy()
             stage_s = self._stage_s.copy()
-        for s, i in _IDX.items():
-            col = stage_s[mask, i]
-            col = col[col > 0.0]
-            if col.size == 0:
-                out[s] = {"p50_ms": 0.0, "p99_ms": 0.0}
-            else:
-                out[s] = {
-                    "p50_ms": round(float(np.percentile(col, 50)) * 1e3, 4),
-                    "p99_ms": round(float(np.percentile(col, 99)) * 1e3, 4),
-                }
-        return out
+        return {s: _percentiles(stage_s[mask, i]) for s, i in _IDX.items()}
+
+    def snapshot(self) -> dict:
+        """Per-stage and whole-window p50/p99 (ms) plus ring metadata: the
+        control plane's view (the autoscaler, /debug/autoscaler), one
+        lock-copy on the controller's cadence."""
+        with self._lock:
+            mask = self._valid.copy()
+            stage_s = self._stage_s.copy()
+            slow_total = self.slow_total
+        return {
+            "stages": {s: _percentiles(stage_s[mask, i])
+                       for s, i in _IDX.items()},
+            "total": _percentiles(stage_s[mask].sum(axis=1)),
+            "windows": int(mask.sum()),
+            "ring_size": self.windows,
+            "slow_total": slow_total,
+        }
 
     def drain_slow(self) -> List[dict]:
         """Pop pending slow-window dumps (watchdog loop calls this)."""

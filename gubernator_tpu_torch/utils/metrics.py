@@ -609,6 +609,57 @@ class Metrics:
             "Wall time of one reshard transition (freeze through verify) "
             "in seconds, by terminal outcome.",
             ["result"], registry=reg)
+        # Multi-region federation (federation/): envelope traffic,
+        # redelivery attempts, worst-case cross-region drift age, and
+        # MULTI_REGION answers served while a peer region was down.
+        self.federation_envelopes = Counter(
+            "gubernator_tpu_federation_envelopes",
+            "Federation envelopes by outcome: \"sent\" (acked by the "
+            "remote owning peer), \"applied\" (received from a peer "
+            "region and applied locally), \"duplicate\" (received again "
+            "after a lost ack; acked without re-applying).",
+            ["result"], registry=reg)
+        self.federation_redeliveries = Counter(
+            "gubernator_tpu_federation_redeliveries",
+            "Federation envelope send attempts that failed (breaker "
+            "open, RPC error, malformed ack) and will retry the same "
+            "envelope after a jittered backoff.",
+            registry=reg)
+        self.federation_staleness = Gauge(
+            "gubernator_tpu_federation_staleness_seconds",
+            "Age of the oldest cross-region hit delta not yet acked by "
+            "its target region (pending or in flight); the live bound "
+            "on inter-region over-admission drift.",
+            registry=reg)
+        self.federation_degraded_answers = Counter(
+            "gubernator_tpu_federation_degraded_answers",
+            "MULTI_REGION requests answered from region-local state "
+            "while at least one peer region was unreachable (its "
+            "channel failing or breaker open) — each may over-admit up "
+            "to the staleness budget.",
+            registry=reg)
+        # The shard autoscaler (autoscale/): every control decision,
+        # every actuated transition, and every guardrail veto by name.
+        self.autoscale_decisions = Counter(
+            "gubernator_tpu_autoscale_decisions",
+            "Autoscaler control decisions by action: \"act\" (a "
+            "transition was actuated, or would have been in dry-run), "
+            "\"hold\" (no sustained pressure / already at a bound), "
+            "\"veto\" (a guardrail blocked an otherwise-justified "
+            "transition).",
+            ["action"], registry=reg)
+        self.autoscale_transitions = Counter(
+            "gubernator_tpu_autoscale_transitions",
+            "Committed shard transitions actuated by the autoscaler, by "
+            "direction (\"up\"/\"down\"); dry-run decisions and aborted "
+            "transitions are not counted here.",
+            ["direction"], registry=reg)
+        self.autoscale_vetoes = Counter(
+            "gubernator_tpu_autoscale_vetoes",
+            "Autoscaler decisions blocked by a guardrail, by reason: "
+            "breaker_open, reshard_busy, cooldown_up, cooldown_down, "
+            "flap_cap, reshard_error.",
+            ["reason"], registry=reg)
         self.loop_restarts = Counter(
             "gubernator_loop_restarts",
             "Background loops (global_hits, global_broadcast, peer_batch) "

@@ -278,10 +278,27 @@ async def test_transfer_ownership_on_a_ring_change(cluster):
 
 
 def test_unported_cluster_options_raise():
-    """Federation is not ported and raises; the GLOBAL mesh is (a 1-node
-    CPU mesh cluster starts, shares its engine and stops)."""
-    with pytest.raises(ValueError, match="federation"):
-        asyncio.run(Cluster.start(1, federation=True))
+    """Every option of the JAX harness is ported: a 2-region federated
+    CPU cluster starts (a manager on each node with a datacenter, none on
+    the node without one) and stops, and a 1-node CPU mesh cluster
+    starts, shares its engine and stops."""
+
+    async def federated_cluster():
+        c = await Cluster.start(
+            3, datacenters=["us", "eu", ""], federation=True,
+            federation_interval=0.5, tpu_platform="cpu", cache_size=64,
+            tpu_max_batch=16)
+        try:
+            feds = [d.instance.federation for d in c.daemons]
+            assert [f is not None for f in feds] == [True, True, False]
+            assert [f.home for f in feds[:2]] == ["us", "eu"]
+            assert all(f.interval == 0.5 for f in feds[:2])
+            assert (c.daemons[0].instance.region_picker.regions()
+                    == ["eu"])
+        finally:
+            await c.stop()
+
+    asyncio.run(federated_cluster())
 
     async def mesh_cluster():
         c = await Cluster.start(1, global_mesh=True, tpu_platform="cpu",

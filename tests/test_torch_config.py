@@ -235,7 +235,7 @@ def test_env_knob_reads_only_ported_knobs():
     with pytest.raises(ValueError, match="GUBER_SLOW_WINDOW_MS"):
         config.env_knob("GUBER_SLOW_WINDOW_MS", 0.0, float, env)
     with pytest.raises(KeyError):
-        config.env_knob("GUBER_FEDERATION_ENABLED", None, None, env)
+        config.env_knob("GUBER_EDGE_WORKERS", None, None, env)
     assert config.env_knob("GUBER_PEER_TIMEOUT_FLOOR", 0.05,
                            config.parse_duration, env) == 0.05
     for value in ("250ms", "2s", "1m", "100us", "0.5"):

@@ -23,8 +23,10 @@ reclaim under concurrent ticks, and a 3-node cluster of card engines
 (against one of CPU engines on a seeded sequence, and GLOBAL counts
 reconciled exactly), and the GLOBAL mesh's kernels B.8a-B.8d at phase 9's
 shapes and on small meshes (odd node counts, padding lanes, overflowing
-probes) and a card ``MeshGlobalEngine`` against a CPU one on phase 9 D's
-sequence.  They import nothing of JAX, so they run where JAX is not
+probes), a card ``MeshGlobalEngine`` against a CPU one on phase 9 D's
+sequence, a 2-region federated cluster of card engines against one of
+CPU engines (phase 11 C's sequence), and an autoscaler driving a card
+mesh and a CPU one down and up.  They import nothing of JAX, so they run where JAX is not
 installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -1084,3 +1086,84 @@ def test_global_mesh_card_engine_matches_the_cpu_engine(dev):
                                   "fused_sorted_tick"):
         assert launches[name] > 0, name
     assert launches["fused_merged_tick"] == 0
+
+
+def test_federated_cluster_on_the_card_answers_as_the_cpu_cluster(dev):
+    """Phase 11 C at a smaller size: a 2-region, 4-node cluster of card
+    engines and one of CPU engines on the seeded serial MULTI_REGION
+    sequence of ``chip_smoke.drive_federated`` (token and leaky keys,
+    explicit created_at, RESET, negative hits, one partition and heal):
+    every step's answers equal, every node's final answer a key equal in
+    both clusters, both regions' owners agreeing."""
+    import asyncio
+
+    info = asyncio.run(cs.compare_federated(1 << 12, 1024, 12))
+    assert info["answers"] > 12 and info["final_equal_nodes"] == 4
+
+
+def test_autoscaler_on_a_card_mesh_matches_the_cpu_mesh(dev):
+    """An ``Autoscaler`` stepping on scripted samples drives a card mesh
+    of 8 x 2^14 slots and a CPU one through its executor: one transition
+    down (8 -> 4, the policy's floor) and one up (4 -> 8); after each,
+    equal tables, slot maps and reclaim stamps, and equal answers to the
+    same window."""
+    import asyncio
+
+    from gubernator_tpu_torch.autoscale import (
+        Autoscaler, AutoscalePolicy, PolicyConfig, SignalSnapshot)
+    from gubernator_tpu_torch.resilience import ManualClock
+
+    rng = np.random.default_rng(41)
+    local = 1 << 14
+    engs = [MeshTickEngine(n_shards=8, local_capacity=local, max_batch=4096,
+                           device=d) for d in (dev, "cpu")]
+    ids = cs.route_ids(b"a", 8, [local // 2] * 8)
+    now = cs.NOW
+    for a in range(0, len(ids), 4096):
+        cols = cs.window_columns(reqcols, rng, b"a", ids[a:a + 4096], now,
+                                 prefill=True)
+        got, want = (e.process_columns(cols, now) for e in engs)
+        np.testing.assert_array_equal(got[0], want[0])
+
+    def same():
+        card, cpu = engs
+        assert torch.equal(card.table.cpu(), cpu.table)
+        for a, b in zip(card.slots, cpu.slots):
+            ka = a.keys_blob(np.arange(card.local_capacity))
+            kb = b.keys_blob(np.arange(cpu.local_capacity))
+            assert ka[0] == kb[0] and np.array_equal(ka[1], kb[1])
+        np.testing.assert_array_equal(card._last_access, cpu._last_access)
+
+    def execute(target):
+        infos = [e.reshard(target, now=now + 10) for e in engs]
+        assert infos[0] == infos[1] and infos[0]["live_items"] > 0
+        same()
+        pick = ids[(rng.zipf(1.2, 4096) - 1) % len(ids)]
+        cols = cs.window_columns(reqcols, rng, b"a", pick, now + 20)
+        got, want = (e.process_columns(cols, now + 20) for e in engs)
+        np.testing.assert_array_equal(got[0], want[0])
+        return {"outcome": "committed", "from_shards": 0,
+                "to_shards": target}
+
+    idle = SignalSnapshot(p99_ms=0.5, hot_occupancy=0.1, shards=8)
+    busy = SignalSnapshot(p99_ms=50.0, queue_depth=500, shards=4)
+    feed = iter([idle, busy])
+    clock = ManualClock()
+    scaler = Autoscaler(
+        lambda: next(feed), execute,
+        policy=AutoscalePolicy(PolicyConfig(windows=1, min_shards=4,
+                                            max_shards=8)),
+        cooldown_up=0.0, cooldown_down=0.0, dry_run=False, clock=clock,
+        sleep=clock.sleep)
+
+    async def run():
+        out = []
+        for _ in range(2):
+            clock.advance(10.0)
+            out.append(await scaler.step())
+        return out
+
+    down, up = asyncio.run(run())
+    assert (down.action, down.direction, down.to_shards) == ("act", "down", 4)
+    assert (up.action, up.direction, up.to_shards) == ("act", "up", 8)
+    assert engs[0].n_shards == engs[1].n_shards == 8

@@ -212,8 +212,39 @@ async def test_peer_client_rejects_after_closed_and_unported_rpcs_raise():
         for c in (client, ref):
             if c._channel is not None:
                 await c._channel.close()
-    with pytest.raises(NotImplementedError, match="federation_sync"):
-        await client.federation_sync(None)
+    # federation_sync: a round trip to a federated node over gRPC (a GFE1
+    # envelope in, its GFA1 ack out), the redelivery of the same envelope
+    # acked as a duplicate and applied once.
+    from gubernator_tpu_torch.config import Config, DaemonConfig
+    from gubernator_tpu_torch.federation import (
+        FederationEnvelope, FederationRecord)
+    from gubernator_tpu_torch.transport.daemon import spawn_daemon
+
+    d = await asyncio.wait_for(spawn_daemon(DaemonConfig(
+        grpc_listen_address="127.0.0.1:0", http_listen_address="",
+        data_center="eu", config=Config(
+            tpu_platform="cpu", cache_size=1024, tpu_max_batch=64,
+            data_center="eu", federation_enabled=True))), 30)
+    peer = PeerClient(PeerInfo(grpc_address=d.conf.grpc_listen_address,
+                               datacenter="eu"))
+    try:
+        env = FederationEnvelope(
+            origin="us-1:81", region="us", epoch="boot-1", seq=1,
+            records=[FederationRecord(name="fed", unique_key="k", hits=3,
+                                      limit=10, duration=60_000)])
+        acks = [await asyncio.wait_for(peer.federation_sync(env), 30)
+                for _ in range(2)]
+        assert [(a.origin, a.seq, a.applied) for a in acks] == [
+            ("us-1:81", 1, 1), ("us-1:81", 1, 0)]
+        (r,) = await d.instance.get_rate_limits([RateLimitRequest(
+            name="fed", unique_key="k", hits=0, limit=10,
+            duration=60_000)])
+        assert r.remaining == 7
+        assert d.metrics.sample("gubernator_tpu_federation_envelopes_total",
+                                {"result": "duplicate"}) == 1
+    finally:
+        await asyncio.wait_for(peer.shutdown(), 30)
+        await asyncio.wait_for(d.close(), 30)
 
 
 async def test_peer_client_breaker_open_fails_fast_without_dial():
