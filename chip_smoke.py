@@ -45,7 +45,10 @@ Phases, one output line each:
    mesh's duplicate tile tick (B.6) on phase 4's herd window (32768
    Zipf(1.2) lanes over 8 x 1.25M slots) and on a 4096-lane window whose
    runs cross the walk's chunk boundaries (8 x 2^14 random rows), bit
-   for bit with its rank rounds, timed beside its plain version.
+   for bit with its rank rounds, timed (on a scratch kept across its
+   calls: one launch a window) beside its plain version and PR 15's time
+   (``earlier_ms``), with its share of the bound and its build's
+   ``ptxas`` registers, stack frame and spill bytes.
    ``--against CHECKOUT`` times that checkout's tick kernels, B.5
    included, and its row gather at every sweep shape in turns with these
    (``against_ms``, the gather's ``against_share``);
@@ -240,8 +243,8 @@ GLOBAL mesh's kernels bit for bit against their plain versions: B.8a
 (accumulate) and B.8b (dense reconcile) at 8 nodes x 2^16 slots on
 global_mesh_8's windows, B.8c (sparse probe) and B.8d (sparse apply) at
 8 x 2^22 with 512 union slots (a reconcile consumes its accumulators, so
-B.8b and B.8d are timed with a restore before each call and the
-restore's own time taken off).  Phases 3-12 also report each path's
+B.8b, strict and summed, and B.8d are timed with a restore before each
+call and the restore's own time taken off).  Phases 3-12 also report each path's
 tick and lease-window launches by lane width (``launches_by_width``,
 power-of-two buckets), summed over them on the ``launch_widths`` line.  Then the kernel table as one JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -659,7 +662,11 @@ def ragged_window(engine_mod, rng, n_shards: int, local_capacity: int,
 # chunk boundaries, every lane on shard 0, RESET rows, expired heads,
 # invalid lanes inside the extents, and one algorithm each).
 TILE_KINDS = ("mixed", "herd", "cross", "skewed", "reset", "expired",
-              "invalid") + ALGORITHMS
+              "invalid", "runs") + ALGORITHMS
+# The run lengths of tile_window's ``runs`` kind, in turn: a lane, runs
+# inside a warp's 32 lanes, a warp's width and one more, runs a warp walks
+# (up to 256 lanes) and runs past them (a run block's).
+TILE_RUN_LENGTHS = (1, 2, 7, 31, 32, 33, 1, 64, 3, 256, 257, 5, 300, 1, 17)
 
 
 def tile_window(engine_mod, rng, n_shards: int, local_capacity: int,
@@ -669,7 +676,8 @@ def tile_window(engine_mod, rng, n_shards: int, local_capacity: int,
     ``local_capacity`` slots, and the walk's chunk width
     (``choose_tile``).  Runs of one slot (Zipf(1.2) over the table, one
     slot for the whole live window with ``herd``, runs of half a chunk to
-    two chunks with ``cross``, all on shard 0 with ``skewed``) carry
+    two chunks with ``cross``, all on shard 0 with ``skewed``, runs of
+    ``TILE_RUN_LENGTHS`` lanes in turn with ``runs``) carry
     random requests over all five algorithms and flags, or (most runs)
     their head's request on every lane, known, so that their groups fold;
     ``reset`` puts RESET_REMAINING on a share of lanes, ``expired``
@@ -694,6 +702,11 @@ def tile_window(engine_mod, rng, n_shards: int, local_capacity: int,
         slots = np.repeat(heads, runs)[:n]
     elif kind == "skewed":
         slots = np.sort((rng.zipf(1.2, n) - 1) % L)
+    elif kind == "runs":
+        reps = np.resize(TILE_RUN_LENGTHS, n)
+        reps = reps[:int(np.searchsorted(np.cumsum(reps), n)) + 1]
+        heads = np.sort(rng.choice(cap, len(reps), replace=False))
+        slots = np.repeat(heads, reps)[:n]
     else:
         slots = np.sort((rng.zipf(1.2, n) - 1) % cap)
     req = random_requests(rng, n)
@@ -1138,6 +1151,39 @@ TILE_CROSS_LOCAL, TILE_CROSS_LANES = 1 << 14, 4096
 # (csrc/mesh_tile_tick.cuh fold_answer: ~40 int64 operations, a float64
 # division left out): an estimate.
 TILE_FOLD_INT32_OPS_PER_LANE = 80
+# PR 15's times of the kernels PR 16 redesigned, its proof run b on an
+# NVIDIA H100 80GB HBM3, 700.00 W (PERF.md §6): B.6 on the herd and the
+# cross window, B.8b at 8 x 2^16 (strict).  Phase 2 prints them beside
+# this run's as "earlier_ms".
+EARLIER_MS = {"mesh_tile_tick": 0.03234399855136871,
+              "mesh_tile_tick_cross": 0.1566160023212433,
+              "global_dense_reconcile": 0.0997119965031743}
+
+
+def kernel_ptxas(lib: str, kernel: str) -> dict:
+    """``ptxas -v``'s report for kernel ``kernel`` of library ``lib``
+    (``_build``'s log): its registers, its stack frame, and the spill
+    bytes (stores and loads) of every function in the library."""
+    from gubernator_tpu_torch import _build
+
+    regs = frame = None
+    spills = 0
+    current = None
+    with open(_build.library_path(lib) + ".log") as fh:
+        for ln in fh:
+            if "Compiling entry function" in ln or "Function properties" in ln:
+                current = ln
+            elif "spill stores" in ln:
+                parts = ln.replace(",", "").split()
+                spills += int(parts[4]) + int(parts[8])
+                if current is not None and kernel in current \
+                        and frame is None:
+                    frame = int(parts[0])
+            elif "Used" in ln and "registers" in ln and current is not None \
+                    and kernel in current and regs is None:
+                regs = int(ln.split("Used")[1].split()[0])
+    return {"registers": regs, "stack_frame_bytes": frame,
+            "spill_bytes": spills}
 
 
 def herd_tile_window(engine_mod, rng, n_shards: int, local_capacity: int,
@@ -1180,7 +1226,7 @@ def tile_entry(torch, dev, rng, rotate: int = 4):
     from gubernator_tpu_torch.ops import engine as E
     from gubernator_tpu_torch.ops.raggedtick import choose_tile
     from gubernator_tpu_torch.ops.tiletick import (
-        mesh_tile_tick, mesh_tile_tick_plain)
+        TileScratch, mesh_tile_tick, mesh_tile_tick_plain)
 
     n, L, lanes = TILE_SHARDS, TILE_LOCAL, TILE_LANES
     herds = [herd_tile_window(E, rng, n, L, lanes) for _ in range(rotate)]
@@ -1231,11 +1277,15 @@ def tile_entry(torch, dev, rng, rotate: int = 4):
     resps = [torch.empty((6, lanes), dtype=torch.int32, device=dev)
              for _ in range(rotate)]
     cnt = torch.zeros(1, dtype=torch.int64, device=dev)
+    # A scratch kept across the calls, as the mesh engine keeps one: a
+    # window is one launch.
+    scr = TileScratch(dev)
     ms = time_ms(torch, [lambda x=x, r=r: mesh_tile_tick(
-        work, *x, n, L, tile, NOW, cnt, out=r) for x, r in zip(dwins, resps)])
+        work, *x, n, L, tile, NOW, cnt, out=r, scratch=scr)
+        for x, r in zip(dwins, resps)])
     cwork = ctable.clone()
     cms = time_ms(torch, lambda: mesh_tile_tick(
-        cwork, *cdev, n, TILE_CROSS_LOCAL, ctile, NOW, cnt))
+        cwork, *cdev, n, TILE_CROSS_LOCAL, ctile, NOW, cnt, scratch=scr))
     distinct = len(herds[0][2])
 
     def work_of(d, w):
@@ -1256,7 +1306,12 @@ def tile_entry(torch, dev, rng, rotate: int = 4):
     e["cross"] = {"lanes": TILE_CROSS_LANES, "shards": n,
                   "local_capacity": TILE_CROSS_LOCAL, "tile": ctile,
                   "distinct_slots": cd, "rank_rounds": crounds, "ms": cms,
+                  "earlier_ms": EARLIER_MS["mesh_tile_tick_cross"],
                   "plain_ms": cplain_ms, **_bound(cb, co)}
+    e["cross"]["share"] = e["cross"]["bound_ms"] / cms
+    e["earlier_ms"] = EARLIER_MS["mesh_tile_tick"]
+    e["share"] = e["bound_ms"] / ms
+    e["ptxas"] = kernel_ptxas("mesh_tile_tick", "mesh_tile_tick_kernel")
     e["checked"] = ["herd", "cross"]
     return e
 
@@ -4385,9 +4440,12 @@ def gm_fold_bytes(acc, slots, n) -> tuple:
 def global_kernel_entries(torch, dev, rng, n=GM_NODES, cap=GM_CAPACITY,
                           big=GM_SPARSE_CAPACITIES[1], union=GM_UNION,
                           rotate=8) -> dict:
-    """B.8a-B.8d against their plain versions bit for bit, and timed.
-    B.8a and B.8b at ``n`` nodes x ``cap`` slots on global_mesh_8's
-    windows (B.8b's accumulators and stamps those of two windows; random
+    """B.8a-B.8d against their plain versions bit for bit, and timed
+    (B.8b strict and summed, ``summed_ms``, beside PR 15's time,
+    ``earlier_ms``, with its share of the bound and its ``ptxas``
+    report).  B.8a and B.8b at ``n`` nodes x ``cap`` slots on
+    global_mesh_8's windows (B.8b's accumulators and stamps those of two
+    windows; random
     rows of all five algorithms); B.8c and B.8d at ``n`` x ``big`` slots
     with ``union`` slots touched (random rows there, random parameters,
     windows with negative hits and RESET counts on the non-owners).
@@ -4477,6 +4535,8 @@ def global_kernel_entries(torch, dev, rng, n=GM_NODES, cap=GM_CAPACITY,
     havep = int((b8b_aux[:, GM.AUX["stamp"]] > 0).any(dim=0).sum())
     t = time_restored(torch, [lambda: GM.global_dense_reconcile(
         table, b8b_aux, work, n, NOW, True)], [restore])
+    ts = time_restored(torch, [lambda: GM.global_dense_reconcile(
+        table, b8b_aux, work, n, NOW, False)], [restore])
     tp = time_restored(torch, [lambda: GM.global_dense_reconcile_plain(
         table, b8b_aux, work, n, NOW, True)], [restore])
     nbytes = cap * (128 + n * 8 + n * 128 + n * 32) + havep * 64 + fold_b
@@ -4484,7 +4544,11 @@ def global_kernel_entries(torch, dev, rng, n=GM_NODES, cap=GM_CAPACITY,
         "global_dense_reconcile", src, f"{ref}:577", err, t["ms"], tp["ms"],
         None, nbytes, active * FUSED_TICK_INT32_OPS_PER_LANE)
     out["global_dense_reconcile"].update(
-        slots=cap, nodes=n, windows_folded=active, restore_ms=t["restore_ms"])
+        slots=cap, nodes=n, windows_folded=active, restore_ms=t["restore_ms"],
+        summed_ms=ts["ms"], earlier_ms=EARLIER_MS["global_dense_reconcile"],
+        share=(out["global_dense_reconcile"]["bound_ms"] / t["ms"]
+               if t["ms"] > 0 else None),
+        ptxas=kernel_ptxas("global_mesh", "dense_kernel"))
     del table, work, b8b_aux, b8b_acc
 
     # --- B.8c and B.8d at n x big with `union` slots touched ---

@@ -16,12 +16,15 @@
 // its blocks (sorted_tick.cuh) one after another: each long block's walk
 // chunk by chunk (stage, run, prepare, apply, respond), then each lane
 // block's inert lanes and short segments.  The mesh's duplicate tile tick
-// (mesh_tile_tick.cu) runs its long blocks' runs piece by piece (head,
-// eligibility, fold or prepared chain), then every lane's step.
+// (mesh_tile_tick.cu) runs the kernel's own steps (mesh_tile_tick.cuh)
+// under a policy that holds a warp's lanes or a block's threads in
+// arrays: each lane block's warps, then the run blocks.
 
 #include <stdint.h>
 
+#include <cstring>
 #include <memory>
+#include <vector>
 
 #include "mesh_tile_tick.cuh"
 
@@ -199,106 +202,127 @@ extern "C" int gt_fused_sorted_tick_host(int64_t* table, int64_t capacity,
 
 namespace {
 
-// The long run headed at lane h, the kernel's long block step after step:
-// its end, then its pieces in order (a piece with an invalid lane through
-// piece_serial; else the head, the group's eligibility, and the fold or
-// the chain of prepared slices).
-void long_run_host(gt::LongSmem& S, int64_t* table, const gt::TileGeom& g,
-                   const int32_t* m32, int64_t ld_m, int32_t* resp,
-                   int64_t ld_r, int64_t now, int64_t h, int32_t* tile_max,
-                   int64_t* rounds) {
-  using namespace gt;
-  const Extent e = extent_at(g, h);
-  const int32_t slot = slot_at(m32, ld_m, h);
-  int64_t* rp = table + shard_row(g, e.shard, slot) * ROW_W;
-  int64_t end = h + 1;
-  while (end < e.z && slot_at(m32, ld_m, end) == slot) ++end;
-  int64_t s[ROW_W];
-  bool loaded = false;
-  for (int64_t p = h; p < end;) {
-    const int64_t ce = chunk_end(g, e, p);
-    const int64_t q = ce < end ? ce : end;
-    const int64_t id = chunk_id(g, e, p);
-    bool bad = false;
-    for (int64_t x = p; x < q; ++x) bad = bad || m32[R_VALID * ld_m + x] == 0;
-    if (bad) {
-      note_rounds(tile_max, rounds, id,
-                  piece_serial(m32, ld_m, p, q, now, rp, s, loaded, resp,
-                               ld_r));
-      p = q;
-      continue;
-    }
-    const Req hr = load_req(m32, ld_m, p);
-    if (!loaded) {
-      load_row(rp, s);
-      loaded = true;
-    }
-    store_resp(resp, ld_r, p,
-               transition_class(algo_class(hr.algorithm), now, hr, s), true);
-    S.fold = fold_head(s);
-    bool elig = lane_mergeable(hr, hr, true);
-    for (int64_t x = p + 1; x < q; ++x) {
-      elig = elig && lane_mergeable(load_req(m32, ld_m, x), hr, false);
-    }
-    const int64_t n = q - p;
-    if (n > 1) {
-      const bool proven = proven_alive(hr, now);
-      const FoldHead f = S.fold;
-      const bool alive = now <= f.E;
-      if (elig && (alive || proven)) {
-        for (int64_t x = p + 1; x < q; ++x) {
-          store_resp(resp, ld_r, x,
-                     alive ? fold_answer(hr, f, x - p) : Resp{}, alive);
-        }
-        if (alive) fold_row(hr, f, n - 1, s);
-        note_rounds(tile_max, rounds, id, proven ? 0 : n - 1);
-      } else {
-        for (int64_t base = p + 1; base < q; base += TT_CHAIN) {
-          const int cnt = (int)(q - base < TT_CHAIN ? q - base : TT_CHAIN);
-          for (int i = 0; i < cnt; ++i) {
-            chain_prepare(S, m32, ld_m, base, i, now);
-          }
-          chain_apply(S, cnt, now, s);
-          chain_respond(S, 0, 1, cnt, resp, ld_r, base);
-        }
-        note_rounds(tile_max, rounds, id, n - 1);
-      }
-    }
-    p = q;
+// The host's side of mesh_tile_tick.cuh's policies: a warp's 32 lanes, or
+// a run block's 256 threads, as arrays stepped by loops.
+struct HostWarp {
+  static constexpr int N = 32;
+  int lane(int k) const { return k; }
+  template <class F>
+  uint32_t ballot(F pred) const {
+    uint32_t m = 0;
+    for (int k = 0; k < N; ++k) m |= (uint32_t)(pred(k) ? 1 : 0) << k;
+    return m;
   }
-  if (loaded) store_ticked_row(rp, s);
-}
+  template <class F>
+  int64_t from(F get, int src) const {
+    return (int64_t)get(src);
+  }
+  void sync() const {}
+  void fence() const {}
+  void publish(const gt::Scratch& sc, int q, int64_t x, int64_t row) const {
+    if (q >= 0) {
+      uint64_t* e = gt::queue_at(sc, q, sc.ctrl[gt::CTRL_PUSHED + 2 * q]++);
+      const uint64_t tag = (uint64_t)sc.epoch << 32;
+      e[0] = tag | (uint32_t)x;
+      e[1] = tag | (uint32_t)row;
+    }
+    sc.ctrl[gt::CTRL_CLASSIFIED] += 1;
+  }
+};
+
+struct HostBlock {
+  template <class F>
+  void each(F f) const {
+    for (int t = 0; t < gt::TT_THREADS; ++t) f(t);
+  }
+  template <class F>
+  void once(F f) const {
+    f();
+  }
+  void sync() const {}
+  template <class F>
+  int64_t min(F get) const {
+    int64_t v = INT64_MAX;
+    for (int t = 0; t < gt::TT_THREADS; ++t) {
+      const int64_t x = get(t);
+      v = x < v ? x : v;
+    }
+    return v;
+  }
+  // Every warp classified before the run blocks: each word is this
+  // launch's.
+  uint32_t word(const uint64_t* p, uint32_t) const { return (uint32_t)*p; }
+  void or_at(uint32_t* p, uint32_t v) const { *p |= v; }
+  void stage16(void* dst, const void* src) const { std::memcpy(dst, src, 16); }
+  void stage4(void* dst, const void* src) const { std::memcpy(dst, src, 4); }
+  void staged() const {}
+};
 
 }  // namespace
 
-// The mesh's duplicate tile tick's blocks one after another: the long
-// blocks (each runs the long run headed in its range), then every lane's
-// step (zeros off the extents, short runs in one thread).  `tile_max`
-// holds n_shards * ceil(lanes / tile) cells, zeroed here.
+// Scratch words the host build needs (gt_mesh_tile_tick_scratch_words's).
+extern "C" int64_t gt_mesh_tile_tick_scratch_words_host(int64_t lanes,
+                                                        int64_t tile,
+                                                        int64_t n_shards) {
+  return gt::scratch_words(lanes, tile, n_shards);
+}
+
+// The mesh's duplicate tile tick's blocks one after another, as the kernel
+// runs them: each lane block's warps classify (each publishing its
+// words), then run their groups, then the block's runs; then the queued
+// runs, giant ones first; then the counters go back to 0.  `scratch`
+// holds gt_mesh_tile_tick_scratch_words_host words and `epoch` is the
+// launch's, as for the kernel.
 extern "C" int gt_mesh_tile_tick_host(int64_t* table, int64_t n_shards,
                                       int64_t local_capacity,
                                       const int32_t* offsets,
                                       const int32_t* m32, int64_t ld_m,
                                       int32_t* resp, int64_t ld_r,
                                       int64_t lanes, int64_t tile,
-                                      int64_t now, int32_t* tile_max,
-                                      int64_t* rounds) {
+                                      int64_t now, uint64_t* scratch,
+                                      int64_t epoch, int64_t* rounds) {
   using namespace gt;
   if (lanes <= 0) return 0;
-  const int64_t max_tiles = (lanes + tile - 1) / tile;
-  for (int64_t i = 0; i < n_shards * max_tiles; ++i) tile_max[i] = 0;
-  const TileGeom g{offsets, n_shards, local_capacity, tile, max_tiles};
-  auto S = std::make_unique<LongSmem>();
-  for (int64_t k = 0; k < long_blocks_tt(lanes); ++k) {
-    const int64_t h = long_head_tt(g, m32, ld_m, lanes, k, 0, 1);
-    if (h >= 0) {
-      long_run_host(*S, table, g, m32, ld_m, resp, ld_r, now, h, tile_max,
-                    rounds);
+  TileTick c;
+  c.table = table;
+  c.g = TileGeom{offsets, n_shards, local_capacity,
+                 tile < lanes ? tile : lanes, max_tiles_of(lanes, tile)};
+  c.m32 = m32;
+  c.ld_m = ld_m;
+  c.resp = resp;
+  c.ld_r = ld_r;
+  c.lanes = lanes;
+  c.now = now;
+  c.n_lane_blocks = lane_blocks(lanes);
+  c.sc = scratch_at(scratch, lanes, tile, n_shards, rounds, (uint32_t)epoch);
+  const HostWarp w;
+  auto L = std::make_unique<TLane[]>(TT_THREADS);
+  auto S = std::make_unique<WarpSmem[]>(TT_WARPS);
+  WarpMasks M[TT_WARPS];
+  for (int64_t b = 0; b < c.n_lane_blocks; ++b) {
+    for (int wi = 0; wi < TT_WARPS; ++wi) {
+      warp_classify(w, c, b, wi, L.get() + wi * 32, M[wi], S[wi]);
+    }
+    std::vector<int64_t> tasks;
+    for (int wi = 0; wi < TT_WARPS; ++wi) {
+      const uint32_t runs = warp_groups(w, c, L.get() + wi * 32, M[wi], S[wi]);
+      for (uint32_t m = runs; m; m &= m - 1) {
+        tasks.push_back(b * TT_THREADS + wi * 32 + low_bit(m));
+      }
+    }
+    for (int64_t h : tasks) warp_run(w, c, h, S[0]);
+  }
+  const HostBlock blk;
+  auto R = std::make_unique<RunSmem>();
+  for (int q = 0; q < 2; ++q) {
+    while (c.sc.ctrl[CTRL_POPPED + 2 * q] < c.sc.ctrl[CTRL_PUSHED + 2 * q]) {
+      const uint64_t* e =
+          queue_at(c.sc, q, c.sc.ctrl[CTRL_POPPED + 2 * q]++);
+      run_block(blk, c, (int64_t)(uint32_t)e[0], (int64_t)(uint32_t)e[1],
+                *R);
     }
   }
-  for (int64_t j = 0; j < lanes; ++j) {
-    lane_step(table, g, m32, ld_m, resp, ld_r, now, j, tile_max, rounds);
-  }
+  for (int i = 0; i < CTRL_WORDS; ++i) c.sc.ctrl[i] = 0;
   return 0;
 }
 

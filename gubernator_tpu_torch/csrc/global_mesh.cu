@@ -13,7 +13,15 @@
 //   B.8b dense reconcile (make_global_reconcile_fn, :577-687): per slot,
 //        the owner's row, the stamp winner's parameters, every node's
 //        window folded in node order (or summed), the row written to all
-//        n replicas and every node's accumulators zeroed.
+//        n replicas and every node's accumulators zeroed.  Bound: bytes,
+//        capacity x (128 + 8n + 128n + 32n) B and the folded windows'
+//        words (PERF.md §6).  A thread a slot moving its rows as 16-B
+//        vectors 128 B apart (32 rows an instruction, n + 1 times) ran at
+//        a third of that on this card; so a block takes a tile of 256
+//        consecutive slots: the owners' rows (contiguous within a slice)
+//        come into shared memory by coalesced 16-B loads, each slot's
+//        thread runs dense_slot on its staged row, and the tile goes out to
+//        each replica as one contiguous run of coalesced 16-B stores.
 //   B.8c sparse probe (:400-437 with :295-317): per slot, every node's
 //        window and touch bits; counts per node, each owner's share of the
 //        union of all of them, the union compacted into a slot list (any
@@ -22,8 +30,9 @@
 //        every node's window folded in node order on that node's own
 //        parameters, written to all n replicas, the accumulators zeroed.
 //
-// Design: one thread a lane (B.8a) or a slot (B.8b-B.8d), 256 threads a
-// block, grids sized to the work; rows move as 16-B vectors.  B.8c scans
+// Design: one thread a lane (B.8a) or a slot (B.8c-B.8d; B.8b a tile, as
+// above), 256 threads a block, grids sized to the work; rows move as 16-B
+// vectors.  B.8c scans
 // the count and touch rows of every node (2 x 8 B x n x capacity); its
 // counts are warp ballots summed in shared memory, then once a block into
 // global counters, and its list appends one atomic a warp.  The probe's
@@ -103,16 +112,53 @@ __global__ void accumulate_kernel(const int32_t* __restrict__ m32, int64_t ld,
   }
 }
 
-__global__ void dense_kernel(int64_t* __restrict__ table,
-                             const int64_t* __restrict__ aux,
-                             int64_t* __restrict__ acc, gm::Mesh m,
-                             int64_t now, int strict) {
-  const int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (s >= m.capacity) return;
-  int64_t row[gt::ROW_W];
-  load_row(table, gm::owner_of(m, s) * m.capacity + s, row);
-  gm::dense_slot(m, aux, acc, s, now, strict != 0, row);
-  replicate(table, acc, m, s, row);
+// B.8b's tile: kThreads consecutive slots a block, their rows staged in
+// shared memory at a 144-B stride (16-B aligned for the vector copies;
+// a thread's own row's words spread over the banks).
+constexpr int kDenseRowW = 18;
+constexpr int kDenseVecs = gt::ROW_W / 2;  // 16-B vectors a row
+
+__global__ void __launch_bounds__(kThreads)
+    dense_kernel(int64_t* __restrict__ table,
+                 const int64_t* __restrict__ aux, int64_t* __restrict__ acc,
+                 gm::Mesh m, int64_t now, int strict) {
+  __shared__ __align__(16) int64_t rows[kThreads * kDenseRowW];
+  const int t = threadIdx.x;
+  const int64_t s0 = (int64_t)blockIdx.x * kThreads;
+  const int ns = (int)(m.capacity - s0 < kThreads ? m.capacity - s0
+                                                   : kThreads);
+  // 1. The owners' rows in: vector v of the tile is row v / 8's part
+  // v % 8; a tile inside one owner's slice reads one contiguous run.
+  for (int v = t; v < ns * kDenseVecs; v += kThreads) {
+    const int i = v / kDenseVecs, part = v % kDenseVecs;
+    const int64_t s = s0 + i;
+    const longlong2* src = reinterpret_cast<const longlong2*>(
+        table + (gm::owner_of(m, s) * m.capacity + s) * gt::ROW_W);
+    reinterpret_cast<longlong2*>(rows + i * kDenseRowW)[part] = src[part];
+  }
+  __syncthreads();
+  // 2. Each slot's thread reconciles its staged row.
+  if (t < ns) {
+    gm::dense_slot(m, aux, acc, s0 + t, now, strict != 0,
+                   rows + t * kDenseRowW);
+  }
+  __syncthreads();
+  // 3. The tile to every replica, one contiguous run of 16-B stores each,
+  // and every node's accumulators of the tile to 0 (coalesced).
+  for (int64_t d = 0; d < m.n_nodes; ++d) {
+    longlong2* dst = reinterpret_cast<longlong2*>(
+        table + (d * m.capacity + s0) * gt::ROW_W);
+    for (int v = t; v < ns * kDenseVecs; v += kThreads) {
+      dst[v] = reinterpret_cast<const longlong2*>(
+          rows + (v / kDenseVecs) * kDenseRowW)[v % kDenseVecs];
+    }
+    if (t < ns) {
+#pragma unroll
+      for (int k = 0; k < gm::ACC_ROWS; ++k) {
+        acc[gm::acc_ix(m, d, k, s0 + t)] = 0;
+      }
+    }
+  }
 }
 
 // scratch (int32): [0] finished blocks, [1] union size, then the window

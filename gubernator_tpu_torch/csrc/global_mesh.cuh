@@ -131,13 +131,15 @@ GT_HD void apply_req(int64_t now, const gt::Req& r, int64_t* row) {
 
 // ---- B.8b: the dense reconcile of one slot ----
 //
-// `row` holds the owner's row on entry and the merged row on return.  The
-// parameters are the stamp winner's: the node with the largest
-// stamp * n + d among stamps above 0 (the reference's pmax over write
-// stamps, ties summed as its masked psum does); without one the base row
+// `row` holds the owner's row on entry and the merged row on return (in
+// registers, or the kernel's shared memory).  The parameters are the
+// stamp winner's: the node with the largest stamp * n + d among stamps
+// above 0 (the reference's pmax over write stamps, ties summed as its
+// masked psum does); without one the base row (the owner's row on entry)
 // stands in and the Gregorian words are 0.  Strict: each node's window
-// folds in node order where its count is above 0.  Otherwise the three
-// rows are summed over the nodes and applied once.
+// folds in node order where its count is above 0, the base row copied
+// aside at the first.  Otherwise the three rows are summed over the nodes
+// and applied once, the request read from the row before it changes.
 GT_HD void dense_slot(const Mesh& m, const int64_t* aux, const int64_t* acc,
                       int64_t s, int64_t now, bool strict, int64_t* row) {
   const int64_t n = m.n_nodes;
@@ -160,11 +162,15 @@ GT_HD void dense_slot(const Mesh& m, const int64_t* aux, const int64_t* acc,
       }
     }
   }
-  int64_t base[gt::ROW_W];
-  for (int w = 0; w < gt::ROW_W; ++w) base[w] = row[w];
   if (strict) {
+    int64_t base[gt::ROW_W];
+    bool copied = false;
     for (int64_t d = 0; d < n; ++d) {
       if (acc[acc_ix(m, d, ACC_COUNT, s)] <= 0) continue;
+      if (!copied) {
+        for (int w = 0; w < gt::ROW_W; ++w) base[w] = row[w];
+        copied = true;
+      }
       apply_req(now, fold_req(acc[acc_ix(m, d, ACC_HITS, s)],
                               acc[acc_ix(m, d, ACC_RESET, s)], p, havep,
                               base, p[A_GREG_EXP], p[A_GREG_DUR], now),
@@ -179,7 +185,7 @@ GT_HD void dense_slot(const Mesh& m, const int64_t* aux, const int64_t* acc,
     count = gt::wadd(count, acc[acc_ix(m, d, ACC_COUNT, s)]);
   }
   if (count > 0) {
-    apply_req(now, fold_req(hits, resets, p, havep, base, p[A_GREG_EXP],
+    apply_req(now, fold_req(hits, resets, p, havep, row, p[A_GREG_EXP],
                             p[A_GREG_DUR], now),
               row);
   }

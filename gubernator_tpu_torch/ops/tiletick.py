@@ -4,11 +4,12 @@
 (kernel B.6), the counterpart of the TPU package's x64 tile tick
 (``engine.make_tick_fn(..., compact_req=True, compact_resp=True)``),
 which its mesh engine runs tile after tile over each shard's extent of a
-window with a repeated key.  One launch a window: each run of one slot is
-one thread's or, past ``TT_LONG`` lanes, one block's, which takes the
-run's pieces (its lanes in one chunk of the walk) in order: the head's
-transition, then the x64 closed-form fold of an eligible group or the
-followers one after another (``csrc/mesh_tile_tick.cuh``).
+window with a repeated key.  One launch a window: a warp takes each
+32-lane window's runs at once (a head lane ticks each, its followers
+answer the x64 closed-form fold in parallel or hand their prepared links
+to the head lane), a run that leaves its window goes to the warp whole,
+and a run past 256 lanes to a run block, which takes its pieces (its
+lanes in one chunk of the walk) in order (``csrc/mesh_tile_tick.cuh``).
 
 :func:`mesh_tile_tick_plain` is its plain PyTorch version, run for CPU
 tensors only: the tile walk itself, :func:`~.raggedtick.ragged_walk` over
@@ -23,7 +24,9 @@ extent offsets on the table's device; ``tile`` the walk's chunk width
 ``rounds`` is an int64 (1,) tensor on the table's device to which the
 call adds the window's rank rounds: for each chunk, the most followers of
 one of its groups that did not fold in closed form (the rounds the plain
-walk runs).
+walk runs).  ``scratch`` is a :class:`TileScratch` that one caller (one
+stream) keeps for its windows, so a launch needs no memset; without one a
+call makes its own.
 """
 
 from __future__ import annotations
@@ -47,13 +50,34 @@ def _lib() -> ctypes.CDLL:
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.gt_mesh_tile_tick.restype = ctypes.c_int
     lib.gt_mesh_tile_tick.argtypes = [
-        vp, i64, i64, vp, vp, i64, vp, i64, i64, i64, i64, vp, vp, vp]
+        vp, i64, i64, vp, vp, i64, vp, i64, i64, i64, i64, vp, i64, vp, vp]
+    lib.gt_mesh_tile_tick_scratch_words.restype = i64
+    lib.gt_mesh_tile_tick_scratch_words.argtypes = [i64, i64, i64]
     return lib
 
 
-def max_tiles(lanes: int, tile: int) -> int:
-    """Chunks an extent of a window of ``lanes`` lanes may hold."""
-    return -(-int(lanes) // int(tile)) if lanes else 0
+class TileScratch:
+    """The kernel's scratch for one caller: int64 words zeroed once, and
+    the count of launches on them (each launch's epoch, which tags what it
+    leaves there, so the next one needs no memset).  Grown, and zeroed
+    again, when a window needs more words or the count would wrap."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.words = torch.zeros(0, dtype=torch.int64, device=self.device)
+        self.epoch = 0
+
+    def take(self, n_words: int) -> tuple:
+        """``(words, epoch)`` for the next launch."""
+        if n_words > self.words.numel() or self.epoch >= 0xFFFFFFFF:
+            self.words = torch.zeros(max(int(n_words), 1), dtype=torch.int64,
+                                     device=self.device)
+            self.epoch = 0
+        self.epoch += 1
+        return self.words, self.epoch
 
 
 def mesh_tile_tick_plain(table: torch.Tensor, m32: torch.Tensor,
@@ -87,7 +111,8 @@ def mesh_tile_tick_plain(table: torch.Tensor, m32: torch.Tensor,
 def mesh_tile_tick(table: torch.Tensor, m32: torch.Tensor,
                    offsets: torch.Tensor, n_shards: int, local_capacity: int,
                    tile: int, now: int, rounds: torch.Tensor,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None,
+                   scratch: Optional[TileScratch] = None) -> torch.Tensor:
     """Apply a slot-sorted mesh window that may repeat slots to the
     sharded ``table`` in place (the contract in the module doc); returns
     the (6, B) int32 compact response (``out`` when given)."""
@@ -120,18 +145,25 @@ def mesh_tile_tick(table: torch.Tensor, m32: torch.Tensor,
             == table.device):
         raise ValueError("table, m32, offsets, rounds and out must share "
                          "one device")
+    if scratch is not None and scratch.device != table.device:
+        raise ValueError("scratch must be on the table's device")
     now = int(now)
     if table.device.type == "cpu":
         return mesh_tile_tick_plain(table, m32, offsets, n_shards, L, tile,
                                     now, rounds, out)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
-    scratch = torch.empty(max(1, n_shards * max_tiles(b, tile)),
-                          dtype=torch.int32, device=table.device)
-    rc = _lib().gt_mesh_tile_tick(
+    if not b:
+        return out
+    lib = _lib()
+    if scratch is None:
+        scratch = TileScratch(table.device)
+    words, epoch = scratch.take(
+        lib.gt_mesh_tile_tick_scratch_words(b, tile, n_shards))
+    rc = lib.gt_mesh_tile_tick(
         table.data_ptr(), n_shards, L, offsets.data_ptr(), m32.data_ptr(),
         m32.stride(0), out.data_ptr(), out.stride(0), b, tile, now,
-        scratch.data_ptr(), rounds.data_ptr(),
+        words.data_ptr(), epoch, rounds.data_ptr(),
         torch.cuda.current_stream(table.device).cuda_stream)
     _build.check(rc, "mesh_tile_tick")
     count_launch(mesh_tile_tick, b)

@@ -78,7 +78,7 @@ from gubernator_tpu_torch.ops.reqcols import (
     ReqColumns, compact_blob, key_groups, pack_blob)
 from gubernator_tpu_torch.ops.snapshot import (
     columns_from_rows, item_rows, items_from_columns, rows_from_items)
-from gubernator_tpu_torch.ops.tiletick import mesh_tile_tick
+from gubernator_tpu_torch.ops.tiletick import TileScratch, mesh_tile_tick
 from gubernator_tpu_torch.parallel.partition import (
     LayoutTransition, RaggedExtents, plan_transition)
 from gubernator_tpu_torch.types import Behavior, GlobalUpdate
@@ -189,6 +189,8 @@ class MeshTickEngine(BatchFront):
         if self.device.type == "cuda":
             self._rank_rounds_host = torch.zeros(1, dtype=torch.int64,
                                                  pin_memory=True)
+        # The duplicate tick's scratch, zeroed once: one launch a window.
+        self._tile_scratch = TileScratch(self.device)
 
     @property
     def metric_rank_rounds(self) -> int:
@@ -400,7 +402,7 @@ class MeshTickEngine(BatchFront):
             resp = mesh_tile_tick(
                 self.table, dev_m, dev_offs, self.n_shards,
                 self.local_capacity, choose_tile(m.shape[1], self.n_shards),
-                now, self._rank_rounds)
+                now, self._rank_rounds, scratch=self._tile_scratch)
             if self._rank_rounds_host is not self._rank_rounds:
                 self._rank_rounds_host.copy_(self._rank_rounds,
                                              non_blocking=True)

@@ -8,7 +8,9 @@ of one journal, the merged tick at its tile shapes and at the fold's
 32-bit division edges, rows narrower than 16 words, out-of-range and
 guard-row slots, ragged windows with empty shards, inert lanes and slots
 outside their shard, the mesh's duplicate tile tick (B.6) on every
-tile_window kind, a card mesh resharded 8 -> 3 -> 8 against a CPU one, the
+tile_window kind (each class of run its steps take, odd tiles, windows one
+after another on one scratch), a card mesh resharded 8 -> 3 -> 8 against a
+CPU one, the
 chained duplicate tick on Zipf windows, one-segment windows and EDGE
 windows at 1-4096 lanes and at its threshold and chunk shapes
 (CHAIN_CASES), the engine on a tiny table that fills and reclaims (with
@@ -23,7 +25,7 @@ reclaim under concurrent ticks, and a 3-node cluster of card engines
 (against one of CPU engines on a seeded sequence, and GLOBAL counts
 reconciled exactly), and the GLOBAL mesh's kernels B.8a-B.8d at phase 9's
 shapes and on small meshes (odd node counts, padding lanes, overflowing
-probes), a card ``MeshGlobalEngine`` against a CPU one on phase 9 D's
+probes, B.8b's tiles with owner boundaries inside them), a card ``MeshGlobalEngine`` against a CPU one on phase 9 D's
 sequence, a 2-region federated cluster of card engines against one of
 CPU engines (phase 11 C's sequence), and an autoscaler driving a card
 mesh and a CPU one down and up.  They import nothing of JAX, so they run where JAX is not
@@ -705,6 +707,74 @@ def test_mesh_tile_tick_matches_plain(dev, kind, lanes):
     assert int(rk) == int(rp)
 
 
+# The run classes of B.6's steps (csrc/mesh_tile_tick.cuh): every
+# tile_window kind at 700 and 2048 lanes (groups of a lane and up to a
+# warp inside a warp's window, runs a warp walks, runs past 256 lanes that
+# a run block takes, runs crossing chunk boundaries, invalid lanes inside
+# the extents, groups that do not fold inside short runs), and tiles the
+# walk never picks (groups inside a window that cross a chunk boundary,
+# runs of more pieces than a run block flags at a time).
+TILE_CLASS_CASES = ([(k, w, None) for k in cs.TILE_KINDS for w in (700, 2048)]
+                    + [("runs", 700, 20), ("mixed", 700, 20),
+                       ("invalid", 700, 20), ("runs", 2048, 4)])
+
+
+def tile_kernel_and_plain(dev, m, offs, tile, state, shards, local,
+                          scratch=None, tables=None):
+    """B.6 and its plain version on two copies of a table (``tables`` to
+    go on from): ``(got, want, rounds_kernel, rounds_plain, tables)``."""
+    if tables is None:
+        table = sharded_table_from_columns(state, shards, local, dev)
+        tables = (table, table.clone())
+    mt = torch.from_numpy(m).to(dev)
+    ot = torch.from_numpy(offs).to(dev)
+    rk = torch.zeros(1, dtype=torch.int64, device=dev)
+    rp = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = mesh_tile_tick(tables[0], mt, ot, shards, local, tile, cs.NOW, rk,
+                         scratch=scratch)
+    want = mesh_tile_tick_plain(tables[1], mt, ot, shards, local, tile,
+                                cs.NOW, rp, torch.empty_like(got))
+    return got, want, int(rk), int(rp), tables
+
+
+@pytest.mark.parametrize("kind,lanes,tile", TILE_CLASS_CASES)
+def test_mesh_tile_tick_run_classes_match_plain(dev, kind, lanes, tile):
+    shards, local = 3, 1024
+    rng = np.random.default_rng(3 * lanes + len(kind))
+    state = cs.random_state(rng, shards * local)
+    m, offs, walk_tile = cs.tile_window(E, rng, shards, local, lanes, state,
+                                        kind)
+    got, want, rk, rp, (table, plain) = tile_kernel_and_plain(
+        dev, m, offs, tile or walk_tile, state, shards, local)
+    assert torch.equal(got, want)
+    assert torch.equal(table, plain)
+    assert rk == rp
+
+
+def test_mesh_tile_tick_keeps_its_scratch(dev):
+    """Windows one after another on one scratch (one launch each, no
+    memset): each as the plain version, and the queue's counters back at
+    0 after every launch."""
+    from gubernator_tpu_torch.ops.tiletick import TileScratch
+
+    shards, local, lanes = 3, 1024, 2048
+    scratch = TileScratch(dev)
+    tables = None
+    for step, kind in enumerate(("runs", "herd", "mixed", "cross", "runs")):
+        rng = np.random.default_rng(50 + step)
+        state = cs.random_state(rng, shards * local)
+        m, offs, tile = cs.tile_window(E, rng, shards, local, lanes, state,
+                                       kind)
+        got, want, rk, rp, tables = tile_kernel_and_plain(
+            dev, m, offs, tile, state, shards, local, scratch, tables)
+        assert torch.equal(got, want), kind
+        assert torch.equal(tables[0], tables[1]), kind
+        assert rk == rp, kind
+        torch.cuda.synchronize()
+        assert scratch.epoch == step + 1
+        assert not scratch.words[:3].any()  # the counters, reset
+
+
 def test_mesh_engine_on_the_card_matches_the_cpu_engine(dev):
     gt.reset_kernel_launches()
     rng = np.random.default_rng(13)
@@ -991,6 +1061,25 @@ def test_global_dense_reconcile_matches_plain(dev, n, cap, strict):
     from gubernator_tpu_torch.ops import globalmesh as GM
 
     rng = np.random.default_rng(n + cap + strict)
+    table, aux, acc = cs.gm_random_buffers(torch, dev, rng, n, cap)
+    tp, cp = table.clone(), acc.clone()
+    GM.global_dense_reconcile(table, aux, acc, n, cs.NOW, strict)
+    GM.global_dense_reconcile_plain(tp, aux, cp, n, cs.NOW, strict)
+    assert torch.equal(table, tp) and torch.equal(acc, cp)
+    assert not acc.any()
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("slice_", [300, None])
+@pytest.mark.parametrize("strict", [True, False])
+def test_global_dense_reconcile_tiles_match_plain(dev, n, slice_, strict):
+    """B.8b's 256-slot tiles: owners' slices that end inside a tile (300
+    slots), and a capacity n slots past two whole tiles (slices of
+    512 / n + 1 slots)."""
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    cap = n * slice_ if slice_ else 512 + n
+    rng = np.random.default_rng(7 * n + cap + strict)
     table, aux, acc = cs.gm_random_buffers(torch, dev, rng, n, cap)
     tp, cp = table.clone(), acc.clone()
     GM.global_dense_reconcile(table, aux, acc, n, cs.NOW, strict)

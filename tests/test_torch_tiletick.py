@@ -1,9 +1,10 @@
 """The mesh's duplicate tile tick (kernel B.6) on the CPU.
 
 The host build of the kernel's lane code (``gt_mesh_tile_tick_host`` in
-``csrc/fused_tick_host.cc``: each long block's run piece by piece, then
-every lane's step, the same ``csrc/mesh_tile_tick.cuh`` steps the kernel
-runs with its threads) against the plain version
+``csrc/fused_tick_host.cc``: the same ``csrc/mesh_tile_tick.cuh`` warp and
+block steps the kernel runs, each lane block's warps and then the run
+blocks, with a warp's lanes and a block's threads held in arrays) against
+the plain version
 (``ops/tiletick.mesh_tile_tick_plain``: the tile walk of each shard's
 extent through ``tick.merge_tick``), bit for bit: responses, table and
 rank rounds, on ``chip_smoke.tile_window``'s kinds at widths whose runs
@@ -24,15 +25,16 @@ from gubernator_tpu_torch import _build
 from gubernator_tpu_torch.carry import sharded_table_from_columns
 from gubernator_tpu_torch.ops import engine as E
 from gubernator_tpu_torch.ops.tiletick import (
-    max_tiles, mesh_tile_tick, mesh_tile_tick_plain)
+    mesh_tile_tick, mesh_tile_tick_plain)
 
 NOW = cs.NOW
 SHARDS, LOCAL = 3, 512
-# Every kind at 700 lanes (runs past TT_LONG = 32 lanes, chunks of 256);
-# a few at 96 (short runs, one chunk an extent) and 2048 (chunks of 704).
+# Every kind at 700 lanes (runs past a warp's 32 lanes, chunks of 256);
+# a few at 96 (short runs, one chunk an extent) and 2048 (chunks of 704,
+# runs past a run block's 256 lanes).
 CASES = ([(k, 700) for k in cs.TILE_KINDS]
          + [(k, 96) for k in ("mixed", "invalid", "reset")]
-         + [(k, 2048) for k in ("mixed", "invalid")])
+         + [(k, 2048) for k in ("mixed", "invalid", "runs", "cross")])
 
 
 def _host_lib():
@@ -40,7 +42,9 @@ def _host_lib():
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.gt_mesh_tile_tick_host.restype = ctypes.c_int
     lib.gt_mesh_tile_tick_host.argtypes = [
-        vp, i64, i64, vp, vp, i64, vp, i64, i64, i64, i64, vp, vp]
+        vp, i64, i64, vp, vp, i64, vp, i64, i64, i64, i64, vp, i64, vp]
+    lib.gt_mesh_tile_tick_scratch_words_host.restype = i64
+    lib.gt_mesh_tile_tick_scratch_words_host.argtypes = [i64, i64, i64]
     return lib
 
 
@@ -51,17 +55,23 @@ def tile_case(kind: str, lanes: int, seed: int):
     return state, m, offs, tile
 
 
-def host_tick(table, m, offs, tile):
+def host_tick(table, m, offs, tile, scratch=None, epoch=1):
+    """The host build on ``table`` in place: ``(resp, rounds)``.  The
+    scratch is the caller's, as the kernel's is (zeroed once, one epoch a
+    launch); without one a zeroed one is made."""
     lanes = m.shape[1]
     mt = torch.from_numpy(m)
     ot = torch.from_numpy(offs)
     resp = torch.full((6, lanes), -7, dtype=torch.int32)
-    scratch = torch.empty(SHARDS * max_tiles(lanes, tile), dtype=torch.int32)
+    lib = _host_lib()
+    if scratch is None:
+        scratch = torch.zeros(lib.gt_mesh_tile_tick_scratch_words_host(
+            lanes, tile, SHARDS), dtype=torch.int64)
     rounds = torch.zeros(1, dtype=torch.int64)
-    rc = _host_lib().gt_mesh_tile_tick_host(
+    rc = lib.gt_mesh_tile_tick_host(
         table.data_ptr(), SHARDS, LOCAL, ot.data_ptr(), mt.data_ptr(),
         mt.stride(0), resp.data_ptr(), resp.stride(0), lanes, tile, NOW,
-        scratch.data_ptr(), rounds.data_ptr())
+        scratch.data_ptr(), epoch, rounds.data_ptr())
     assert rc == 0
     return resp, int(rounds)
 
@@ -79,6 +89,57 @@ def test_tile_lane_code_on_host_matches_plain(kind, lanes):
     assert torch.equal(r_host, r_plain)
     assert torch.equal(t_host, t_plain)
     assert host_rounds == int(rounds)
+
+
+# Tiles the walk never picks (not a multiple of a warp; four lanes), which
+# the contract allows: groups inside a warp's 32 lanes that cross a chunk
+# boundary, and runs of more pieces than a run block flags at a time.
+ODD_TILES = [("runs", 700, 20), ("mixed", 700, 20), ("invalid", 700, 20),
+             ("runs", 2048, 4)]
+
+
+@pytest.mark.parametrize("kind,lanes,tile", ODD_TILES)
+def test_tile_lane_code_on_host_at_any_tile(kind, lanes, tile):
+    state, m, offs, _ = tile_case(kind, lanes, 11 + lanes)
+    t_plain = sharded_table_from_columns(state, SHARDS, LOCAL, "cpu")
+    t_host = t_plain.clone()
+    rounds = torch.zeros(1, dtype=torch.int64)
+    r_plain = mesh_tile_tick_plain(
+        t_plain, torch.from_numpy(m), torch.from_numpy(offs), SHARDS, LOCAL,
+        tile, NOW, rounds, torch.empty((6, lanes), dtype=torch.int32))
+    r_host, host_rounds = host_tick(t_host, m, offs, tile)
+    assert torch.equal(r_host, r_plain)
+    assert torch.equal(t_host, t_plain)
+    assert host_rounds == int(rounds)
+
+
+def test_tile_lane_code_on_host_keeps_its_scratch():
+    """Windows one after another on one scratch, one epoch each (the
+    kernel's launches on a caller's scratch): each as the plain version,
+    whatever the windows before it left in the scratch."""
+    lanes = 1024
+    lib = _host_lib()
+    t_host = t_plain = None
+    scratch = None
+    for step, kind in enumerate(("runs", "mixed", "runs")):
+        state, m, offs, tile = tile_case(kind, lanes, 40 + step)
+        if t_plain is None:
+            t_plain = sharded_table_from_columns(state, SHARDS, LOCAL, "cpu")
+            t_host = t_plain.clone()
+            scratch = torch.zeros(lib.gt_mesh_tile_tick_scratch_words_host(
+                lanes, 64, SHARDS), dtype=torch.int64)
+        rounds = torch.zeros(1, dtype=torch.int64)
+        r_plain = mesh_tile_tick_plain(
+            t_plain, torch.from_numpy(m), torch.from_numpy(offs), SHARDS,
+            LOCAL, tile, NOW, rounds,
+            torch.empty((6, lanes), dtype=torch.int32))
+        r_host, host_rounds = host_tick(t_host, m, offs, tile, scratch,
+                                        epoch=step + 1)
+        assert torch.equal(r_host, r_plain)
+        assert torch.equal(t_host, t_plain)
+        assert host_rounds == int(rounds)
+    ctrl = scratch[:3].numpy().view(np.uint32)
+    assert (ctrl == 0).all()  # the queue's counters (24 bytes) back at 0
 
 
 def test_tile_window_shapes():
