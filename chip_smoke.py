@@ -237,14 +237,17 @@ Phases, one output line each:
 Phase 2 also times one launch of an empty kernel (``empty_launch_ms``,
 ``csrc/empty.cu``) and B.9, the lease-column window
 (``csrc/lease_apply.cu``), on set and delta windows of 4096 and 65536
-lanes over a 10M-slot column triple, bit for bit against its plain
-version, beside the pre-B.9 eager sequence (``library_ms``), and the
-GLOBAL mesh's kernels bit for bit against their plain versions: B.8a
-(accumulate) and B.8b (dense reconcile) at 8 nodes x 2^16 slots on
-global_mesh_8's windows, B.8c (sparse probe) and B.8d (sparse apply) at
-8 x 2^22 with 512 union slots (a reconcile consumes its accumulators, so
-B.8b, strict and summed, and B.8d are timed with a restore before each
-call and the restore's own time taken off).  Phases 3-12 also report each path's
+lanes over a 10M-slot column triple kept as the engine keeps it (32-B
+records), bit for bit against its plain version, beside the pre-B.9
+eager sequence (``library_ms``), and the GLOBAL mesh's kernels bit for
+bit against their plain versions: B.8a (accumulate) and B.8b (dense
+reconcile) at 8 nodes x 2^16 slots on global_mesh_8's windows, B.8c
+(sparse probe) and B.8d (sparse apply) at 8 x 2^22 with 512 union slots,
+B.8d also with 4096 (``by_shape``; a reconcile consumes its
+accumulators, so B.8b, strict and summed, and B.8d are timed with a
+restore before each call and the restore's own time taken off).  B.6,
+B.8b, B.8d and B.9 print their earlier design's time (``earlier_ms``),
+their share of the bound and their ``ptxas`` report.  Phases 3-12 also report each path's
 tick and lease-window launches by lane width (``launches_by_width``,
 power-of-two buckets), summed over them on the ``launch_widths`` line.  Then the kernel table as one JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -1153,11 +1156,25 @@ TILE_CROSS_LOCAL, TILE_CROSS_LANES = 1 << 14, 4096
 TILE_FOLD_INT32_OPS_PER_LANE = 80
 # PR 15's times of the kernels PR 16 redesigned, its proof run b on an
 # NVIDIA H100 80GB HBM3, 700.00 W (PERF.md §6): B.6 on the herd and the
-# cross window, B.8b at 8 x 2^16 (strict).  Phase 2 prints them beside
-# this run's as "earlier_ms".
+# cross window, B.8b at 8 x 2^16 (strict); and the earlier designs of
+# B.9 and B.8d (below).  Phase 2 prints them beside this run's as
+# "earlier_ms".
 EARLIER_MS = {"mesh_tile_tick": 0.03234399855136871,
               "mesh_tile_tick_cross": 0.1566160023212433,
-              "global_dense_reconcile": 0.0997119965031743}
+              "global_dense_reconcile": 0.0997119965031743,
+              # B.9's and B.8d's designs before their Hopper redesign
+              # (one thread a lane, one thread a union slot), timed in
+              # turns with the new ones in one call of
+              # probes/lease_sparse_breakdown.py on an NVIDIA H100 80GB
+              # HBM3, 700.00 W: the call whose figures PERF.md §6's
+              # kernel table gives as "earlier ms".  B.9 on its four
+              # windows, B.8d at 8 x 2^22 with 512 and 4096 union slots.
+              "lease_apply_set_4096": 0.003396000014618039,
+              "lease_apply_delta_4096": 0.0037960000336170197,
+              "lease_apply_set_65536": 0.014448000118136406,
+              "lease_apply_delta_65536": 0.01743599958717823,
+              "global_sparse_apply": 0.04582399968057871,
+              "global_sparse_apply_4096": 0.05392800038680434}
 
 
 def kernel_ptxas(lib: str, kernel: str) -> dict:
@@ -1694,16 +1711,20 @@ def eager_lease_window(cols, lanes, is_set):
 
 def lease_entry(torch, dev, rng, cap=LEASE_SLOTS, widths=LEASE_WIDTHS,
                 rotate=16) -> dict:
-    """B.9 on a ``cap``-slot column triple (200 MB, four times the L2):
-    set and delta windows of each width in ``widths``, the kernel on the
-    packed lanes held bit for bit against the plain version (set: on the
-    same lanes; delta: on the raw lanes, repeats and the whole-column
-    clamp included, with LEASE_NEGATIVE slots negative before the
-    window), and timed over ``rotate`` lane sets beside the plain version
-    on the packed lanes and the pre-B.9 eager sequence
-    (``eager_lease_window``, ``library_ms``).  Bound: 28 B a packed lane in, 20 B of columns
-    written, and for a delta window 20 B read.  The kernel table's entry
-    is the set window of 4096 lanes, a grant call's."""
+    """B.9 on a ``cap``-slot column triple as the engine keeps it
+    (``lease_records``: 32-B records, 320 MB, six times the L2): set and
+    delta windows of each width in ``widths``, the kernel on the packed
+    lanes held bit for bit against the plain version on the same records
+    (set: on the same lanes; delta: on the raw lanes, repeats and the
+    whole-column clamp included, with LEASE_NEGATIVE slots negative
+    before the window), the records' padding still 0, and timed over
+    ``rotate`` lane sets beside the plain version on the packed lanes and
+    the pre-B.9 eager sequence (``eager_lease_window``, ``library_ms``).
+    Bound: 28 B a packed lane in, 20 B of columns written, and for a
+    delta window 20 B read.  The kernel table's entry is the set window
+    of 4096 lanes, a grant call's, with the earlier design's time from
+    ``probes/lease_sparse_breakdown.py`` (``earlier_ms``, also by shape),
+    its share of the bound and its ``ptxas`` report."""
     from gubernator_tpu_torch.ops import leasecols as LC
 
     def col(v, dtype):
@@ -1711,12 +1732,21 @@ def lease_entry(torch, dev, rng, cap=LEASE_SLOTS, widths=LEASE_WIDTHS,
         t[cap] = 0  # the guard entry
         return t
 
+    def records(values):
+        r = LC.lease_records(cap, dev)
+        for a, v in zip(r, values):
+            a.copy_(v)
+        return r
+
     neg = rng.choice(cap, LEASE_NEGATIVE, replace=False)
     budget = col(rng.integers(0, 1000, cap + 1), np.int64)
     budget[torch.from_numpy(neg).to(dev)] = -5
-    cols = (budget, col(NOW + rng.integers(0, 10**6, cap + 1), np.int64),
-            col(rng.integers(0, 1000, cap + 1), np.int32))
-    scratch = [c.clone() for c in cols]
+    # The columns as the engine keeps them (lease_records' views).
+    cols = records((budget,
+                    col(NOW + rng.integers(0, 10**6, cap + 1), np.int64),
+                    col(rng.integers(0, 1000, cap + 1), np.int32)))
+    torch.cuda.empty_cache()
+    scratch = records(cols)
     shapes, err = {}, 0
     for n in widths:
         for is_set in (True, False):
@@ -1727,8 +1757,8 @@ def lease_entry(torch, dev, rng, cap=LEASE_SLOTS, widths=LEASE_WIDTHS,
                 [np.asarray(r[0]), r[1], r[2],
                  np.asarray(r[3]).astype(np.int32).astype(np.int64)])).to(dev)
                 for r in raw]
-            k = [c.clone() for c in cols]
-            p = [c.clone() for c in cols]
+            k = records(cols)
+            p = records(cols)
             LC.lease_apply(*k, packed[0], is_set)
             LC.lease_apply_plain(*p, packed[0] if is_set else unpacked[0],
                                  is_set)
@@ -1737,6 +1767,7 @@ def lease_entry(torch, dev, rng, cap=LEASE_SLOTS, widths=LEASE_WIDTHS,
             for a, b in zip(k, p):
                 assert torch.equal(a, b), f"lease_apply differs ({kind} {n})"
                 err = max(err, _max_abs(torch, a, b))
+            assert not k[0]._base[:, 3].any(), "lease_apply wrote padding"
             del k, p
             m = packed[0].shape[1]
             nbytes = m * (28 + 20 + (0 if is_set else 20))
@@ -1760,8 +1791,12 @@ def lease_entry(torch, dev, rng, cap=LEASE_SLOTS, widths=LEASE_WIDTHS,
         k: {f: v[f] for f in ("lanes", "ms", "plain_ms", "library_ms",
                               "bound_ms", "bytes")}
         for k, v in shapes.items()}
-    for v in out["by_shape"].values():
+    for k, v in out["by_shape"].items():
         v["share"] = v["bound_ms"] / v["ms"]
+        v["earlier_ms"] = EARLIER_MS.get(f"lease_apply_{k}")
+    out.update(earlier_ms=EARLIER_MS.get(f"lease_apply_set_{widths[0]}"),
+               share=out["bound_ms"] / out["ms"],
+               ptxas=kernel_ptxas("lease_apply", "lease_apply_kernel"))
     return out
 
 
@@ -4376,6 +4411,7 @@ GM_SPARSE_K = 4096           # sparse_k past 2^16 slots
 GM_PER_NODE = 64             # global_sparse_reconcile's hits a node a step
 GM_REPS = 5                  # its timed steps a measurement
 GM_UNION = 512               # phase 2's union slots for B.8c / B.8d
+GM_WIDE_UNION = 4096         # and B.8d's at a loaded step's union
 GM_LIMIT = 1_000_000
 GM_DURATION = 3_600_000
 GM_COMPARE_CAPACITY = 1 << 14
@@ -4435,6 +4471,82 @@ def gm_fold_bytes(acc, slots, n) -> tuple:
     window its hits, RESET count and 9 aux words."""
     active = int((acc[:, 2][:, slots] > 0).sum())
     return len(slots) * n * 8 + active * (16 + 72), active
+
+
+def gm_sparse_inputs(torch, dev, rng, n: int, big: int, union: int):
+    """B.8c / B.8d inputs at ``n`` nodes x ``big`` slots with ``union``
+    random slots touched: random rows there on every replica, random
+    parameters (a stamp on 80% of (node, slot) pairs, so a fifth of the
+    windows take the running row's), windows on half the non-owners
+    (counts 1-3, hits -3..39, RESET on a tenth), touches on 30% more, and
+    node 0 touching every union slot.  Returns ``(table, aux, acc, ut,
+    acc_u, accu)``: the buffers, the union's slots on the card, and its
+    accumulator words on the card and in numpy (a step's restore)."""
+    from gubernator_tpu_torch.carry import table_from_columns
+
+    u = np.sort(rng.choice(big, union, replace=False))
+    owner = u // (big // n)
+    table = torch.zeros((n * big + 1, 16), dtype=torch.int64, device=dev)
+    rows = table_from_columns(random_state(rng, n * union), n * union, dev)
+    flat = (np.arange(n)[:, None] * big + u[None, :]).ravel()
+    table[torch.from_numpy(flat).to(dev)] = rows[:-1]
+    aux = torch.zeros((n, 9, big), dtype=torch.int64, device=dev)
+    req = random_requests(rng, n * union)
+    params = np.stack([req[f] for f in ("limit", "duration", "algorithm",
+                                        "behavior", "burst", "greg_exp",
+                                        "greg_dur", "created_at")]
+                      + [np.where(rng.random(n * union) < 0.8,
+                                  rng.integers(1, 40, n * union), 0)])
+    params = params.reshape(9, n, union).transpose(1, 0, 2)
+    ut = torch.from_numpy(u).to(dev)
+    aux[:, :, ut] = torch.from_numpy(np.ascontiguousarray(params)).to(dev)
+    nodes = np.arange(n)[:, None]
+    win = (rng.random((n, union)) < 0.5) & (nodes != owner[None, :])
+    accu = np.zeros((n, 4, union), np.int64)
+    accu[:, 2] = np.where(win, rng.integers(1, 4, (n, union)), 0)
+    accu[:, 0] = np.where(win, rng.integers(-3, 40, (n, union)), 0)
+    accu[:, 1] = np.where(win & (rng.random((n, union)) < 0.1), 1, 0)
+    accu[:, 3] = accu[:, 2] + (rng.random((n, union)) < 0.3)
+    accu[0, 3] = np.maximum(accu[0, 3], 1)  # every slot in the union
+    acc = torch.zeros((n, 4, big), dtype=torch.int64, device=dev)
+    acc_u = torch.from_numpy(accu).to(dev)
+    acc[:, :, ut] = acc_u
+    return table, aux, acc, ut, acc_u, accu
+
+
+def sparse_apply_timed(torch, table, aux, acc, ut, acc_u, accu, slots, out,
+                       n: int, union: int, plain: bool) -> dict:
+    """B.8d on ``gm_sparse_inputs`` buffers whose union B.8c left in
+    ``slots`` / ``out``: held bit for bit against the plain version, then
+    timed with the union's accumulators restored before each call and
+    the restore taken off (and the plain version too where ``plain``).
+    Bound: bytes, the list word, the owner's row, n replicas and n x 4
+    accumulator words a slot, and the folded windows' words."""
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    tk, ck, tp, cp = table.clone(), acc.clone(), table.clone(), acc.clone()
+    GM.global_sparse_apply(tk, aux, ck, n, slots, out, union, NOW)
+    GM.global_sparse_apply_plain(tp, aux, cp, n, slots, out, NOW)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tp) and torch.equal(ck, cp), \
+        f"global_sparse_apply differs from plain ({union} union slots)"
+    err = _max_abs(torch, tk, tp)
+    del tk, ck, tp, cp
+
+    def restore():
+        acc[:, :, ut] = acc_u
+
+    t = time_restored(torch, [lambda: GM.global_sparse_apply(
+        table, aux, acc, n, slots, out, union, NOW)], [restore])
+    tp = time_restored(torch, [lambda: GM.global_sparse_apply_plain(
+        table, aux, acc, n, slots, out, NOW)], [restore]) if plain else None
+    fold_b, active = gm_fold_bytes(accu, np.arange(union), n)
+    nbytes = union * (4 + 128 + n * 128 + n * 32) + fold_b
+    return {"union": union, "err": err, "ms": t["ms"],
+            "plain_ms": tp["ms"] if tp else None,
+            "restore_ms": t["restore_ms"], "bytes": nbytes,
+            "windows_folded": active,
+            **_bound(nbytes, active * FUSED_TICK_INT32_OPS_PER_LANE)}
 
 
 def global_kernel_entries(torch, dev, rng, n=GM_NODES, cap=GM_CAPACITY,
@@ -4552,33 +4664,8 @@ def global_kernel_entries(torch, dev, rng, n=GM_NODES, cap=GM_CAPACITY,
     del table, work, b8b_aux, b8b_acc
 
     # --- B.8c and B.8d at n x big with `union` slots touched ---
-    u = np.sort(rng.choice(big, union, replace=False))
-    owner = u // (big // n)
-    table = torch.zeros((n * big + 1, 16), dtype=torch.int64, device=dev)
-    rows = table_from_columns(random_state(rng, n * union), n * union, dev)
-    flat = (np.arange(n)[:, None] * big + u[None, :]).ravel()
-    table[torch.from_numpy(flat).to(dev)] = rows[:-1]
-    aux = torch.zeros((n, 9, big), dtype=torch.int64, device=dev)
-    req = random_requests(rng, n * union)
-    params = np.stack([req[f] for f in ("limit", "duration", "algorithm",
-                                        "behavior", "burst", "greg_exp",
-                                        "greg_dur", "created_at")]
-                      + [np.where(rng.random(n * union) < 0.8,
-                                  rng.integers(1, 40, n * union), 0)])
-    params = params.reshape(9, n, union).transpose(1, 0, 2)
-    ut = torch.from_numpy(u).to(dev)
-    aux[:, :, ut] = torch.from_numpy(np.ascontiguousarray(params)).to(dev)
-    nodes = np.arange(n)[:, None]
-    win = (rng.random((n, union)) < 0.5) & (nodes != owner[None, :])
-    accu = np.zeros((n, 4, union), np.int64)
-    accu[:, 2] = np.where(win, rng.integers(1, 4, (n, union)), 0)
-    accu[:, 0] = np.where(win, rng.integers(-3, 40, (n, union)), 0)
-    accu[:, 1] = np.where(win & (rng.random((n, union)) < 0.1), 1, 0)
-    accu[:, 3] = accu[:, 2] + (rng.random((n, union)) < 0.3)
-    accu[0, 3] = np.maximum(accu[0, 3], 1)  # every slot in the union
-    acc = torch.zeros((n, 4, big), dtype=torch.int64, device=dev)
-    acc_u = torch.from_numpy(accu).to(dev)
-    acc[:, :, ut] = acc_u
+    table, aux, acc, ut, acc_u, accu = gm_sparse_inputs(
+        torch, dev, rng, n, big, union)
     po, ps, pscr = GM.probe_buffers(n, big, dev)
     qo, qs, _ = GM.probe_buffers(n, big, dev)
     GM.global_sparse_probe(acc, n, GM_SPARSE_K, po, ps, pscr)
@@ -4597,30 +4684,35 @@ def global_kernel_entries(torch, dev, rng, n=GM_NODES, cap=GM_CAPACITY,
             acc, n, GM_SPARSE_K, qo, qs)), None, nbytes, 0)
     out["global_sparse_probe"].update(slots=big, nodes=n, union=union,
                                       design="scan")
-    tk, ck = table.clone(), acc.clone()
-    GM.global_sparse_apply(tk, aux, ck, n, ps, po, 2 * n * GM_SPARSE_K, NOW)
-    GM.global_sparse_apply_plain(table, aux, acc, n, qs, qo, NOW)
-    torch.cuda.synchronize()
-    assert torch.equal(tk, table) and torch.equal(ck, acc), \
-        "global_sparse_apply differs from plain"
-    err = _max_abs(torch, tk, table)
-    del tk, ck
-
-    def restore_u():
-        acc[:, :, ut] = acc_u
-
-    fold_b, active = gm_fold_bytes(accu, np.arange(union), n)
-    t = time_restored(torch, [lambda: GM.global_sparse_apply(
-        table, aux, acc, n, ps, po, 2 * n * GM_SPARSE_K, NOW)], [restore_u])
-    tp = time_restored(torch, [lambda: GM.global_sparse_apply_plain(
-        table, aux, acc, n, qs, qo, NOW)], [restore_u])
-    nbytes = union * (4 + 128 + n * 128 + n * 32) + fold_b
+    b8d = sparse_apply_timed(torch, table, aux, acc, ut, acc_u, accu, ps, po,
+                             n, union, plain=True)
     out["global_sparse_apply"] = _entry(
-        "global_sparse_apply", src, f"{ref}:442", err, t["ms"], tp["ms"],
-        None, nbytes, active * FUSED_TICK_INT32_OPS_PER_LANE)
+        "global_sparse_apply", src, f"{ref}:442", b8d["err"], b8d["ms"],
+        b8d["plain_ms"], None, b8d["bytes"],
+        b8d["windows_folded"] * FUSED_TICK_INT32_OPS_PER_LANE)
     out["global_sparse_apply"].update(
-        slots=big, nodes=n, union=union, windows_folded=active,
-        restore_ms=t["restore_ms"])
+        slots=big, nodes=n, union=union,
+        windows_folded=b8d["windows_folded"], restore_ms=b8d["restore_ms"],
+        earlier_ms=EARLIER_MS["global_sparse_apply"],
+        ptxas={f"lanes_{g}": kernel_ptxas("global_mesh",
+                                          f"apply_kernelILi{g}E")
+               for g in (8, 16, 32)})
+    del table, aux, acc, ps, po, pscr, qs, qo
+    torch.cuda.empty_cache()
+    # --- B.8d at a loaded step's union: 4096 slots ---
+    table, aux, acc, ut, acc_u, accu = gm_sparse_inputs(
+        torch, dev, np.random.default_rng(SEED + 7), n, big, GM_WIDE_UNION)
+    po, ps, pscr = GM.probe_buffers(n, big, dev)
+    GM.global_sparse_probe(acc, n, GM_SPARSE_K, po, ps, pscr)
+    over, size = po.tolist()
+    assert not over and size == GM_WIDE_UNION, (over, size)
+    wide = sparse_apply_timed(torch, table, aux, acc, ut, acc_u, accu, ps, po,
+                              n, size, plain=False)
+    wide.update(earlier_ms=EARLIER_MS["global_sparse_apply_4096"],
+                share=wide["bound_ms"] / wide["ms"] if wide["ms"] else None)
+    out["global_sparse_apply"]["by_shape"] = {f"union_{size}": wide}
+    del table, aux, acc, ps, po, pscr
+    torch.cuda.empty_cache()
     for e in out.values():
         e["share"] = e["bound_ms"] / e["ms"] if e["ms"] else None
     return out
@@ -4986,7 +5078,10 @@ def global_phase(torch, dev, grpc_converge_ms=None):
         ls = launches[f"sparse_{cap}"]
         sparse[str(cap)]["launches"] = ls
         assert sparse[str(cap)]["dispatches_per_step"] == 1.0
-        assert ls["global_sparse_probe"] == ls["global_sparse_apply"] > 0
+        # A probe every step; an apply every step with a union: the first
+        # and the loaded ones (an empty union launches nothing).
+        assert ls["global_sparse_probe"] == 2 * GM_REPS + 1
+        assert ls["global_sparse_apply"] == GM_REPS + 1
         assert ls["global_dense_reconcile"] == 0
     with path(f"dense_{GM_SPARSE_CAPACITIES[0]}"):
         sparse[f"dense_{GM_SPARSE_CAPACITIES[0]}"] = gm_sparse_measure(

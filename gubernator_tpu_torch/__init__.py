@@ -46,7 +46,7 @@ def kernel_launches() -> dict:
 def _lane_wrappers() -> dict:
     """The wrappers that also count their launches by lane width: the
     ticks, the lease-column window and the GLOBAL mesh's kernels (a
-    reconcile's width is the capacity, a sparse apply's its grid)."""
+    reconcile's width is the capacity, a sparse apply's its union)."""
     from gubernator_tpu_torch.ops import (
         fusedtick, globalmesh, leasecols, raggedtick, sortedtick, tiletick)
 

@@ -29,59 +29,48 @@
 //   B.8d sparse apply (:442-500): per union slot, the owner's row with
 //        every node's window folded in node order on that node's own
 //        parameters, written to all n replicas, the accumulators zeroed.
+//        Bound: bytes, ~union x (128 + 160n) B, far below a launch; what
+//        a slot waits on is its chain of round trips and transitions, and
+//        at thousands of union slots the random sectors it touches.  A
+//        thread a slot (the first port) read the n count words one after
+//        another, each window's words after its count, ran whole
+//        transitions in one chain (its warp's 32 slots diverging over the
+//        algorithms) and stored 16-B vectors 128 B apart from 2 SMs
+//        (PERF.md §6, the B.9 and B.8d redesign).  So a group of G lanes
+//        takes a slot (global_mesh.cuh's node_acc / node_window /
+//        chain_link): lane d reads node d's four
+//        accumulator words while lanes 0-7 read the owner's row as eight
+//        16-B vectors, in one round trip, then the nine aux words of a
+//        node with a window (a second round trip, ~2.3x fewer sectors than
+//        reading every node's); each lane prepares its node's window when
+//        it has its own parameters and zeroes its node's words that are
+//        not 0; lane 0 runs only the applies (and the prepares of windows
+//        on the running row's parameters) in node order, the row in its
+//        registers; the row goes to each replica as one 128-B run of
+//        eight lanes.  G is a warp while the union fits the SMs at a warp
+//        a slot, 16 or 8 past 8 or 16 slots an SM (sparse_group).  The
+//        host reads the union's size with the overflow word and sizes the
+//        grid by it: no block without a slot, no launch for an empty
+//        union.
 //
-// Design: one thread a lane (B.8a) or a slot (B.8c-B.8d; B.8b a tile, as
-// above), 256 threads a block, grids sized to the work; rows move as 16-B
-// vectors.  B.8c scans
-// the count and touch rows of every node (2 x 8 B x n x capacity); its
-// counts are warp ballots summed in shared memory, then once a block into
-// global counters, and its list appends one atomic a warp.  The probe's
-// scratch counters are zeroed by a memset in the same stream before its
-// launch.  B.8d reads the union count from the probe's output on the card,
-// so the host reads back only the overflow word.
+// Design: one thread a lane (B.8a) or a slot (B.8c; B.8b a tile, B.8d a
+// group, as above), grids sized to the work; rows move as 16-B vectors.
+// B.8c scans the count and touch rows of every node (2 x 8 B x n x
+// capacity); its counts are warp ballots summed in shared memory, then
+// once a block into global counters, and its list appends one atomic a
+// warp.  The probe's scratch counters are zeroed by a memset in the same
+// stream before its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "global_mesh.cuh"
+#include "sm_count.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ void load_row(const int64_t* table, int64_t r,
-                                         int64_t* row) {
-  const longlong2* src =
-      reinterpret_cast<const longlong2*>(table + r * gt::ROW_W);
-#pragma unroll
-  for (int v = 0; v < gt::ROW_W / 2; ++v) {
-    longlong2 x = src[v];
-    row[2 * v] = x.x;
-    row[2 * v + 1] = x.y;
-  }
-}
-
-__device__ __forceinline__ void store_row(int64_t* table, int64_t r,
-                                          const int64_t* row) {
-  longlong2* dst = reinterpret_cast<longlong2*>(table + r * gt::ROW_W);
-#pragma unroll
-  for (int v = 0; v < gt::ROW_W / 2; ++v) {
-    dst[v] = make_longlong2(row[2 * v], row[2 * v + 1]);
-  }
-}
-
-// The merged row of slot s to every replica, and every node's four
-// accumulator words of the slot to 0.
-__device__ __forceinline__ void replicate(int64_t* table, int64_t* acc,
-                                          const gm::Mesh& m, int64_t s,
-                                          const int64_t* row) {
-  for (int64_t d = 0; d < m.n_nodes; ++d) {
-    store_row(table, d * m.capacity + s, row);
-#pragma unroll
-    for (int k = 0; k < gm::ACC_ROWS; ++k) acc[gm::acc_ix(m, d, k, s)] = 0;
-  }
-}
 
 __device__ __forceinline__ void atomic_add64(int64_t* p, int64_t v) {
   atomicAdd(reinterpret_cast<unsigned long long*>(p),
@@ -224,19 +213,137 @@ __global__ void probe_kernel(const int64_t* __restrict__ acc, gm::Mesh m,
   }
 }
 
-__global__ void apply_kernel(int64_t* __restrict__ table,
-                             const int64_t* __restrict__ aux,
-                             int64_t* __restrict__ acc, gm::Mesh m,
-                             const int32_t* __restrict__ list,
-                             const int64_t* __restrict__ count,
-                             int64_t now) {
-  const int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (j >= *count) return;
+// B.8d: a group of G lanes a union slot (G = 8, 16 or 32), kSparseThreads
+// / G slots a block.  A node's aux words are read only once its count
+// says it has a window: a second round trip but far fewer sectors (never
+// slower than reading them with the counts, 22% faster at 4096 union
+// slots: PERF.md §6, the B.9 and B.8d redesign).
+constexpr int kSparseThreads = 128;
+
+template <int G>
+struct SparseGroup {
+  alignas(16) int64_t row[gt::ROW_W];  // the owner's row, then the folded
+  int64_t prep[gt::PREP_W * G];        // each lane's prepared request
+  int64_t hits[G];
+  int8_t kind[G];
+};
+
+// The lanes of thread t's group, as a __syncwarp mask.
+template <int G>
+__device__ __forceinline__ unsigned group_mask(int t) {
+  return G == 32 ? kFull : ((1u << G) - 1u) << ((t & 31) & ~(G - 1));
+}
+
+// Node d's window words (its aux words after them, only for a window)
+// and its window.
+__device__ __forceinline__ gm::NodeWin node_at(const gm::Mesh& m,
+                                               const int64_t* aux,
+                                               const int64_t* acc, int64_t d,
+                                               int64_t s, int64_t now,
+                                               gm::NodeAcc& a) {
+  int64_t p[gm::AUX_ROWS];
+  a = gm::node_acc(m, acc, d, s);
+  if (a.w[gm::ACC_COUNT] > 0) gm::node_aux(m, aux, d, s, p);
+  return gm::node_window(a, p, now);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kSparseThreads)
+    apply_kernel(int64_t* __restrict__ table, const int64_t* __restrict__ aux,
+                 int64_t* __restrict__ acc, gm::Mesh m,
+                 const int32_t* __restrict__ list, int64_t count,
+                 int64_t now) {
+  constexpr int kSlots = kSparseThreads / G;
+  __shared__ SparseGroup<G> groups[kSlots];
+  const int t = threadIdx.x, x = t % G;
+  SparseGroup<G>& S = groups[t / G];
+  const int64_t j = (int64_t)blockIdx.x * kSlots + t / G;
+  if (j >= count) return;  // whole groups: only in the last block
+  const unsigned mask = group_mask<G>(t);
   const int64_t s = list[j];
+  const int64_t n = m.n_nodes;
+  longlong2* row_v = reinterpret_cast<longlong2*>(S.row);
+  // 1. The owner's row as eight 16-B vectors (lanes 0-7) and each lane's
+  // node's window words, in one round trip (a second for a window's aux
+  // words); a window with its own parameters is prepared by its lane.
+  longlong2 v;
+  if (x < gt::ROW_W / 2) {
+    v = reinterpret_cast<const longlong2*>(
+        table + (gm::owner_of(m, s) * m.capacity + s) * gt::ROW_W)[x];
+  }
+  gm::NodeAcc a;
+  gm::NodeWin w;
+  w.kind = gm::WIN_NONE;
+  if (x < n) w = node_at(m, aux, acc, x, s, now, a);
+  if (x < gt::ROW_W / 2) row_v[x] = v;
+  // 2. The chain, on lane 0, the row in its registers: G nodes a round
+  // (one round unless n > 32), each round's windows handed over in
+  // shared memory; a lane zeroes its node's accumulator words once they
+  // are read.
   int64_t row[gt::ROW_W];
-  load_row(table, gm::owner_of(m, s) * m.capacity + s, row);
-  gm::sparse_slot(m, aux, acc, s, now, row);
-  replicate(table, acc, m, s, row);
+  bool folded = false;
+  for (int64_t d0 = 0; d0 < n; d0 += G) {
+    if (d0 > 0) {
+      w.kind = gm::WIN_NONE;
+      if (d0 + x < n) w = node_at(m, aux, acc, d0 + x, s, now, a);
+    }
+    if (d0 + x < n) gm::node_zero(m, acc, d0 + x, s, a);
+    S.kind[x] = w.kind;
+    S.hits[x] = w.hits;
+    if (w.kind == gm::WIN_OWN) gt::put_prep(S.prep, G, x, w.prep);
+    __syncwarp(mask);
+    if (x == 0) {
+      if (d0 == 0) {
+#pragma unroll
+        for (int k = 0; k < gt::ROW_W; ++k) row[k] = S.row[k];
+      }
+      const int64_t span = n - d0 < G ? n - d0 : G;
+      for (int i = 0; i < span; ++i) {
+        const int8_t kind = S.kind[i];
+        if (kind == gm::WIN_NONE) continue;
+        gt::Prep own;
+        if (kind == gm::WIN_OWN) own = gt::get_prep(S.prep, G, i);
+        gm::chain_link(kind, own, S.hits[i], now, row);
+        folded = true;
+      }
+    }
+    __syncwarp(mask);
+  }
+  if (x == 0) {
+    gm::chain_end(folded, row);
+#pragma unroll
+    for (int k = 0; k < gt::ROW_W; ++k) S.row[k] = row[k];
+  }
+  __syncwarp(mask);
+  // 3. The row to every replica as one 128-B run of eight 16-B stores.
+  for (int64_t i = x; i < n * (gt::ROW_W / 2); i += G) {
+    const int64_t d = i / (gt::ROW_W / 2);
+    reinterpret_cast<longlong2*>(table + (d * m.capacity + s) * gt::ROW_W)
+        [i % (gt::ROW_W / 2)] = row_v[i % (gt::ROW_W / 2)];
+  }
+}
+
+template <int G>
+void launch_apply(int64_t* table, const int64_t* aux, int64_t* acc,
+                  const gm::Mesh& m, const int32_t* list, int64_t count,
+                  int64_t now, cudaStream_t st) {
+  constexpr int kSlots = kSparseThreads / G;
+  apply_kernel<G><<<(unsigned)((count + kSlots - 1) / kSlots),
+                    kSparseThreads, 0, st>>>(table, aux, acc, m, list, count,
+                                             now);
+}
+
+// Lanes a union slot: a warp while the union fits the SMs at a warp a
+// slot (the chains then run one to a warp, none diverging), half or a
+// quarter of one as it grows past 8 or 16 slots an SM (the loads and
+// stores of more slots in flight an SM); never fewer than the nodes
+// rounded up to a power of two, nor than the row's eight 16-B vectors.
+int sparse_group(int64_t n_nodes, int64_t count, int sms) {
+  const int least = n_nodes <= 8 ? 8 : n_nodes <= 16 ? 16 : 32;
+  const int g = count > 16 * (int64_t)sms ? 8
+              : count > 8 * (int64_t)sms  ? 16
+                                          : 32;
+  return g > least ? g : least;
 }
 
 unsigned blocks_for(int64_t n) {
@@ -288,12 +395,18 @@ extern "C" int gt_global_probe(const int64_t* acc, int64_t n_nodes,
 extern "C" int gt_global_apply(int64_t* table, const int64_t* aux,
                                int64_t* acc, int64_t n_nodes,
                                int64_t capacity, const int32_t* list,
-                               const int64_t* count, int64_t max_slots,
-                               int64_t now, void* stream) {
-  if (max_slots > 0) {
-    apply_kernel<<<blocks_for(max_slots), kThreads, 0,
-                   (cudaStream_t)stream>>>(
-        table, aux, acc, mesh_of(n_nodes, capacity), list, count, now);
+                               int64_t count, int64_t now, void* stream) {
+  if (count > 0) {
+    const gm::Mesh m = mesh_of(n_nodes, capacity);
+    cudaStream_t st = (cudaStream_t)stream;
+    const int g = sparse_group(n_nodes, count, sm_count());
+    if (g == 8) {
+      launch_apply<8>(table, aux, acc, m, list, count, now, st);
+    } else if (g == 16) {
+      launch_apply<16>(table, aux, acc, m, list, count, now, st);
+    } else {
+      launch_apply<32>(table, aux, acc, m, list, count, now, st);
+    }
   }
   return (int)cudaGetLastError();
 }

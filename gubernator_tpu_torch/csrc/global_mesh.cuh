@@ -217,26 +217,98 @@ GT_HD bool overflow_of(const int32_t* wcount, const int32_t* tcount,
   return over;
 }
 
-// ---- B.8d: the sparse apply of one union slot ----
+// ---- B.8d: the sparse apply of one union slot, in two halves ----
 //
-// `row` holds the owner's row on entry and the folded row on return: each
-// node's window in node order where its count is above 0, each with that
-// node's own parameters (havep its own stamp above 0, the Gregorian words
-// masked by it) and the running row standing in without them
-// (global_mesh.py:442-477).
-GT_HD void sparse_slot(const Mesh& m, const int64_t* aux, const int64_t* acc,
-                       int64_t s, int64_t now, int64_t* row) {
-  for (int64_t d = 0; d < m.n_nodes; ++d) {
-    if (acc[acc_ix(m, d, ACC_COUNT, s)] <= 0) continue;
-    int64_t p[AUX_ROWS];
-    for (int k = 0; k < AUX_ROWS; ++k) p[k] = aux[aux_ix(m, d, k, s)];
-    const bool havep = p[A_STAMP] > 0;
-    apply_req(now, fold_req(acc[acc_ix(m, d, ACC_HITS, s)],
-                            acc[acc_ix(m, d, ACC_RESET, s)], p, havep, row,
-                            havep ? p[A_GREG_EXP] : 0,
-                            havep ? p[A_GREG_DUR] : 0, now),
-              row);
+// The slot's row is the owner's row with each node's window folded in
+// node order where its count is above 0, each with that node's own
+// parameters (havep its own stamp above 0, the Gregorian words masked by
+// it) and the running row standing in without them
+// (global_mesh.py:442-477).  DRAIN_OVER_LIMIT is forced and
+// RESET_REMAINING applies only when queued (fold_req).
+//
+// The halves are those of the chained tick (sorted_tick.cuh): each node's
+// window is read (node_acc, node_aux) and, where it has its own
+// parameters, built and prepared apart from the others (node_window, a
+// lane a node in the kernel); only the applies run on the slot's chain,
+// in node order (chain_link).  A window without its own parameters takes
+// its limit, duration, algorithm and burst from the running row, so its
+// request is built and prepared on the chain.
+constexpr int8_t WIN_NONE = 0, WIN_OWN = 1, WIN_RUNNING = 2,
+                 WIN_RUNNING_RESET = 3;
+
+// Node d's four accumulator words of slot s, in ACC order.
+struct NodeAcc {
+  int64_t w[ACC_ROWS];
+};
+
+GT_HD NodeAcc node_acc(const Mesh& m, const int64_t* acc, int64_t d,
+                       int64_t s) {
+  NodeAcc a;
+  for (int k = 0; k < ACC_ROWS; ++k) a.w[k] = acc[acc_ix(m, d, k, s)];
+  return a;
+}
+
+// Node d's nine aux words of slot s into p.
+GT_HD void node_aux(const Mesh& m, const int64_t* aux, int64_t d, int64_t s,
+                    int64_t* p) {
+  for (int k = 0; k < AUX_ROWS; ++k) p[k] = aux[aux_ix(m, d, k, s)];
+}
+
+// Node d's accumulator words of slot s to 0: those that are not 0
+// already (`a`, as read), which leaves what zeroing all four would with
+// fewer partly written sectors.
+GT_HD void node_zero(const Mesh& m, int64_t* acc, int64_t d, int64_t s,
+                     const NodeAcc& a) {
+  for (int k = 0; k < ACC_ROWS; ++k) {
+    if (a.w[k] != 0) acc[acc_ix(m, d, k, s)] = 0;
   }
+}
+
+struct NodeWin {
+  int8_t kind;     // WIN_*: no window, its own parameters (prepared), or
+                   // the running row's (without or with a queued RESET)
+  int64_t hits;    // the window's hits (for the running row's kinds)
+  gt::Prep prep;   // the prepared request (WIN_OWN)
+};
+
+// A node's window from its accumulator words `a` and aux words `p` (read
+// only when its count is above 0): its request built and prepared when
+// it has its own parameters.
+GT_HD NodeWin node_window(const NodeAcc& a, const int64_t* p, int64_t now) {
+  NodeWin w;
+  w.hits = a.w[ACC_HITS];
+  if (a.w[ACC_COUNT] <= 0) {
+    w.kind = WIN_NONE;
+  } else if (p[A_STAMP] > 0) {
+    const gt::Req r = fold_req(a.w[ACC_HITS], a.w[ACC_RESET], p, true, p,
+                               p[A_GREG_EXP], p[A_GREG_DUR], now);
+    w.prep = gt::prepare(gt::algo_class(r.algorithm), now, r);
+    w.kind = WIN_OWN;
+  } else {
+    w.kind = a.w[ACC_RESET] > 0 ? WIN_RUNNING_RESET : WIN_RUNNING;
+  }
+  return w;
+}
+
+// One link of the slot's chain: a window of kind `kind` (not WIN_NONE)
+// on the running row, in place (words 13-15 are chain_end's).
+GT_HD void chain_link(int8_t kind, const gt::Prep& own, int64_t hits,
+                      int64_t now, int64_t* row) {
+  if (kind == WIN_OWN) {
+    gt::apply(now, own, row);
+    return;
+  }
+  // Without parameters of its own fold_req reads only the running row.
+  const gt::Req r = fold_req(hits, kind == WIN_RUNNING_RESET ? 1 : 0, row,
+                             false, row, 0, 0, now);
+  gt::apply(now, gt::prepare(gt::algo_class(r.algorithm), now, r), row);
+}
+
+// After the chain: words 13-15 of a row that a window was folded into
+// are 0, as every transition leaves them.
+GT_HD void chain_end(bool folded, int64_t* row) {
+  if (!folded) return;
+  for (int w = gt::W_PREV_COUNT + 1; w < gt::ROW_W; ++w) row[w] = 0;
 }
 
 }  // namespace gm

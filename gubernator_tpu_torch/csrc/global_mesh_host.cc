@@ -4,9 +4,10 @@
 // lane or one slot after another: B.8a's lane decisions and aux words
 // (its atomic adds as plain adds), B.8b's dense slot, B.8c's window and
 // touch bits, counts and verdict (the union listed in slot order), and
-// B.8d's sparse slot on each listed slot.  The CPU tests hold it against
-// the plain PyTorch versions (ops/globalmesh.py); the kernels themselves
-// are held against the plain versions on the card by chip_smoke.py.
+// B.8d's two halves on each listed slot (each node's window, then the
+// chain).  The CPU tests hold it against the plain PyTorch versions
+// (ops/globalmesh.py); the kernels themselves are held against the plain
+// versions on the card by chip_smoke.py.
 
 #include <stdint.h>
 
@@ -100,16 +101,36 @@ extern "C" void gt_global_probe_host(const int64_t* acc, int64_t n_nodes,
   out[1] = size;
 }
 
+// B.8d's two halves as the kernel runs them: every node's window first
+// (the kernel's lanes), then the chain in node order (its lane 0), then
+// the row to every replica and the accumulators zeroed.
 extern "C" void gt_global_apply_host(int64_t* table, const int64_t* aux,
                                      int64_t* acc, int64_t n_nodes,
                                      int64_t capacity, const int32_t* list,
                                      int64_t count, int64_t now) {
   const gm::Mesh m = mesh_of(n_nodes, capacity);
-  int64_t row[gt::ROW_W];
+  std::vector<gm::NodeAcc> accs(n_nodes);
+  std::vector<gm::NodeWin> wins(n_nodes);
+  int64_t row[gt::ROW_W], p[gm::AUX_ROWS];
   for (int64_t j = 0; j < count; ++j) {
     const int64_t s = list[j];
     owner_row(table, m, s, row);
-    gm::sparse_slot(m, aux, acc, s, now, row);
-    replicate(table, acc, m, s, row);
+    for (int64_t d = 0; d < n_nodes; ++d) {
+      accs[d] = gm::node_acc(m, acc, d, s);
+      if (accs[d].w[gm::ACC_COUNT] > 0) gm::node_aux(m, aux, d, s, p);
+      wins[d] = gm::node_window(accs[d], p, now);
+    }
+    bool folded = false;
+    for (const gm::NodeWin& w : wins) {
+      if (w.kind == gm::WIN_NONE) continue;
+      gm::chain_link(w.kind, w.prep, w.hits, now, row);
+      folded = true;
+    }
+    gm::chain_end(folded, row);
+    for (int64_t d = 0; d < n_nodes; ++d) {
+      int64_t* dst = table + (d * m.capacity + s) * gt::ROW_W;
+      for (int w = 0; w < gt::ROW_W; ++w) dst[w] = row[w];
+      gm::node_zero(m, acc, d, s, accs[d]);
+    }
   }
 }

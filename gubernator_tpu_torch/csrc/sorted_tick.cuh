@@ -50,8 +50,6 @@
 // has its slot.
 #pragma once
 
-#include <string.h>
-
 #include "tile.cuh"
 
 namespace gt {
@@ -118,25 +116,6 @@ GT_HD bool walk_goes_on(int n, int64_t base, int64_t lanes) {
 GT_HD void store_ticked_row(int64_t* row, int64_t* s) {
   for (int w = W_PREV_COUNT + 1; w < ROW_W; ++w) s[w] = 0;
   store_row(row, s);
-}
-
-// Prepared terms in shared memory: PREP_W words a lane, word k of lane x
-// at k * n + x, so that the threads of a warp read neighbouring words.
-constexpr int PREP_W = (int)(sizeof(Prep) / 8);
-static_assert(sizeof(Prep) % 8 == 0, "a Prep is whole words");
-
-GT_HD void put_prep(int64_t* cols, int n, int x, const Prep& p) {
-  int64_t w[PREP_W];
-  memcpy(w, &p, sizeof(Prep));
-  for (int k = 0; k < PREP_W; ++k) cols[k * n + x] = w[k];
-}
-
-GT_HD Prep get_prep(const int64_t* cols, int n, int x) {
-  int64_t w[PREP_W];
-  for (int k = 0; k < PREP_W; ++k) w[k] = cols[k * n + x];
-  Prep p;
-  memcpy(&p, w, sizeof(Prep));
-  return p;
 }
 
 // A long block's shared memory.

@@ -35,6 +35,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #if defined(__CUDACC__)
 #define GT_HD __host__ __device__ __forceinline__
@@ -306,6 +307,26 @@ GT_HD Prep prepare(int cls, int64_t now, const Req& r) {
   } else {
     sliding_prepare(r, p);
   }
+  return p;
+}
+
+// Prepared terms in memory (a kernel's shared memory): PREP_W words a
+// lane, word k of lane x at k * n + x, so that the threads of a warp
+// touch neighbouring words.
+constexpr int PREP_W = (int)(sizeof(Prep) / 8);
+static_assert(sizeof(Prep) % 8 == 0, "a Prep is whole words");
+
+GT_HD void put_prep(int64_t* cols, int n, int x, const Prep& p) {
+  int64_t w[PREP_W];
+  memcpy(w, &p, sizeof(Prep));
+  for (int k = 0; k < PREP_W; ++k) cols[k * n + x] = w[k];
+}
+
+GT_HD Prep get_prep(const int64_t* cols, int n, int x) {
+  int64_t w[PREP_W];
+  for (int k = 0; k < PREP_W; ++k) w[k] = cols[k * n + x];
+  Prep p;
+  memcpy(&p, w, sizeof(Prep));
   return p;
 }
 

@@ -923,12 +923,10 @@ class TickEngine(BatchFront):
         self.metric_rank_rounds = 0
         # Slots mutated since the last export (export_columns(dirty_only)).
         self._dirty = np.zeros(self.capacity, bool)
-        # Quota-lease columns beside the table, capacity + 1 entries.
-        self._lease_budget = torch.zeros(self.capacity + 1, dtype=torch.int64,
-                                         device=self.device)
-        self._lease_expire = torch.zeros_like(self._lease_budget)
-        self._lease_gen = torch.zeros(self.capacity + 1, dtype=torch.int32,
-                                      device=self.device)
+        # Quota-lease columns beside the table, capacity + 1 entries: views
+        # of one table of 32-B records, the layout kernel B.9 takes.
+        self._lease_budget, self._lease_expire, self._lease_gen = \
+            leasecols.lease_records(self.capacity, self.device)
         # Slots whose lease budget is negative (a set window or a load
         # wrote it; normally none): a delta window clamps them too.
         self._lease_negative: set = set()

@@ -72,8 +72,7 @@ def _lib() -> ctypes.CDLL:
          [_vp, _i64, _i64, _vp, _vp, _i64, _i64, _i64, _int, _vp]),
         ("gt_global_dense", [_vp, _vp, _vp, _i64, _i64, _i64, _int, _vp]),
         ("gt_global_probe", [_vp, _i64, _i64, _i64, _vp, _vp, _vp, _vp]),
-        ("gt_global_apply",
-         [_vp, _vp, _vp, _i64, _i64, _vp, _vp, _i64, _i64, _vp]),
+        ("gt_global_apply", [_vp, _vp, _vp, _i64, _i64, _vp, _i64, _i64, _vp]),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -385,11 +384,12 @@ def global_sparse_apply_plain(table: torch.Tensor, aux: torch.Tensor,
 def global_sparse_apply(table: torch.Tensor, aux: torch.Tensor,
                         accum: torch.Tensor, n_nodes: int,
                         slots: torch.Tensor, out: torch.Tensor,
-                        max_slots: int, now: int) -> None:
+                        count: int, now: int) -> None:
     """B.8d over the union :func:`global_sparse_probe` left in ``slots`` /
-    ``out`` (at most ``max_slots`` slots; the count is read on the card).
-    Every nonzero accumulator word lies in the union, so zeroing the
-    union's words zeroes the accumulators."""
+    ``out``: ``count`` is the union's size, ``out[1]``, as the caller read
+    it back with the verdict (the kernel's grid is sized by it; an empty
+    union launches nothing).  Every nonzero accumulator word lies in the
+    union, so zeroing the union's words zeroes the accumulators."""
     cap = check_buffers(table, aux, accum, n_nodes)
     if tuple(slots.shape) != (cap,) or slots.dtype != torch.int32 \
             or tuple(out.shape) != (2,) or out.dtype != torch.int64 \
@@ -398,13 +398,16 @@ def global_sparse_apply(table: torch.Tensor, aux: torch.Tensor,
     if _device_kind(table) == "cpu":
         global_sparse_apply_plain(table, aux, accum, n_nodes, slots, out, now)
         return
-    max_slots = min(int(max_slots), cap)
+    count = int(count)
+    if not 0 <= count <= cap:
+        raise ValueError(f"union size {count} outside [0, {cap}]")
+    if count == 0:
+        return
     rc = _lib().gt_global_apply(
         table.data_ptr(), aux.data_ptr(), accum.data_ptr(), n_nodes, cap,
-        slots.data_ptr(), out.data_ptr() + 8, max_slots, int(now),
-        _stream(table))
+        slots.data_ptr(), count, int(now), _stream(table))
     _build.check(rc, "global_sparse_apply")
-    count_launch(global_sparse_apply, max_slots)
+    count_launch(global_sparse_apply, count)
 
 
 global_sparse_apply.launches = 0

@@ -6,6 +6,13 @@ window into the lease columns beside the table (docs/leases.md): budget
 (int64), expiry (int64, epoch ms) and generation (int32), each
 ``capacity + 1`` entries, the last a guard that nothing writes.
 
+The engine keeps the three columns as views of one table of 32-B
+records, a slot's budget, expiry and generation side by side in one DRAM
+sector (:func:`lease_records`), the only layout the kernel takes: it
+writes each record whole, its 12 B of padding staying 0.  Each view reads
+and writes as the column it stands for, so everything outside this module
+sees three columns.
+
 A window is a (4, n) int64 lane matrix (slot, budget, expiry, generation),
 made on the host by :func:`pack_lanes` and copied to the device in one
 transfer.  ``is_set`` installs each lane's triple; otherwise the budgets
@@ -36,6 +43,10 @@ from gubernator_tpu_torch.ops.fusedtick import count_launch
 # Lane rows of the (4, n) window matrix.
 SLOT, BUDGET, EXPIRE, GEN = range(4)
 
+# int64 words of a slot's record: budget, expiry, generation (the low
+# half of the third word), padding.
+RECORD_WORDS = 4
+
 _vp, _i64 = ctypes.c_void_p, ctypes.c_int64
 _INT64_MIN = np.iinfo(np.int64).min
 _INT32_MIN = np.iinfo(np.int32).min
@@ -45,9 +56,32 @@ _INT32_MIN = np.iinfo(np.int32).min
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lease_apply")
     lib.gt_lease_apply.restype = ctypes.c_int
-    lib.gt_lease_apply.argtypes = [_vp, _vp, _vp, _i64, _vp, _i64,
-                                   ctypes.c_int, _vp]
+    lib.gt_lease_apply.argtypes = [_vp, _i64, _vp, _i64, ctypes.c_int, _vp]
     return lib
+
+
+def lease_records(capacity: int, device) -> tuple:
+    """Zeroed lease columns of ``capacity`` slots and the guard entry:
+    (budget, expire, gen) int64 / int64 / int32 views of one
+    (capacity + 1, 4) int64 record table, the layout the kernel takes."""
+    rec = torch.zeros((capacity + 1, RECORD_WORDS), dtype=torch.int64,
+                      device=device)
+    return rec[:, 0], rec[:, 1], rec.view(torch.int32)[:, 4]
+
+
+def _are_records(budget: torch.Tensor, expire: torch.Tensor,
+             gen: torch.Tensor) -> bool:
+    """Whether the columns are :func:`lease_records`' views of one record
+    table."""
+    base = budget.data_ptr()
+    return (budget.stride() == (RECORD_WORDS,)
+            and expire.stride() == (RECORD_WORDS,)
+            and gen.stride() == (2 * RECORD_WORDS,)
+            and expire.data_ptr() == base + 8
+            and gen.data_ptr() == base + 16
+            and budget.untyped_storage().data_ptr()
+            == gen.untyped_storage().data_ptr()
+            and base % 32 == 0)
 
 
 def pack_lanes(slots: np.ndarray, budgets: Sequence[int],
@@ -93,11 +127,11 @@ def _check(budget: torch.Tensor, expire: torch.Tensor, gen: torch.Tensor,
     n = budget.shape[0] if budget.dim() == 1 else -1
     for col, dt in ((budget, torch.int64), (expire, torch.int64),
                     (gen, torch.int32)):
-        if col.dim() != 1 or col.dtype != dt or not col.is_contiguous() \
-                or col.shape[0] != n or col.device != budget.device:
+        if col.dim() != 1 or col.dtype != dt or col.shape[0] != n \
+                or col.device != budget.device:
             raise ValueError(
-                "lease columns must be contiguous 1-D int64 / int64 / int32 "
-                "tensors of one length on one device")
+                "lease columns must be 1-D int64 / int64 / int32 tensors of "
+                "one length on one device")
     if lanes.dim() != 2 or lanes.shape[0] != 4 or lanes.dtype != torch.int64 \
             or not lanes.is_contiguous() or lanes.device != budget.device:
         raise ValueError("lanes must be a contiguous (4, n) int64 tensor on "
@@ -131,18 +165,22 @@ def lease_apply_plain(budget: torch.Tensor, expire: torch.Tensor,
 def lease_apply(budget: torch.Tensor, expire: torch.Tensor,
                 gen: torch.Tensor, lanes: torch.Tensor, is_set: bool) -> None:
     """Apply one window of :func:`pack_lanes` lanes to the lease columns in
-    place: one kernel launch for CUDA tensors, the plain version for CPU
-    tensors."""
+    place: one kernel launch for CUDA tensors (the columns
+    :func:`lease_records` views), the plain version for CPU tensors (any
+    layout)."""
     _check(budget, expire, gen, lanes)
     if budget.device.type == "cpu":
         lease_apply_plain(budget, expire, gen, lanes, is_set)
         return
     if budget.device.type != "cuda":
         raise ValueError(f"unsupported device {budget.device}")
+    if not _are_records(budget, expire, gen):
+        raise ValueError("lease columns on the card must be lease_records() "
+                         "views of one record table")
     n = lanes.shape[1]
     rc = _lib().gt_lease_apply(
-        budget.data_ptr(), expire.data_ptr(), gen.data_ptr(),
-        budget.shape[0] - 1, lanes.data_ptr(), n, 1 if is_set else 0,
+        budget.data_ptr(), budget.shape[0] - 1, lanes.data_ptr(), n,
+        1 if is_set else 0,
         torch.cuda.current_stream(budget.device).cuda_stream)
     _build.check(rc, "lease_apply")
     count_launch(lease_apply, n)
@@ -152,5 +190,5 @@ lease_apply.launches = 0
 lease_apply.launches_by_width = {}
 
 
-__all__ = ["SLOT", "BUDGET", "EXPIRE", "GEN", "pack_lanes", "lease_apply",
-           "lease_apply_plain"]
+__all__ = ["SLOT", "BUDGET", "EXPIRE", "GEN", "RECORD_WORDS", "lease_records",
+           "pack_lanes", "lease_apply", "lease_apply_plain"]

@@ -373,9 +373,10 @@ class MeshGlobalEngine:
     # The reconcile (GlobalSyncWait cadence)
     # ------------------------------------------------------------------
     def reconcile(self, now: Optional[int] = None) -> None:
-        """One reconcile step.  Sparse: the probe, one word read back, then
-        the apply, or on overflow the dense fallback on the untouched
-        buffers.  Dense: one launch."""
+        """One reconcile step.  Sparse: the probe, its verdict and union
+        size read back in one copy, then the apply sized by the union (none
+        for an empty one), or on overflow the dense fallback on the
+        untouched buffers.  Dense: one launch."""
         with self._lock:
             now = now if now is not None else timeutil.now_ms()
             n = self.n_nodes
@@ -384,7 +385,8 @@ class MeshGlobalEngine:
                     self.accum, n, self.sparse_k, self._probe_out,
                     self._probe_slots, self._probe_scratch)
                 self.metric_reconcile_dispatches += 1
-                if bool(self._probe_out[0].item()):
+                overflow, union = self._probe_out.tolist()  # one copy
+                if overflow:
                     self.metric_dense_fallbacks += 1
                     self.metric_reconcile_dispatches += 1
                     globalmesh.global_dense_reconcile(
@@ -392,8 +394,7 @@ class MeshGlobalEngine:
                 else:
                     globalmesh.global_sparse_apply(
                         self.table, self.aux, self.accum, n,
-                        self._probe_slots, self._probe_out,
-                        2 * n * self.sparse_k, now)
+                        self._probe_slots, self._probe_out, union, now)
             else:
                 self.metric_reconcile_dispatches += 1
                 globalmesh.global_dense_reconcile(

@@ -976,44 +976,97 @@ def test_global_convergence_on_the_card_is_exact(dev):
     assert launches["fused_tick"] > 0 and launches["scatter_rows"] > 0
 
 
-@pytest.mark.parametrize("lanes", [4096, 65536])
+def random_records(dev, rng, cap, neg):
+    """``lease_records`` of ``cap`` slots holding random budgets (those of
+    ``neg`` negative), expiries and generations, the guard entry 0."""
+    from gubernator_tpu_torch.ops import leasecols as LC
+
+    budget = rng.integers(0, 1000, cap + 1)
+    budget[neg] = -5
+    cols = LC.lease_records(cap, dev)
+    for c, v in zip(cols, (budget, rng.integers(0, 10**6, cap + 1),
+                           rng.integers(0, 99, cap + 1))):
+        c.copy_(torch.from_numpy(v))
+        c[cap] = 0
+    return cols
+
+
+def lease_copy(cols):
+    from gubernator_tpu_torch.ops import leasecols as LC
+
+    out = LC.lease_records(cols[0].shape[0] - 1, cols[0].device)
+    for a, c in zip(out, cols):
+        a.copy_(c)
+    return out
+
+
+@pytest.mark.parametrize("lanes", [1, 255, 257, 4096, 65536])
 @pytest.mark.parametrize("is_set", [True, False])
 def test_lease_apply_matches_plain(dev, lanes, is_set):
     """B.9 on packed lanes (repeats in the raw window, negative budgets
-    outside it) against the plain version: on the same lanes for a set
-    window, on the raw lanes (the whole-column clamp) for a delta one."""
+    outside it, from 255 lanes three slots outside the table) against the
+    plain version on the same 32-B records: on the same lanes for a set
+    window, on the raw lanes (the whole-column clamp) for a delta one;
+    windows of one lane, around one 256-thread block and a grant call's
+    and a wide window (blocks of 32 to 256 threads); the padding stays
+    0."""
     from gubernator_tpu_torch.ops import leasecols as LC
 
     gt.reset_kernel_launches()
     rng = np.random.default_rng(lanes + is_set)
     cap = 1 << 20
     neg = rng.choice(cap, 9, replace=False)
-    budget = rng.integers(0, 1000, cap + 1)
-    budget[neg] = -5
-    cols = [torch.from_numpy(budget).to(dev),
-            torch.from_numpy(rng.integers(0, 10**6, cap + 1)).to(dev),
-            torch.from_numpy(rng.integers(0, 99, cap + 1).astype(
-                np.int32)).to(dev)]
-    for c in cols:
-        c[cap] = 0
+    cols = random_records(dev, rng, cap, neg)
     raw = cs.lease_lanes(rng, cap, lanes)
-    raw[0][:3] = [cap, cap + 7, -1]  # lanes outside the table: dropped
+    if lanes >= 255:
+        raw[0][:3] = [cap, cap + 7, -1]  # lanes outside the table: dropped
     packed = torch.from_numpy(LC.pack_lanes(
         *raw, is_set, () if is_set else neg)).to(dev)
     unpacked = torch.from_numpy(np.stack([
         raw[0], raw[1], raw[2],
         np.asarray(raw[3]).astype(np.int32).astype(np.int64)])).to(dev)
-    k = [c.clone() for c in cols]
-    p = [c.clone() for c in cols]
+    k, p = lease_copy(cols), lease_copy(cols)
     LC.lease_apply(*k, packed, is_set)
     LC.lease_apply_plain(*p, packed if is_set else unpacked, is_set)
     torch.cuda.synchronize()
     for a, b in zip(k, p):
         assert torch.equal(a, b)
+    assert torch.equal(k[0]._base, p[0]._base)  # padding included
     if not is_set:
         assert int(k[0].min()) == 0
     assert gt.kernel_launches()["lease_apply"] == 1
     assert sum(gt.kernel_launches_by_width()["lease_apply"].values()) == 1
+
+
+@pytest.mark.parametrize("is_set", [True, False])
+def test_lease_apply_with_every_lane_outside_the_table(dev, is_set):
+    """A window whose 300 lanes all name slots outside [0, capacity)
+    (the guard entry, past it, negative) writes nothing."""
+    from gubernator_tpu_torch.ops import leasecols as LC
+
+    rng = np.random.default_rng(301 + is_set)
+    cap = 4096
+    cols = random_records(dev, rng, cap, [])
+    slots = np.concatenate([[cap, -1], rng.integers(cap, 4 * cap, 149),
+                            -rng.integers(1, 1000, 149)])
+    lanes = np.stack([slots, rng.integers(-50, 50, 300),
+                      rng.integers(0, 10**6, 300), rng.integers(0, 9, 300)])
+    k = lease_copy(cols)
+    LC.lease_apply(*k, torch.from_numpy(lanes).to(dev), is_set)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0]._base, cols[0]._base)
+
+
+def test_lease_apply_refuses_separate_columns_on_the_card(dev):
+    """On the card B.9 takes only ``lease_records``' views."""
+    from gubernator_tpu_torch.ops import leasecols as LC
+
+    cols = [torch.zeros(65, dtype=torch.int64, device=dev),
+            torch.zeros(65, dtype=torch.int64, device=dev),
+            torch.zeros(65, dtype=torch.int32, device=dev)]
+    with pytest.raises(ValueError):
+        LC.lease_apply(*cols, torch.zeros((4, 1), dtype=torch.int64,
+                                          device=dev), True)
 
 
 def test_lease_manager_on_the_card_matches_the_cpu_one(dev):
@@ -1098,7 +1151,8 @@ def test_global_sparse_probe_and_apply_match_plain(dev, n, cap, k, touched):
     accumulators against the plain versions, at phase 9's 8 x 2^22 with
     ~512 union slots, on small meshes where the verdict overflows, and on
     16- and 24-node meshes (3n counters past one warp) both ways.  An
-    overflowing union is applied whole, past the engine's 2nk lanes."""
+    overflowing union is applied whole: the grid is sized by the union
+    read back with the verdict."""
     from gubernator_tpu_torch.ops import globalmesh as GM
 
     rng = np.random.default_rng(n + cap + k)
@@ -1126,10 +1180,125 @@ def test_global_sparse_probe_and_apply_match_plain(dev, n, cap, k, touched):
     assert torch.equal(out, po)
     assert torch.equal(torch.sort(slots[:size]).values, ps[:size])
     tp, cp = table.clone(), acc.clone()
-    GM.global_sparse_apply(table, aux, acc, n, slots, out,
-                           cap if int(po[0]) else min(cap, 2 * n * k), cs.NOW)
+    GM.global_sparse_apply(table, aux, acc, n, slots, out, size, cs.NOW)
     GM.global_sparse_apply_plain(tp, aux, cp, n, ps, po, cs.NOW)
     assert torch.equal(table, tp) and torch.equal(acc, cp)
+
+
+def sparse_case(dev, rng, n, cap, union, stamped=0.7, owned=False):
+    """Mesh buffers whose accumulators hold windows on exactly ``union``
+    random slots: each slot a window on half its nodes (one at least;
+    counts 1-3, hits -5..19, RESET on a fifth; on non-owners unless
+    ``owned``), a stamp on a ``stamped`` share of (node, slot) pairs
+    (windows without one take the running row's parameters), every union
+    slot touched by node 0.  Returns the buffers and the union's size."""
+    table, aux, acc = cs.gm_random_buffers(torch, dev, rng, n, cap, 0.0)
+    aux[:, 8] *= torch.from_numpy(rng.random((n, cap)) < stamped).to(dev)
+    u = rng.choice(cap, union, replace=False)
+    owner = u // (cap // n)
+    win = rng.random((n, union)) < 0.5
+    if not owned:
+        win &= np.arange(n)[:, None] != owner[None, :]
+    win[rng.integers(0, n, union), np.arange(union)] = True
+    if not owned and n > 1:
+        win[owner, np.arange(union)] = False
+    a = np.zeros((n, 4, union), np.int64)
+    a[:, 2] = np.where(win, rng.integers(1, 4, (n, union)), 0)
+    a[:, 0] = np.where(win, rng.integers(-5, 20, (n, union)), 0)
+    a[:, 1] = np.where(win & (rng.random((n, union)) < 0.2), 1, 0)
+    a[:, 3] = a[:, 2] + (rng.random((n, union)) < 0.3)
+    a[0, 3] = np.maximum(a[0, 3], 1)
+    acc[:, :, torch.from_numpy(u).to(dev)] = torch.from_numpy(a).to(dev)
+    return table, aux, acc, union
+
+
+def sparse_apply_against_plain(dev, n, table, aux, acc, k=1 << 30):
+    """B.8c then B.8d against the plain versions; the apply's launches."""
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    cap = aux.shape[2]
+    out, slots, scratch = GM.probe_buffers(n, cap, dev)
+    GM.global_sparse_probe(acc, n, k, out, slots, scratch)
+    over, size = out.tolist()
+    assert not over
+    tp, cp = table.clone(), acc.clone()
+    gt.reset_kernel_launches()
+    GM.global_sparse_apply(table, aux, acc, n, slots, out, size, cs.NOW)
+    launches = gt.kernel_launches()["global_sparse_apply"]
+    GM.global_sparse_apply_plain(tp, aux, cp, n, slots, out, cs.NOW)
+    torch.cuda.synchronize()
+    assert torch.equal(table, tp) and torch.equal(acc, cp)
+    assert not acc.any()
+    return size, launches
+
+
+def test_global_sparse_apply_on_an_empty_union(dev):
+    """A step with nothing queued: the union is empty, no launch, no row
+    or accumulator touched."""
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    rng = np.random.default_rng(90)
+    table, aux, acc = cs.gm_random_buffers(torch, dev, rng, 8, 1 << 12, 0.0)
+    t0 = table.clone()
+    out, slots, scratch = GM.probe_buffers(8, 1 << 12, dev)
+    GM.global_sparse_probe(acc, 8, 64, out, slots, scratch)
+    assert out.tolist() == [0, 0]
+    gt.reset_kernel_launches()
+    GM.global_sparse_apply(table, aux, acc, 8, slots, out, 0, cs.NOW)
+    torch.cuda.synchronize()
+    assert gt.kernel_launches()["global_sparse_apply"] == 0
+    assert torch.equal(table, t0) and not acc.any()
+
+
+@pytest.mark.parametrize("n", [3, 8, 24])
+def test_global_sparse_apply_with_windows_on_the_running_row(dev, n):
+    """Every window without its own parameters (no stamp): each takes the
+    running row's limit, duration, algorithm and burst, so its request is
+    built and prepared on the slot's chain."""
+    rng = np.random.default_rng(91 + n)
+    case = sparse_case(dev, rng, n, 64 * n, 48, stamped=0.0)
+    size, launches = sparse_apply_against_plain(dev, n, *case[:3])
+    assert size == 48 and launches == 1
+
+
+@pytest.mark.parametrize("n", [1, 2, 24, 32, 40])
+def test_global_sparse_apply_on_meshes_of_one_to_forty_nodes(dev, n):
+    """One node (its windows on the slots it owns), two, 24 (a warp a
+    slot), 32 and 40 nodes (the chain in rounds of 32 nodes)."""
+    rng = np.random.default_rng(92 + n)
+    case = sparse_case(dev, rng, n, 64 * n, 40, owned=n == 1)
+    size, launches = sparse_apply_against_plain(dev, n, *case[:3])
+    assert size == 40 and launches == 1
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 24])
+@pytest.mark.parametrize("union", ["1", "3", "17", "130", "8sms+5",
+                                   "16sms+9"])
+def test_global_sparse_apply_grids_with_a_partial_last_block(dev, n, union):
+    """Unions that leave the last block of 128 threads part full, for each
+    group size the launch picks: a warp a slot (4 slots a block) up to 8
+    slots an SM, 16 lanes (8 a block) up to 16, then 8 lanes (16 a block)
+    where the nodes fit them."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    size = {"8sms+5": 8 * sms + 5, "16sms+9": 16 * sms + 9}.get(union)
+    size = size or int(union)
+    cap = n * max(256, -(-4 * size // n))
+    rng = np.random.default_rng(93 + n * size)
+    case = sparse_case(dev, rng, n, cap, size)
+    got, launches = sparse_apply_against_plain(dev, n, *case[:3])
+    assert got == size and launches == 1
+
+
+def test_global_sparse_apply_at_a_loaded_union(dev):
+    """Phase 2's wider B.8d shape: 8 x 2^22 slots with 4096 union slots
+    (every node's windows and touches within sparse_k 4096, every owner's
+    share within 2 sparse_k)."""
+    rng = np.random.default_rng(94)
+    table, aux, acc, *_ = cs.gm_sparse_inputs(torch, dev, rng, 8, 1 << 22,
+                                              4096)
+    size, launches = sparse_apply_against_plain(dev, 8, table, aux, acc,
+                                                cs.GM_SPARSE_K)
+    assert size == 4096 and launches == 1
 
 
 @pytest.mark.parametrize("n", [16, 24])

@@ -521,21 +521,35 @@ def test_host_dense_slot_code_matches_plain(strict):
     assert torch.equal(a2, acc)
 
 
-@pytest.mark.parametrize("k", [4, 64, 256])
-def test_host_probe_and_apply_match_plain(k):
-    rng = np.random.default_rng(32 + k)
-    table, aux, acc = random_buffers(rng, N, 256, touched=0.05)
-    out, slots, _ = gm.probe_buffers(N, 256, "cpu")
-    gm.global_sparse_probe_plain(acc, N, k, out, slots)
+@pytest.mark.parametrize("k,n,stamped", [
+    pytest.param(4, N, 0.7, id="4"), pytest.param(64, N, 0.7, id="64"),
+    pytest.param(256, N, 0.7, id="256"),
+    pytest.param(64, N, 0.0, id="64-running-row-only"),
+    pytest.param(64, 24, 0.7, id="64-24-nodes"),
+    pytest.param(4096, 24, 0.0, id="4096-24-nodes-running-row-only")])
+def test_host_probe_and_apply_match_plain(k, n, stamped):
+    """B.8c's and B.8d's host builds against the plain versions: 4-node
+    meshes (a stamp on 70% of (node, slot) pairs, or on none, so that
+    every window takes the running row's parameters and is prepared on
+    the chain) and 24-node meshes; B.8d through its two halves, each
+    node's window and then the chain."""
+    cap = 64 * n
+    rng = np.random.default_rng(32 + k + n - N)
+    table, aux, acc = random_buffers(rng, n, cap, touched=0.05)
+    aux[:, gm.AUX["stamp"]] *= torch.from_numpy(
+        rng.random((n, cap)) < stamped / 0.7)
+    out, slots, _ = gm.probe_buffers(n, cap, "cpu")
+    gm.global_sparse_probe_plain(acc, n, k, out, slots)
     h_out = torch.zeros(2, dtype=torch.int64)
-    h_slots = torch.zeros(256, dtype=torch.int32)
+    h_slots = torch.zeros(cap, dtype=torch.int32)
     lib = _host_lib()
-    lib.gt_global_probe_host(_ptr(acc), N, 256, k, _ptr(h_slots), _ptr(h_out))
+    lib.gt_global_probe_host(_ptr(acc), n, cap, k, _ptr(h_slots),
+                             _ptr(h_out))
     assert torch.equal(h_out, out)
     assert torch.equal(h_slots[:int(out[1])], slots[:int(out[1])])
     t2, a2 = table.clone(), acc.clone()
-    gm.global_sparse_apply_plain(table, aux, acc, N, slots, out, NOW)
-    lib.gt_global_apply_host(_ptr(t2), _ptr(aux), _ptr(a2), N, 256,
+    gm.global_sparse_apply_plain(table, aux, acc, n, slots, out, NOW)
+    lib.gt_global_apply_host(_ptr(t2), _ptr(aux), _ptr(a2), n, cap,
                              _ptr(h_slots), int(h_out[1]), NOW)
     assert torch.equal(t2, table)
     assert torch.equal(a2, acc)

@@ -191,6 +191,51 @@ def test_lease_windows_match_jax():
         np.testing.assert_array_equal(got, want)
 
 
+def test_interleaved_lease_columns_match_jax():
+    """The lanes ``pack_lanes`` makes from a window's keys, applied by
+    ``lease_apply_plain`` to ``lease_records`` (the three columns as views
+    of one 32-B record a slot, the layout B.9 takes on the card), against
+    the JAX engine's ``lease_window`` on the same keys: each key's budget,
+    expiry and generation equal after every window, every record's
+    padding 0.  The windows are test_lease_windows_match_jax's shapes."""
+    import torch
+
+    from gubernator_tpu_torch.ops import leasecols as LC
+    from gubernator_tpu_torch.ops.reqcols import pack_blob
+
+    j, t, rng, now = warm(64)
+    keys = keyset(range(45))   # keys 40-44 are not resident
+    cols = LC.lease_records(t.capacity, "cpu")
+    records = cols[0]._base
+    negative: set = set()
+    for is_set, sel, bud, gen in (
+            (True, np.arange(0, 45, 2), 5, 3),
+            (False, rng.integers(0, 45, 30), -2, 2),
+            (False, rng.integers(0, 45, 30), 4, 7)):
+        ks = [keys[i] for i in sel]
+        b = np.arange(len(ks)) % 7 + bud
+        e = now + 100 * np.arange(len(ks))
+        g = np.asarray([gen + i % 3 for i in range(len(ks))])
+        j.lease_window(ks, b.tolist(), e.tolist(), g.tolist(), is_set=is_set)
+        slots = t.slots.lookup_blob(*pack_blob(ks))
+        live = slots >= 0
+        lanes = LC.pack_lanes(slots[live], b[live], e[live], g[live], is_set,
+                              sorted(negative))
+        LC.lease_apply_plain(*cols, torch.from_numpy(lanes), is_set)
+        if is_set:
+            negative |= set(lanes[LC.SLOT][lanes[LC.BUDGET] < 0].tolist())
+        else:
+            negative.clear()
+        at = torch.from_numpy(t.slots.lookup_blob(*pack_blob(keys)))
+        res = at >= 0
+        for got, want in zip(cols, j.lease_columns(keys)):
+            out = np.zeros(len(keys), want.dtype)
+            out[res.numpy()] = got[at[res]].numpy()
+            np.testing.assert_array_equal(out, want)
+        assert not records[:, 3].any()
+        assert not records.view(torch.int32)[:, 5].any()
+
+
 def test_lease_delta_clamps_every_negative_budget_like_jax():
     """The reference clamps the whole budget column after a delta window;
     B.9 clamps the lanes' slots, with the engine adding a zero lane for
