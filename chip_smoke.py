@@ -1157,8 +1157,8 @@ TILE_FOLD_INT32_OPS_PER_LANE = 80
 # PR 15's times of the kernels PR 16 redesigned, its proof run b on an
 # NVIDIA H100 80GB HBM3, 700.00 W (PERF.md §6): B.6 on the herd and the
 # cross window, B.8b at 8 x 2^16 (strict); and the earlier designs of
-# B.9 and B.8d (below).  Phase 2 prints them beside this run's as
-# "earlier_ms".
+# B.9, B.8d, the B.2 scatter and B.8a (below).  Phase 2 prints them
+# beside this run's as "earlier_ms".
 EARLIER_MS = {"mesh_tile_tick": 0.03234399855136871,
               "mesh_tile_tick_cross": 0.1566160023212433,
               "global_dense_reconcile": 0.0997119965031743,
@@ -1174,7 +1174,23 @@ EARLIER_MS = {"mesh_tile_tick": 0.03234399855136871,
               "lease_apply_set_65536": 0.014448000118136406,
               "lease_apply_delta_65536": 0.01743599958717823,
               "global_sparse_apply": 0.04582399968057871,
-              "global_sparse_apply_4096": 0.05392800038680434}
+              "global_sparse_apply_4096": 0.05392800038680434,
+              # The B.2 scatter's and B.8a's designs before their Hopper
+              # redesign (one thread a 16-B vector, one thread a lane),
+              # timed in turns with the new ones in one call of
+              # probes/scatter_accumulate_breakdown.py on an NVIDIA H100
+              # 80GB HBM3, 700.00 W (the first of its two readings): the
+              # scatter at row 3's shape (32768 rows, a guard lane every
+              # 97), a promote of 32768 rows and an eviction of 65536 rows
+              # as the whole row_evict call (its zero tensor's fill
+              # included); B.8a on global_mesh_8's window, touch off and
+              # on, and on the 16-key hot window.
+              "scatter_rows": 0.004920000210404396,
+              "scatter_rows_promote": 0.004883999936282635,
+              "scatter_rows_evict": 0.010951999574899673,
+              "global_accumulate": 0.0036520001012831926,
+              "global_accumulate_touch": 0.003751999931409955,
+              "global_accumulate_hot": 0.0030239999759942293}
 
 
 def kernel_ptxas(lib: str, kernel: str) -> dict:
@@ -1578,25 +1594,37 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
         sweep[shape] = line
         return e
 
-    def check_scatter(sets, rows):
+    def check_scatter(sets, rows, evict=False):
+        """The scatter on ``sets``, held bit for bit against its plain
+        version, and timed.  With ``evict`` the call is ``row_evict``
+        itself (the zero-source launch; ``rows`` are the plain version's
+        zero rows): only the rows are written, and the library call is
+        ``index_fill_``."""
         s_k, s_p = table.clone(), table.clone()
-        rowtable.scatter_rows(s_k, sets[0], rows)
+        if evict:
+            rowtable.row_evict(s_k, sets[0])
+        else:
+            rowtable.scatter_rows(s_k, sets[0], rows)
         rowtable.scatter_rows_plain(s_p, sets[0], rows)
         torch.cuda.synchronize()
         assert torch.equal(s_k, s_p), "scatter_rows differs from plain"
         err = _max_abs(torch, s_k, s_p)
         del s_k, s_p
         n_live = int((sets[0] < cap).sum())
+        if evict:
+            ours = [lambda s=s: rowtable.row_evict(scratch, s) for s in sets]
+            lib = [lambda s=s: scratch.index_fill_(0, s, 0) for s in sets]
+        else:
+            ours = [lambda s=s: rowtable.scatter_rows(scratch, s, rows)
+                    for s in sets]
+            lib = [lambda s=s: scratch.index_copy_(0, s, rows) for s in sets]
         return _entry(
             "scatter_rows", "gubernator_tpu_torch/csrc/rows.cu",
-            "gubernator_tpu/ops/rowtable.py:223", err,
-            time_ms(torch, [lambda s=s: rowtable.scatter_rows(scratch, s, rows)
-                            for s in sets]),
+            "gubernator_tpu/ops/rowtable.py:223", err, time_ms(torch, ours),
             time_ms(torch, [lambda s=s: rowtable.scatter_rows_plain(
                 scratch, s, rows) for s in sets]),
-            time_ms(torch, [lambda s=s: scratch.index_copy_(0, s, rows)
-                            for s in sets]),
-            sets[0].numel() * 8 + n_live * 256, 0)
+            time_ms(torch, lib),
+            sets[0].numel() * 8 + n_live * (128 if evict else 256), 0)
 
     # Its own generator: the other kernels' windows stay those of
     # earlier runs.
@@ -1613,6 +1641,10 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
     rows = torch.from_numpy(
         rng.integers(-2**62, 2**62, (lanes, 16)).astype(np.int64)).to(dev)
     out["scatter_rows"] = check_scatter(slot_sets(lanes, guard_every=97), rows)
+    out["scatter_rows"].update(
+        earlier_ms=EARLIER_MS["scatter_rows"],
+        ptxas={"rows": kernel_ptxas("rows", "scatter_rows_kernelILi8ELb0E"),
+               "zero": kernel_ptxas("rows", "scatter_rows_kernelILi8ELb1E")})
 
     # The shapes reclaim gives them: the dead-slot scan gathers ascending
     # candidate slots SCAN_CHUNK at a time, eviction scatters zero rows in
@@ -1624,13 +1656,18 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
             "reclaim_scan"),
         "scatter_rows": check_scatter(
             slot_sets(E.EVICT_CHUNK),
-            torch.zeros((E.EVICT_CHUNK, 16), dtype=torch.int64, device=dev)),
+            torch.zeros((E.EVICT_CHUNK, 16), dtype=torch.int64, device=dev),
+            evict=True),
     }
     for name, e in main.items():
         out[name]["at_reclaim_shape"] = {
             "rows": scan if name == "gather_rows" else E.EVICT_CHUNK,
             **{k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                  "max_abs_err")}}
+    # row_evict itself: the earlier design's figure is its whole call, the
+    # zero tensor's allocation and fill included.
+    out["scatter_rows"]["at_reclaim_shape"].update(
+        call="row_evict", earlier_ms=EARLIER_MS["scatter_rows_evict"])
 
     # The shapes the tiers give them (phase 5), on random distinct rows:
     # the demote readback of a sync round's victims (capacity // 16 of
@@ -1659,6 +1696,8 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
         out[name].setdefault("at_tier_shapes", {})[shape] = {
             "rows": n, **{k: e[k] for k in ("ms", "plain_ms", "library_ms",
                                             "bound_ms", "max_abs_err")}}
+    out["scatter_rows"]["at_tier_shapes"]["promote_scatter"]["earlier_ms"] = \
+        EARLIER_MS["scatter_rows_promote"]
     out["gather_rows"]["sweep"] = sweep
     # Its own generator: the draws above stay those of earlier runs.
     out["lease_apply"] = lease_entry(
@@ -1666,6 +1705,15 @@ def kernel_phase(torch, dev, lanes=32768, table_slots=1 << 21, rotate=16,
     out.update(global_kernel_entries(torch, dev,
                                      np.random.default_rng(SEED + 6)))
     out["empty_launch_ms"] = empty_launch_ms(torch, dev)
+    for name, lib, kernel in (
+            ("fused_tick", "fused_tick", "fused_tick_kernel"),
+            ("gather_rows", "rows", "gather_rows_kernelILi8ELb1E"),
+            ("fused_merged_tick", "fused_merged_tick",
+             "fused_merged_tick_kernel"),
+            ("fused_ragged_tick", "fused_ragged_tick",
+             "fused_ragged_tick_kernel"),
+            ("global_sparse_probe", "global_mesh", "probe_kernel")):
+        out[name]["ptxas"] = kernel_ptxas(lib, kernel)
     return out
 
 
@@ -4405,6 +4453,7 @@ GM_NODES = 8                 # global_mesh_8 / global_sparse_reconcile
 GM_CAPACITY = 1 << 16        # GUBER_TPU_GLOBAL_MESH_CAPACITY's default
 GM_BATCH = 256               # global_mesh_8: GLOBAL hits a node a window
 GM_KEYS = 4096               # both rungs' key space
+GM_HOT_KEYS = 16             # phase 2's hot B.8a window: its key space
 GM_WINDOWS = 25              # global_mesh_8's timed windows
 GM_SPARSE_CAPACITIES = (1 << 18, 1 << 22)
 GM_SPARSE_K = 4096           # sparse_k past 2^16 slots
@@ -4621,8 +4670,53 @@ def global_kernel_entries(torch, dev, rng, n=GM_NODES, cap=GM_CAPACITY,
         time_ms(torch, [lambda ix=ix: library(ix) for ix in lib_ix]),
         nbytes, 0)
     out["global_accumulate"].update(
-        lanes=lanes, tails=int(tail.sum()), queued=int(queue.sum()))
-    del aux, acc
+        lanes=lanes, tails=int(tail.sum()), queued=int(queue.sum()),
+        earlier_ms=EARLIER_MS["global_accumulate"],
+        ptxas=kernel_ptxas("global_mesh", "accumulate_kernel"))
+    # The same windows with touch counts, and a hot window: 256 hits a
+    # node over GM_HOT_KEYS keys, runs of one slot up to ~30 lanes.
+    touch_e = {"ms": time_ms(torch, [
+        lambda w=w: GM.global_accumulate(w, aux, acc, n, 3, True)
+        for w in wins]),
+        "earlier_ms": EARLIER_MS["global_accumulate_touch"],
+        "bytes": nbytes + int(live.sum()) * 16}
+    touch_e.update(_bound(touch_e["bytes"], 0))
+    # Its own generator: the draws of the other kernels' inputs stay those
+    # of earlier runs.
+    hrng = np.random.default_rng(SEED + 9)
+    hot = [torch.from_numpy(gm_window(E, hrng, n, cap, GM_BATCH, GM_HOT_KEYS))
+           .to(dev) for _ in range(rotate)]
+    for touched in (False, True):
+        ak, ck, ap, cp = aux.clone(), acc.clone(), aux.clone(), acc.clone()
+        for stamp, w in enumerate(hot[:2], 1):
+            GM.global_accumulate(w, ak, ck, n, stamp, touched)
+            GM.global_accumulate_plain(w, ap, cp, n, stamp, touched)
+        torch.cuda.synchronize()
+        assert torch.equal(ak, ap) and torch.equal(ck, cp), \
+            f"global_accumulate differs from plain (hot, touch {touched})"
+        err = max(err, _max_abs(torch, ak, ap), _max_abs(torch, ck, cp))
+        del ak, ck, ap, cp
+    r, d, s, live, tail, queue, reset = GM.lane_terms(hot[0], n, cap)
+    flat = (d * cap + s)[live]
+    hot_b = (hot[0].shape[1] * 76 + int(tail.sum()) * 72
+             + int(queue.sum()) * 32 + int(reset.sum()) * 16)
+    hot_e = {"keys": GM_HOT_KEYS, "lanes": int(hot[0].shape[1]),
+             "tails": int(tail.sum()), "queued": int(queue.sum()),
+             "longest_run": int(torch.unique(flat, return_counts=True)[1]
+                                .max()),
+             "ms": time_ms(torch, [
+                 lambda w=w: GM.global_accumulate(w, aux, acc, n, 3, False)
+                 for w in hot]),
+             "plain_ms": time_ms(torch, [
+                 lambda w=w: GM.global_accumulate_plain(w, aux, acc, n, 3,
+                                                        False)
+                 for w in hot]),
+             "earlier_ms": EARLIER_MS["global_accumulate_hot"],
+             "bytes": hot_b, **_bound(hot_b, 0)}
+    out["global_accumulate"]["max_abs_err"] = float(err)
+    out["global_accumulate"]["by_shape"] = {"touch": touch_e,
+                                            f"hot_{GM_HOT_KEYS}_keys": hot_e}
+    del aux, acc, hot
 
     # --- B.8b: the dense step at n x cap ---
     table = table_from_columns(random_state(rng, n * cap), n * cap, dev)

@@ -73,7 +73,9 @@ def _same_config(old: DaemonConfig) -> DaemonConfig:
 def _track_inflight(gm) -> None:
     """Count a GLOBAL manager's hit flushes and broadcasts in flight (an
     instance attribute over each bound method: its loops look them up on
-    the instance)."""
+    the instance).  A flush already under way when a manager is first
+    tracked is not counted, so a ``Cluster`` tracks each daemon from its
+    start and ``wait_quiet`` any other daemon from its first call."""
     if hasattr(gm, "_inflight_n"):
         return
     gm._inflight_n = 0
@@ -190,6 +192,7 @@ class Cluster:
                 d = Daemon(conf, global_mesh=mesh_engine,
                            global_mesh_node=idx)
                 await d.start()
+                _track_inflight(d.instance.global_mgr)
                 c.daemons.append(d)
         except BaseException:
             await c.stop()
@@ -263,6 +266,7 @@ class Cluster:
         conf.grpc_listen_address = addr
         d = Daemon(conf)
         await d.start()
+        _track_inflight(d.instance.global_mgr)
         d.set_peers(self.peers)
         await d.wait_for_connect()
         self.daemons[idx] = d

@@ -10,6 +10,19 @@
 //        does not own) adds its hits, its RESET bit and 1 into its node's
 //        accumulators, and with track_touch every live lane adds 1 to its
 //        touch count.  64-bit atomics: negative hits wrap as XLA's add.
+//        Bound: bytes, 76 B a lane in and a tail's 72 B of aux words out,
+//        far below a launch (~0.1 us for global_mesh_8's 2048 lanes).  In
+//        256-thread blocks that window ran on 8 SMs, a warp's chain its
+//        column loads, two 64-bit divisions (~0.31 us), nine aux stores
+//        eight warps an SM and an atomic a word a lane (PERF.md §6).  So a
+//        thread issues its lane's 19 words and its successor's slot and
+//        valid words together, takes node, slot and owner by 32-bit
+//        division (lane_at), and blocks are as small as spreads the
+//        window over the SMs (32 to 256 threads, as B.9's); a warp merges
+//        each run of one flattened slot in registers (a segmented scan by
+//        shuffles of its hits and of its queued, RESET and touch counts
+//        packed in one word) and only the run's last lane in the warp
+//        issues the atomics.
 //   B.8b dense reconcile (make_global_reconcile_fn, :577-687): per slot,
 //        the owner's row, the stamp winner's parameters, every node's
 //        window folded in node order (or summed), the row written to all
@@ -53,8 +66,9 @@
 //        grid by it: no block without a slot, no launch for an empty
 //        union.
 //
-// Design: one thread a lane (B.8a) or a slot (B.8c; B.8b a tile, B.8d a
-// group, as above), grids sized to the work; rows move as 16-B vectors.
+// Design: one thread a lane (B.8a, runs merged a warp) or a slot (B.8c;
+// B.8b a tile, B.8d a group, as above), grids sized to the work; rows move
+// as 16-B vectors.
 // B.8c scans the count and touch rows of every node (2 x 8 B x n x
 // capacity); its counts are warp ballots summed in shared memory, then
 // once a block into global counters, and its list appends one atomic a
@@ -72,32 +86,54 @@ namespace {
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void atomic_add64(int64_t* p, int64_t v) {
+__device__ __forceinline__ void atomic_add64(int64_t* p, uint64_t v) {
   atomicAdd(reinterpret_cast<unsigned long long*>(p),
             (unsigned long long)v);
 }
 
-__global__ void accumulate_kernel(const int32_t* __restrict__ m32, int64_t ld,
-                                  int64_t lanes, int64_t* __restrict__ aux,
-                                  int64_t* __restrict__ acc, gm::Mesh m,
-                                  int64_t stamp, int track_touch) {
-  const int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (j >= lanes) return;
-  const gm::Lane l = gm::lane_at(m32, ld, lanes, j, m);
-  if (!l.live) return;
+__global__ void __launch_bounds__(kThreads)
+    accumulate_kernel(const int32_t* __restrict__ m32, int64_t ld,
+                      int64_t lanes, int64_t* __restrict__ aux,
+                      int64_t* __restrict__ acc, gm::Mesh m, int64_t stamp,
+                      int track_touch) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // Whole warps go on: lanes past the window are dead lanes of no run.
+  gm::Lane l{};
+  l.flat = -1;
+  if (j < lanes) l = gm::lane_at(m32, ld, lanes, j, m);
   if (l.tail) {
 #pragma unroll
     for (int k = 0; k < gm::AUX_ROWS; ++k) {
       aux[gm::aux_ix(m, l.d, k, l.s)] = gm::aux_word(l, k, stamp);
     }
   }
-  if (l.queue) {
-    atomic_add64(acc + gm::acc_ix(m, l.d, gm::ACC_HITS, l.s), l.r.hits);
-    if (l.reset) atomic_add64(acc + gm::acc_ix(m, l.d, gm::ACC_RESET, l.s), 1);
-    atomic_add64(acc + gm::acc_ix(m, l.d, gm::ACC_COUNT, l.s), 1);
+  // The warp's runs: neighbouring lanes of one flattened slot.  Each lane
+  // sums its run's terms up to itself, so the run's last lane holds the
+  // run's; warps without a run of two lanes skip the scan.
+  gm::LaneAcc a = gm::lane_acc(l, track_touch != 0);
+  const int64_t up = __shfl_up_sync(kFull, l.flat, 1);
+  const int64_t down = __shfl_down_sync(kFull, l.flat, 1);
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || up != l.flat);
+  if (heads != kFull) {
+    const int first = 31 - __clz(heads & (kFull >> (31 - lane)));
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint64_t h = __shfl_up_sync(kFull, a.hits, off);
+      const uint32_t c = __shfl_up_sync(kFull, a.counts, off);
+      if (lane - off >= first) {
+        a.hits += h;
+        a.counts += c;
+      }
+    }
   }
-  if (track_touch) {
-    atomic_add64(acc + gm::acc_ix(m, l.d, gm::ACC_TOUCH, l.s), 1);
+  if (l.flat >= 0 && (lane == 31 || down != l.flat)) {
+    uint64_t v[gm::ACC_ROWS];
+    gm::run_addends(a, v);
+#pragma unroll
+    for (int k = 0; k < gm::ACC_ROWS; ++k) {
+      if (v[k]) atomic_add64(acc + gm::acc_ix(m, l.d, k, l.s), v[k]);
+    }
   }
 }
 
@@ -346,6 +382,15 @@ int sparse_group(int64_t n_nodes, int64_t count, int sms) {
   return g > least ? g : least;
 }
 
+void launch_accumulate(const int32_t* m32, int64_t ld, int64_t lanes,
+                       int64_t* aux, int64_t* acc, const gm::Mesh& m,
+                       int64_t stamp, int track_touch, int threads,
+                       cudaStream_t st) {
+  accumulate_kernel<<<(unsigned)((lanes + threads - 1) / threads), threads,
+                      0, st>>>(m32, ld, lanes, aux, acc, m, stamp,
+                               track_touch);
+}
+
 unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -362,10 +407,10 @@ extern "C" int gt_global_accumulate(const int32_t* m32, int64_t ld,
                                     int64_t stamp, int track_touch,
                                     void* stream) {
   if (lanes > 0) {
-    accumulate_kernel<<<blocks_for(lanes), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-        m32, ld, lanes, aux, acc, mesh_of(n_nodes, capacity), stamp,
-        track_touch);
+    launch_accumulate(m32, ld, lanes, aux, acc, mesh_of(n_nodes, capacity),
+                      stamp, track_touch,
+                      spread_threads(lanes, sm_count()),
+                      (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

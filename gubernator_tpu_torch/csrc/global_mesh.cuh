@@ -51,8 +51,12 @@ GT_HD int64_t owner_of(const Mesh& m, int64_t s) { return s / m.slice; }
 // Lanes are the window's REQ32 columns sorted by the flattened slot
 // d * capacity + s (a stable sort: arrival order within a slot kept), the
 // live lanes of one slot contiguous.  A lane is live when valid and its
-// flattened slot lies in the table (padding aims at the drop row).
+// flattened slot lies in the table (padding aims at the drop row).  The
+// flattened slot is an int32 word and the drop row n * capacity fits
+// one (the wrapper checks), so node, slot and owner are 32-bit divisions
+// (a 64-bit one costs ~460 cycles on the H100, PERF.md §6).
 struct Lane {
+  int64_t flat;  // the flattened slot when live, else -1
   int64_t d, s;
   bool live;
   bool tail;   // the last live lane of its slot: writes the aux words
@@ -64,21 +68,55 @@ struct Lane {
 GT_HD Lane lane_at(const int32_t* m32, int64_t ld, int64_t lanes, int64_t j,
                    const Mesh& m) {
   Lane l;
+  // The lane's 19 words and its successor's slot and valid words, all
+  // issued before any is used.
   l.r = gt::load_req(m32, ld, j);
-  const int64_t flat = l.r.slot;
+  const bool has_next = j + 1 < lanes;
+  const int32_t next_slot = has_next ? m32[gt::R_SLOT * ld + j + 1] : 0;
+  const int32_t next_valid = has_next ? m32[gt::R_VALID * ld + j + 1] : 0;
+  const int32_t flat = (int32_t)l.r.slot;
   l.live = l.r.valid != 0 && flat >= 0 && flat < m.n_nodes * m.capacity;
-  l.d = l.live ? flat / m.capacity : 0;
-  l.s = l.live ? flat - l.d * m.capacity : 0;
-  bool next_same = false;
-  if (j + 1 < lanes) {
-    next_same = m32[gt::R_SLOT * ld + j + 1] == flat &&
-                m32[gt::R_VALID * ld + j + 1] != 0;
-  }
-  l.tail = l.live && !next_same;
-  const bool owned = owner_of(m, l.s) == l.d;
+  const uint32_t f = (uint32_t)flat, cap = (uint32_t)m.capacity;
+  const uint32_t d = l.live ? f / cap : 0u;
+  const uint32_t s = l.live ? f - d * cap : 0u;
+  l.flat = l.live ? flat : -1;
+  l.d = d;
+  l.s = s;
+  l.tail = l.live && !(has_next && next_slot == flat && next_valid != 0);
+  const bool owned = l.live && s / (uint32_t)m.slice == d;
   l.queue = l.live && !owned && l.r.hits != 0;
   l.reset = l.queue && (l.r.behavior & gt::RESET_REMAINING) != 0;
   return l;
+}
+
+// A lane's accumulator terms: its hits where queued, and its queued,
+// RESET and touch counts packed in one word, 8 bits each (a run merged
+// within a warp sums at most 32 of each, so no field carries into the
+// next).  Sums wrap modulo 2^64 in any order, so a run's merged terms
+// added once leave the words as the lanes' own adds would.
+constexpr int CNT_QUEUE = 0, CNT_RESET = 8, CNT_TOUCH = 16;
+
+struct LaneAcc {
+  uint64_t hits;
+  uint32_t counts;
+};
+
+GT_HD LaneAcc lane_acc(const Lane& l, bool track_touch) {
+  LaneAcc a;
+  a.hits = l.queue ? (uint64_t)l.r.hits : 0u;
+  a.counts = ((l.queue ? 1u : 0u) << CNT_QUEUE) |
+             ((l.reset ? 1u : 0u) << CNT_RESET) |
+             ((track_touch && l.live ? 1u : 0u) << CNT_TOUCH);
+  return a;
+}
+
+// A run's merged terms as its node's four accumulator addends, in ACC
+// order; a word whose addend is 0 is left alone.
+GT_HD void run_addends(const LaneAcc& a, uint64_t* v) {
+  v[ACC_HITS] = a.hits;
+  v[ACC_RESET] = (a.counts >> CNT_RESET) & 0xffu;
+  v[ACC_COUNT] = (a.counts >> CNT_QUEUE) & 0xffu;
+  v[ACC_TOUCH] = (a.counts >> CNT_TOUCH) & 0xffu;
 }
 
 // The aux words a tail lane writes, in AUX_ROWS order.

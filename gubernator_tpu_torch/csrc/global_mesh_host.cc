@@ -1,13 +1,13 @@
 // Host build of the GLOBAL mesh kernels' lane and slot code, for tests only.
 //
 // Compiles global_mesh.cuh as plain C++ and runs each kernel's steps one
-// lane or one slot after another: B.8a's lane decisions and aux words
-// (its atomic adds as plain adds), B.8b's dense slot, B.8c's window and
-// touch bits, counts and verdict (the union listed in slot order), and
-// B.8d's two halves on each listed slot (each node's window, then the
-// chain).  The CPU tests hold it against the plain PyTorch versions
-// (ops/globalmesh.py); the kernels themselves are held against the plain
-// versions on the card by chip_smoke.py.
+// lane or one slot after another: B.8a's lane decisions, aux words and
+// runs merged a warp (its atomic adds as plain adds), B.8b's dense slot,
+// B.8c's window and touch bits, counts and verdict (the union listed in
+// slot order), and B.8d's two halves on each listed slot (each node's
+// window, then the chain).  The CPU tests hold it against the plain
+// PyTorch versions (ops/globalmesh.py); the kernels themselves are held
+// against the plain versions on the card by chip_smoke.py.
 
 #include <stdint.h>
 
@@ -38,28 +38,45 @@ void owner_row(const int64_t* table, const gm::Mesh& m, int64_t s,
 
 }  // namespace
 
+// B.8a as the kernel runs it: warps of 32 lanes, each run of one
+// flattened slot within a warp merged (lane_acc) and added once.
 extern "C" void gt_global_accumulate_host(const int32_t* m32, int64_t ld,
                                           int64_t lanes, int64_t* aux,
                                           int64_t* acc, int64_t n_nodes,
                                           int64_t capacity, int64_t stamp,
                                           int track_touch) {
   const gm::Mesh m = mesh_of(n_nodes, capacity);
-  for (int64_t j = 0; j < lanes; ++j) {
-    const gm::Lane l = gm::lane_at(m32, ld, lanes, j, m);
-    if (!l.live) continue;
-    if (l.tail) {
-      for (int k = 0; k < gm::AUX_ROWS; ++k) {
-        aux[gm::aux_ix(m, l.d, k, l.s)] = gm::aux_word(l, k, stamp);
+  auto add_run = [&](const gm::Lane& l, const gm::LaneAcc& a) {
+    if (l.flat < 0) return;
+    uint64_t v[gm::ACC_ROWS];
+    gm::run_addends(a, v);
+    for (int k = 0; k < gm::ACC_ROWS; ++k) {
+      int64_t& w = acc[gm::acc_ix(m, l.d, k, l.s)];
+      w = (int64_t)((uint64_t)w + v[k]);
+    }
+  };
+  for (int64_t w0 = 0; w0 < lanes; w0 += 32) {
+    const int64_t w1 = w0 + 32 < lanes ? w0 + 32 : lanes;
+    gm::Lane run{};
+    gm::LaneAcc sum{};
+    for (int64_t j = w0; j < w1; ++j) {
+      const gm::Lane l = gm::lane_at(m32, ld, lanes, j, m);
+      if (l.tail) {
+        for (int k = 0; k < gm::AUX_ROWS; ++k) {
+          aux[gm::aux_ix(m, l.d, k, l.s)] = gm::aux_word(l, k, stamp);
+        }
       }
+      const gm::LaneAcc a = gm::lane_acc(l, track_touch != 0);
+      if (j > w0 && l.flat == run.flat) {
+        sum.hits += a.hits;
+        sum.counts += a.counts;
+        continue;
+      }
+      if (j > w0) add_run(run, sum);
+      run = l;
+      sum = a;
     }
-    int64_t* a = acc;
-    if (l.queue) {
-      int64_t& h = a[gm::acc_ix(m, l.d, gm::ACC_HITS, l.s)];
-      h = gt::wadd(h, l.r.hits);
-      if (l.reset) a[gm::acc_ix(m, l.d, gm::ACC_RESET, l.s)] += 1;
-      a[gm::acc_ix(m, l.d, gm::ACC_COUNT, l.s)] += 1;
-    }
-    if (track_touch) a[gm::acc_ix(m, l.d, gm::ACC_TOUCH, l.s)] += 1;
+    add_run(run, sum);
   }
 }
 

@@ -89,13 +89,6 @@ __global__ void __launch_bounds__(256)
   rec[2 * s + 1] = make_longlong2((int64_t)(uint32_t)ng, 0);
 }
 
-// Threads a block for a window of n lanes on `sms` SMs.
-int block_threads(int64_t n, int sms) {
-  int threads = 32;
-  while (threads < 256 && (int64_t)threads * sms < n) threads *= 2;
-  return threads;
-}
-
 void launch(longlong2* rec, int64_t capacity, const int64_t* lanes,
             int64_t n, int is_set, int threads, cudaStream_t st) {
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
@@ -116,7 +109,7 @@ extern "C" int gt_lease_apply(int64_t* records, int64_t capacity,
                               void* stream) {
   if (n > 0) {
     launch(reinterpret_cast<longlong2*>(records), capacity, lanes, n, is_set,
-           block_threads(n, sm_count()), static_cast<cudaStream_t>(stream));
+           spread_threads(n, sm_count()), static_cast<cudaStream_t>(stream));
   }
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,8 @@
 //            nothing.  Two lanes with one real slot are a caller bug.
 //
 // Bound: memory.  Per row W*8 B read + W*8 B written plus the 8-B slot:
-// 32768 rows of 128 B move ~8.6 MB, ~2.6 us at 3.35 TB/s.
+// 32768 rows of 128 B move ~8.6 MB, ~2.6 us at 3.35 TB/s; zero rows are
+// only written (65536 evicted rows, ~8.9 MB).
 //
 // Gather design.  Each slot costs two dependent DRAM round trips (the
 // slot, then its row).  A warp takes 8 rows: lanes 0-7 load their slots
@@ -29,9 +30,22 @@
 // rows a warp, a persistent grid-stride walk, streaming stores and an L2
 // prefetch hint were each as fast or slower.
 //
-// Scatter design: one thread a 16-B vector; consecutive threads move
-// consecutive vectors, so the W/2 threads of one row write one contiguous
-// line, and each reads its row's slot itself.
+// Scatter design, the gather's mirror.  A warp takes 16 rows: lanes 0-15
+// load their slots in one coalesced load, __shfl_sync hands each slot to
+// its row's lanes, and each thread issues its four source-vector loads
+// with the slot load, before any store, so a warp waits one DRAM round
+// trip, not two (a slot, then a source vector behind its range test),
+// and no thread divides in 64 bits.  8 rows a warp, as the gather, was
+// 1.5-10% slower.  Stores are streaming (st.global.cs, evict first): the
+// kernel never reads what it writes, and the source rows and slots keep
+// their place in the L2 (0.003584 ms against 0.004392 with plain stores
+// at 32768 rows; PERF.md §6, from probes/scatter_accumulate_breakdown.py,
+// which times the other shapes and the earlier design).
+// The 16-word row is a compile-time width; any other even width takes
+// the same body with the width at run time.  Lanes at the guard row or
+// outside [0, capacity) store nothing.  With no source (rows == nullptr,
+// row_evict) the kernel stores zero rows: an eviction is one launch that
+// only writes, with no zero tensor to fill and read back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +55,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRows = 8;     // rows a warp gathers
 constexpr int kUnroll = 2;   // 16-B row loads a thread has in flight
+constexpr int kScatterRows = 16;   // rows a warp scatters
+constexpr int kScatterUnroll = 4;  // 16-B source loads a thread has in flight
 constexpr int64_t kNoAllocateRows = 1 << 17;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -93,29 +109,54 @@ gather_rows_kernel(const int4* __restrict__ table, int64_t capacity,
   }
 }
 
-__global__ void scatter_rows_kernel(longlong2* __restrict__ table,
-                                    int64_t capacity,
-                                    const int64_t* __restrict__ slots,
-                                    const longlong2* __restrict__ rows,
-                                    int64_t n, int nvec) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n * nvec) return;
-  int64_t j = t / nvec;
-  int v = (int)(t - j * nvec);
-  int64_t s = slots[j];
-  if (s < 0 || s >= capacity) return;  // guard row: dropped
-  table[s * nvec + v] = rows[t];
+// NVEC as for the gather; ZERO: no source, zero rows stored.
+template <int NVEC, bool ZERO>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_kernel(int4* __restrict__ table, int64_t capacity,
+                    const int64_t* __restrict__ slots,
+                    const int4* __restrict__ rows, int64_t n, int nvec_rt) {
+  const int nvec = NVEC > 0 ? NVEC : nvec_rt;
+  const int lane = threadIdx.x & 31;
+  const int64_t base =
+      (((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5) * kScatterRows;
+  if (base >= n) return;  // warp-uniform
+  const int nrows =
+      n - base < kScatterRows ? (int)(n - base) : kScatterRows;
+  const int64_t s = lane < nrows ? __ldg(slots + base + lane) : capacity;
+  const int total = nrows * nvec;  // vectors of this warp's rows
+  const int passes = (kScatterRows * nvec + 32 * kScatterUnroll - 1) /
+                     (32 * kScatterUnroll);
+  const int4* src = ZERO ? nullptr : rows + base * nvec;
+  for (int p = 0; p < passes; ++p) {
+    int4 val[kScatterUnroll];
+#pragma unroll
+    for (int k = 0; k < kScatterUnroll; ++k) {
+      const int v = (p * kScatterUnroll + k) * 32 + lane;
+      val[k] = make_int4(0, 0, 0, 0);
+      if (!ZERO && v < total) val[k] = __ldg(src + v);
+    }
+#pragma unroll
+    for (int k = 0; k < kScatterUnroll; ++k) {
+      const int v = (p * kScatterUnroll + k) * 32 + lane;
+      const int r = v / nvec;
+      const int64_t sr = __shfl_sync(kFull, s, r & 31);
+      if (v < total && sr >= 0 && sr < capacity) {
+        __stcs(table + sr * nvec + (v - r * nvec), val[k]);
+      }
+    }
+  }
 }
 
-unsigned grid_of(int64_t threads_total, int threads) {
-  return (unsigned)((threads_total + threads - 1) / threads);
+// Blocks for n rows at `rows` rows a warp.
+unsigned warp_blocks(int64_t n, int rows) {
+  const int64_t per_block = (int64_t)rows * (kThreads / 32);
+  return (unsigned)((n + per_block - 1) / per_block);
 }
 
 template <int NVEC>
 void launch_gather(const int64_t* table, int64_t capacity, const int64_t* slots,
                    int64_t n, int64_t* out, int nvec, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((n + kRows * (kThreads / 32) - 1)
-                                     / (kRows * (kThreads / 32)));
+  const unsigned blocks = warp_blocks(n, kRows);
   const int4* t = reinterpret_cast<const int4*>(table);
   int4* o = reinterpret_cast<int4*>(out);
   if (n <= kNoAllocateRows) {
@@ -124,6 +165,21 @@ void launch_gather(const int64_t* table, int64_t capacity, const int64_t* slots,
   } else {
     gather_rows_kernel<NVEC, false><<<blocks, kThreads, 0, stream>>>(
         t, capacity, slots, o, n, nvec);
+  }
+}
+
+template <int NVEC>
+void launch_scatter(int64_t* table, int64_t capacity, const int64_t* slots,
+                    int64_t n, const int64_t* rows, int nvec,
+                    cudaStream_t stream) {
+  int4* t = reinterpret_cast<int4*>(table);
+  const unsigned blocks = warp_blocks(n, kScatterRows);
+  if (rows == nullptr) {
+    scatter_rows_kernel<NVEC, true><<<blocks, kThreads, 0, stream>>>(
+        t, capacity, slots, nullptr, n, nvec);
+  } else {
+    scatter_rows_kernel<NVEC, false><<<blocks, kThreads, 0, stream>>>(
+        t, capacity, slots, reinterpret_cast<const int4*>(rows), n, nvec);
   }
 }
 
@@ -144,15 +200,18 @@ extern "C" int gt_gather_rows(const int64_t* table, int64_t capacity,
   return (int)cudaGetLastError();
 }
 
+// rows == nullptr: zero rows (row_evict).
 extern "C" int gt_scatter_rows(int64_t* table, int64_t capacity,
                                int64_t row_words, const int64_t* slots,
                                int64_t n, const int64_t* rows, void* stream) {
   int nvec = (int)(row_words / 2);
-  if (n > 0) {
-    scatter_rows_kernel<<<grid_of(n * nvec, 256), 256, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<longlong2*>(table), capacity, slots,
-        reinterpret_cast<const longlong2*>(rows), n, nvec);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n > 0 && nvec > 0) {
+    if (nvec == 8) {
+      launch_scatter<8>(table, capacity, slots, n, rows, nvec, st);
+    } else {
+      launch_scatter<0>(table, capacity, slots, n, rows, nvec, st);
+    }
   }
   return (int)cudaGetLastError();
 }

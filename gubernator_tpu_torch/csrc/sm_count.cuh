@@ -5,6 +5,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 inline int sm_count() {
   static int sms = 0;
@@ -20,4 +21,13 @@ inline int sm_count() {
     }
   }
   return sms;
+}
+
+// Threads a block for a launch of n items, one a thread, on `sms` SMs:
+// the least power of two from 32 to 256 with at most `sms` blocks' worth
+// of items each.
+inline int spread_threads(int64_t n, int sms) {
+  int threads = 32;
+  while (threads < 256 && (int64_t)threads * sms < n) threads *= 2;
+  return threads;
 }

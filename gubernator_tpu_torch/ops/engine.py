@@ -658,8 +658,9 @@ def install_rows(updates: Sequence[GlobalUpdate], now: int) -> np.ndarray:
 
 
 def evict_chunked(table: torch.Tensor, victims: np.ndarray) -> None:
-    """Evict slots on the device in scatters of at most EVICT_CHUNK rows
-    (bounds the zero-row scratch at 8 MB)."""
+    """Evict slots on the device in scatters of at most EVICT_CHUNK rows:
+    one zero-row ``scatter_rows`` launch a chunk on the card (the CPU's
+    plain scatter's zero rows stay under 8 MB)."""
     for start in range(0, len(victims), EVICT_CHUNK):
         part = torch.from_numpy(np.ascontiguousarray(
             victims[start:start + EVICT_CHUNK], np.int64)).to(table.device)

@@ -180,6 +180,9 @@ def global_accumulate(m32: torch.Tensor, aux: torch.Tensor,
         raise ValueError("m32 must be (19, B) int32 with unit column stride "
                          "on the buffers' device")
     cap = check_state(aux, accum, n_nodes)
+    if n_nodes * cap >= 2**31:
+        raise ValueError("the drop row n_nodes * capacity must fit the int32 "
+                         "slot column")
     if _device_kind(aux) == "cpu":
         global_accumulate_plain(m32, aux, accum, n_nodes, stamp, track_touch)
         return

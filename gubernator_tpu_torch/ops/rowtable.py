@@ -103,11 +103,19 @@ def scatter_rows(table: torch.Tensor, slots: torch.Tensor,
         raise ValueError("rows must be contiguous int64 (len(slots), W) on the table's device")
     if table.device.type == "cpu":
         return scatter_rows_plain(table, slots, rows)
+    return _scatter_launch(table, slots, rows)
+
+
+def _scatter_launch(table: torch.Tensor, slots: torch.Tensor,
+                    rows) -> torch.Tensor:
+    """One counted ``scatter_rows`` launch on a checked CUDA table; with
+    ``rows`` None the kernel stores zero rows."""
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     rc = _lib().gt_scatter_rows(
         table.data_ptr(), table.shape[0] - 1, table.shape[1],
-        slots.data_ptr(), slots.shape[0], rows.data_ptr(),
+        slots.data_ptr(), slots.shape[0],
+        None if rows is None else rows.data_ptr(),
         torch.cuda.current_stream(table.device).cuda_stream)
     _build.check(rc, "scatter_rows")
     scatter_rows.launches += 1
@@ -118,12 +126,18 @@ scatter_rows.launches = 0
 
 
 def row_evict(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-    """Zero whole rows (``in_use`` and every field) for evicted slots with
-    one scatter.  Zeroing the whole row keeps an evicted tenant's fields
-    out of the slot's next tenant."""
-    zeros = torch.zeros((slots.shape[0], table.shape[1]), dtype=torch.int64,
-                        device=table.device)
-    return scatter_rows(table, slots, zeros)
+    """Zero whole rows (``in_use`` and every field) for evicted slots;
+    guard-row and out-of-range lanes are dropped.  Zeroing the whole row
+    keeps an evicted tenant's fields out of the slot's next tenant.  On
+    the card one ``scatter_rows`` launch that stores zeros (no zero
+    tensor); on the CPU the plain scatter of zero rows."""
+    _check_table(table)
+    _check_slots(slots, table)
+    if table.device.type == "cpu":
+        zeros = torch.zeros((slots.shape[0], table.shape[1]),
+                            dtype=torch.int64)
+        return scatter_rows_plain(table, slots, zeros)
+    return _scatter_launch(table, slots, None)
 
 
 def dead_dispatch(table: torch.Tensor, slots: np.ndarray,

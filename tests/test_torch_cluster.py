@@ -313,6 +313,47 @@ def test_unported_cluster_options_raise():
     asyncio.run(mesh_cluster())
 
 
+def test_quiet_waits_for_a_flush_begun_before_its_first_call():
+    """A GLOBAL hit flush that is already under way when ``wait_quiet`` is
+    first called on a fresh cluster keeps it waiting: a ``Cluster``
+    counts flushes in flight from its daemons' start.  Counted only from
+    the first call, the flush was missed and the wait returned while the
+    owner had not yet applied the hit."""
+
+    async def run():
+        c = await Cluster.start(
+            2, tpu_platform="cpu", cache_size=64, tpu_max_batch=16,
+            behaviors=BehaviorConfig(batch_timeout=T, global_sync_wait=0.005))
+        try:
+            d = c.daemons[0]
+            key = next(k for k in map(spread, range(64))
+                       if c.find_owning_daemon("q", k) is not d)
+            gm = d.instance.global_mgr
+            release, inner = asyncio.Event(), gm._send_hits_traced
+
+            async def held(hits):
+                await release.wait()
+                return await inner(hits)
+
+            gm._send_hits_traced = held
+            await call(d, [req(name="q", key=key, limit=10,
+                               behavior=GLOBAL)])
+            while gm._hits:  # the hits loop takes the hit into its flush
+                await asyncio.sleep(0.001)
+            with pytest.raises(asyncio.TimeoutError):
+                await wait_quiet(c.daemons, 0.1)
+            release.set()
+            await wait_quiet(c.daemons, T)
+            (r,) = await call(c.find_owning_daemon("q", key),
+                              [req(name="q", key=key, hits=0, limit=10,
+                                   behavior=GLOBAL)])
+            assert r.remaining == 9
+        finally:
+            await c.stop()
+
+    asyncio.run(asyncio.wait_for(run(), 2 * T))
+
+
 # ----------------------------------------------------------------------
 # Parity with the JAX cluster
 # ----------------------------------------------------------------------

@@ -16,15 +16,18 @@ windows at 1-4096 lanes and at its threshold and chunk shapes
 (CHAIN_CASES), the engine on a tiny table that fills and reclaims (with
 herd windows on the grouped plan and random windows on the chained tick,
 and random Zipf windows with long segments), its state exported and
-loaded, layered windows on a 2^14-slot table, the row gather at every tail
-of its 32-row warps (0-625000 rows, 16- and 6-word rows, clamped slots),
+loaded, layered windows on a 2^14-slot table, the row gather and the row
+scatter at every tail of their 8- and 16-row warps (0-625000 rows, 16- and
+6-word rows, clamped or dropped slots; the scatter's zero rows for an
+eviction),
 the mesh engine on four tiny shards and its state paths (installs, a
 Store, an items round trip) against the CPU mesh, the tiered engine
 (Store, cold and SSD tiers) against the same engine on the CPU, background
 reclaim under concurrent ticks, and a 3-node cluster of card engines
 (against one of CPU engines on a seeded sequence, and GLOBAL counts
 reconciled exactly), and the GLOBAL mesh's kernels B.8a-B.8d at phase 9's
-shapes and on small meshes (odd node counts, padding lanes, overflowing
+shapes and on small meshes (odd node counts, padding lanes, B.8a's runs
+across warps and blocks and on one slot with wrapping hits, overflowing
 probes, B.8b's tiles with owner boundaries inside them), a card ``MeshGlobalEngine`` against a CPU one on phase 9 D's
 sequence, a 2-region federated cluster of card engines against one of
 CPU engines (phase 11 C's sequence), and an autoscaler driving a card
@@ -1079,6 +1082,57 @@ def test_lease_manager_on_the_card_matches_the_cpu_one(dev):
     assert gt.kernel_launches()["lease_apply"] == out["lease_windows"] > 0
 
 
+@pytest.mark.parametrize("width", [16, 6])
+@pytest.mark.parametrize("n", GATHER_ROWS)
+def test_scatter_rows_matches_plain_at_every_tail(dev, n, width):
+    """The row scatter (a warp per 16 rows, 16-word rows at a compile-time
+    width, any other even width at run time) on ``n`` distinct random
+    slots, some negative, at the guard row or past it (dropped), bit for
+    bit; and its zero-source mode (``row_evict``: one counted launch, no
+    source) against the plain scatter of zero rows.  The guard row is
+    never written."""
+    g = torch.Generator().manual_seed(n * 37 + width)
+    cap = 1 << 20 if n > 4097 else 5000
+    table = torch.randint(-2**62, 2**62, (cap + 1, width), generator=g,
+                          dtype=torch.int64).to(dev)
+    slots = torch.randperm(cap, generator=g)[:n]
+    slots[1::13] = -1 - torch.arange(len(slots[1::13]))
+    slots[2::13] = cap
+    slots[3::13] = cap + 1 + torch.arange(len(slots[3::13]))
+    slots = slots.to(dev)
+    rows = torch.randint(-2**62, 2**62, (n, width), generator=g,
+                         dtype=torch.int64).to(dev)
+    for zero in (False, True):
+        t_k, t_p = table.clone(), table.clone()
+        r0 = rowtable.scatter_rows.launches
+        if zero:
+            rowtable.row_evict(t_k, slots)
+            rowtable.scatter_rows_plain(t_p, slots, torch.zeros_like(rows))
+        else:
+            rowtable.scatter_rows(t_k, slots, rows)
+            rowtable.scatter_rows_plain(t_p, slots, rows)
+        assert rowtable.scatter_rows.launches == r0 + 1
+        assert torch.equal(t_k, t_p), f"zero source {zero}"
+        assert torch.equal(t_k[cap], table[cap])
+
+
+def test_row_evict_on_the_card_allocates_no_zero_rows(dev):
+    """An eviction of EVICT_CHUNK rows allocates nothing on the card (the
+    earlier design's zero tensor was 8 MB) and is one launch."""
+    cap = 1 << 18
+    table = torch.ones((cap + 1, 16), dtype=torch.int64, device=dev)
+    slots = torch.randperm(cap)[:E.EVICT_CHUNK].to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    r0 = rowtable.scatter_rows.launches
+    rowtable.row_evict(table, slots)
+    torch.cuda.synchronize()
+    assert rowtable.scatter_rows.launches == r0 + 1
+    assert torch.cuda.max_memory_allocated(dev) == before
+    assert int((table[:cap] == 0).all(dim=1).sum()) == E.EVICT_CHUNK
+
+
 # ----------------------------------------------------------------------
 # The GLOBAL mesh: kernels B.8a-B.8d and the engine
 # ----------------------------------------------------------------------
@@ -1106,6 +1160,81 @@ def test_global_accumulate_matches_plain(dev, n, cap, per_node, touch):
             GM.global_accumulate_plain(w, ap, cp, n, stamp, touch)
         assert gt.kernel_launches()["global_accumulate"] == 2
         assert torch.equal(aux, ap) and torch.equal(acc, cp)
+
+
+def accumulate_window(n, cap, flat, hits, behavior, pad=0):
+    """A sorted B.8a window of ``len(flat)`` lanes at flattened slots
+    ``flat`` with the given hits and behaviors (token requests otherwise),
+    and ``pad`` padding lanes after them."""
+    lanes = len(flat)
+    R = E.REQ32_INDEX
+    m = np.zeros((E.REQ32_ROWS, lanes + pad), np.int32)
+    m[R["slot"]] = n * cap
+    m[R["slot"], :lanes] = flat
+    m[R["known"], :lanes] = 1
+    m[R["behavior"], :lanes] = behavior
+    m[R["valid"], :lanes] = 1
+    for name, v in (("hits", hits), ("limit", np.full(lanes, 1000)),
+                    ("duration", np.full(lanes, 60_000)),
+                    ("created_at", np.full(lanes, cs.NOW))):
+        E.pack_wide_rows(m, name, v, slice(0, lanes))
+    E.sort_packed_by_slot(m, lanes, n * cap)
+    return m
+
+
+ACC_CASES = ("cross-warps", "cross-blocks", "one-slot", "wrap", "resets",
+             "padding")
+
+
+@pytest.mark.parametrize("n,cap", [(8, 1 << 16), (4, 96), (8, 5000)])
+@pytest.mark.parametrize("case", ACC_CASES)
+def test_global_accumulate_runs_match_plain(dev, n, cap, case):
+    """B.8a's warp merge, bit for bit against the plain version with touch
+    off and on: runs that cross warps and blocks, a slot holding all 2048
+    lanes, hits near -2^63 whose sums wrap, RESET lanes, and padding lanes
+    after runs; each at 8 x 2^16, 4 x 96 and 8 x 5000 slots."""
+    from gubernator_tpu_torch.ops import globalmesh as GM
+
+    rng = np.random.default_rng(ACC_CASES.index(case) * 7 + n + cap)
+    total = n * cap
+    glob = int(cs.GLOBAL_BIT)
+    reset = glob | 8  # RESET_REMAINING
+    lanes, pad = 2048, 0
+    if case == "cross-warps":
+        flat = np.repeat(rng.choice(total, 40, replace=False),
+                         rng.integers(1, 100, 40))[:lanes]
+    elif case == "cross-blocks":
+        flat = np.repeat(rng.choice(total, 5, replace=False),
+                         [300, 500, 700, 48, 500])
+    elif case == "one-slot":
+        flat = np.full(lanes, cap - 1)  # node 0 on node n - 1's slot
+    elif case == "wrap":
+        flat = rng.choice(rng.choice(total, 6, replace=False), lanes)
+    elif case == "resets":
+        flat = rng.choice(rng.choice(total, 64, replace=False), lanes)
+    else:
+        lanes, pad = 1500, 548
+        flat = rng.choice(rng.choice(total, 20, replace=False), lanes)
+    lanes = len(flat)
+    if case == "wrap":
+        hits = rng.choice([-(2**62) - 3, -(2**62), 2**62 + 1, -1], lanes)
+    else:
+        hits = rng.integers(-5, 6, lanes)
+    behavior = np.where(rng.random(lanes) < (0.3 if case == "resets"
+                                             else 0.05), reset, glob)
+    w = torch.from_numpy(accumulate_window(n, cap, flat, hits, behavior,
+                                           pad)).to(dev)
+    for touch in (False, True):
+        aux = torch.zeros((n, 9, cap), dtype=torch.int64, device=dev)
+        acc = torch.zeros((n, 4, cap), dtype=torch.int64, device=dev)
+        ap, cp = aux.clone(), acc.clone()
+        gt.reset_kernel_launches()
+        for stamp in (1, 2):
+            GM.global_accumulate(w, aux, acc, n, stamp, touch)
+            GM.global_accumulate_plain(w, ap, cp, n, stamp, touch)
+        assert gt.kernel_launches()["global_accumulate"] == 2
+        assert torch.equal(aux, ap) and torch.equal(acc, cp), (case, touch)
+        assert int(cp[:, GM.ACC_COUNT].sum()) > 0
 
 
 @pytest.mark.parametrize("n,cap", [(8, 1 << 16), (3, 96), (1, 64)])

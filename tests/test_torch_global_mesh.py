@@ -555,16 +555,16 @@ def test_host_probe_and_apply_match_plain(k, n, stamped):
     assert torch.equal(a2, acc)
 
 
-def test_host_accumulate_matches_plain():
-    """A sorted window over flattened slots: repeats, queued and owned
-    lanes, negative and zero hits, RESET, padding."""
+def _accumulate_window(rng, cap, lanes, flat, width=256, invalid=()):
+    """A sorted (19, width) REQ32 window of ``lanes`` requests at the
+    flattened slots ``flat`` (random hits -3..3, RESET on some), padding
+    after them; lanes ``invalid`` (sorted positions) then made invalid in
+    place, so a run of one slot can hold an invalid lane."""
     from gubernator_tpu_torch.ops.engine import (
         pack_cols_req32, sort_packed_by_slot)
     from gubernator_tpu_torch.ops.fusedtick import REQ32_INDEX
     from gubernator_tpu_torch.ops.reqcols import ReqColumns
 
-    rng = np.random.default_rng(33)
-    cap, lanes = 64, 200
     reqs = [RateLimitRequest(
         name="a", unique_key=str(k), hits=int(rng.integers(-3, 4)),
         limit=int(rng.integers(1, 50)), duration=int(rng.integers(0, 9000)),
@@ -573,24 +573,73 @@ def test_host_accumulate_matches_plain():
         burst=int(rng.integers(0, 3)), created_at=NOW)
         for k in range(lanes)]
     cols = ReqColumns.from_requests(reqs)
-    m = np.zeros((19, 256), np.int32)
+    m = np.zeros((19, width), np.int32)
     m[REQ32_INDEX["slot"]] = N * cap
-    flat = rng.integers(0, N * cap // 4, lanes)
     pack_cols_req32(m, cols, flat, np.ones(lanes, np.int64), NOW,
                     slice(0, lanes))
     sort_packed_by_slot(m, lanes, N * cap)
-    m_t = torch.from_numpy(m)
+    m[REQ32_INDEX["valid"], list(invalid)] = 0
+    return torch.from_numpy(m)
+
+
+def _host_accumulate_against_plain(m_t, cap):
+    """B.8a's host build (warps of 32 lanes, runs merged) against the plain
+    version on one window, touch off and on, bit for bit."""
+    width = m_t.shape[1]
     for touch in (False, True):
         aux = torch.zeros((N, 9, cap), dtype=torch.int64)
         acc = torch.zeros((N, 4, cap), dtype=torch.int64)
         aux2, acc2 = aux.clone(), acc.clone()
         gm.global_accumulate_plain(m_t, aux, acc, N, 77, touch)
         _host_lib().gt_global_accumulate_host(
-            _ptr(m_t), 256, 256, _ptr(aux2), _ptr(acc2), N, cap, 77,
+            _ptr(m_t), width, width, _ptr(aux2), _ptr(acc2), N, cap, 77,
             int(touch))
         assert torch.equal(aux2, aux)
         assert torch.equal(acc2, acc)
         assert int((acc[:, gm.ACC_COUNT] > 0).sum()) > 0
+
+
+def test_host_accumulate_matches_plain():
+    """A sorted window over flattened slots: repeats, queued and owned
+    lanes, negative and zero hits, RESET, padding; and a hot window, one
+    slot's run crossing warps (more than 32 lanes) among short runs."""
+    rng = np.random.default_rng(33)
+    cap, lanes = 64, 200
+    _host_accumulate_against_plain(
+        _accumulate_window(rng, cap, lanes,
+                           rng.integers(0, N * cap // 4, lanes)), cap)
+    hot = rng.choice([cap + 5, 7, 2 * cap + 40], lanes, p=[0.7, 0.15, 0.15])
+    m_t = _accumulate_window(rng, cap, lanes, hot)
+    flat = m_t[0, :lanes].numpy()
+    assert np.bincount(flat).max() > 64
+    _host_accumulate_against_plain(m_t, cap)
+
+
+@pytest.mark.parametrize("case", ["one-slot", "warp-edges", "invalid-inside",
+                                  "owned-and-queued"])
+def test_host_accumulate_merges_runs_as_plain(case):
+    """The host build's warp merge on hot windows: every lane on one slot,
+    runs starting and ending on warp edges, invalid lanes inside a run (a
+    run in two parts), and a run of the owner's lanes beside queued ones;
+    negative hits, RESET and padding throughout."""
+    rng = np.random.default_rng(34 + len(case))
+    cap = 96
+    if case == "one-slot":
+        lanes, flat = 250, np.full(250, 3 * cap + 1)
+    elif case == "warp-edges":
+        lanes = 224
+        flat = np.repeat([cap + 2, cap + 9, 2 * cap, 3 * cap + 95],
+                         [32, 64, 31, 97])
+    elif case == "invalid-inside":
+        lanes, flat = 200, rng.choice([cap + 1, 2 * cap + 3], 200)
+    else:
+        # Node 0 owns slots 0..23: its lanes on slot 5 are owned, the
+        # other nodes' lanes on slot 5 are queued.
+        lanes = 240
+        flat = rng.choice([5, cap + 5, 2 * cap + 5, 3 * cap + 5], lanes)
+    invalid = (33, 34, 70, 150) if case == "invalid-inside" else ()
+    m_t = _accumulate_window(rng, cap, lanes, flat, invalid=invalid)
+    _host_accumulate_against_plain(m_t, cap)
 
 
 @pytest.mark.parametrize("sparse_k", [0, 8])

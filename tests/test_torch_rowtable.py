@@ -114,6 +114,31 @@ def test_row_evict_matches_jax(interpret):
     assert (table[slots[slots < CAP]] == 0).all()
 
 
+@pytest.mark.parametrize("width", [ROW_W, 6])
+def test_row_evict_on_the_cpu_zeroes_exactly_the_kept_rows(width):
+    """``row_evict`` on CPU tensors is the plain scatter of zero rows and
+    launches nothing: kept lanes' rows become 0, every other row (the
+    guard row, rows that negative or past-capacity lanes aim at) stays."""
+    g = torch.Generator().manual_seed(width)
+    table = torch.randint(-2**62, 2**62, (CAP + 1, width), generator=g,
+                          dtype=torch.int64)
+    slots = torch.tensor([0, 5, -1, CAP, 17, CAP + 3, -(2**40), 63, 9],
+                         dtype=torch.int64)
+    want = table.clone()
+    rowtable.scatter_rows_plain(
+        want, slots, torch.zeros((len(slots), width), dtype=torch.int64))
+    r0 = rowtable.scatter_rows.launches
+    got = table.clone()
+    assert rowtable.row_evict(got, slots) is got
+    assert rowtable.scatter_rows.launches == r0
+    assert torch.equal(got, want)
+    kept = torch.tensor([0, 5, 17, 63, 9])
+    assert (got[kept] == 0).all()
+    rest = torch.ones(CAP + 1, dtype=torch.bool)
+    rest[kept] = False
+    assert torch.equal(got[rest], table[rest])
+
+
 @pytest.mark.parametrize("now_offset", [-20_000, 0, 1, 70_000])
 def test_dead_mask_matches_row_dead_scan(now_offset):
     """The reclaim's dead test (in_use == 0 or expire_at < now) agrees
